@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.api.scorers import TreeScorer
+from repro_torch.core import fit_qwyc
 from repro_torch.core.executor import CascadePlan
+from repro_torch.data.synthetic import make_dataset
+from repro_torch.ensembles.gbt import apply_gbt_scores, train_gbt
 from repro_torch.kernels import _build
 from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_chunk_plain
 from repro_torch.kernels.device_executor import (
@@ -21,7 +25,10 @@ from repro_torch.kernels.device_executor import (
     tree_stage_scorer,
 )
 from repro_torch.kernels.megakernel import mega_stage_kernel, mega_stage_plain
+from repro_torch.kernels.ops import gbt_scores
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
+from repro_torch.launch import serve
+from repro_torch.serving.engine import BACKENDS, QWYCServer
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +125,49 @@ def test_device_executor_on_card_equals_cpu(dev, megakernel):
     np.testing.assert_array_equal(res[0].exit_step, res[1].exit_step)
     np.testing.assert_array_equal(res[0].g_final, res[1].g_final)
     assert res[0].chunk_stats == res[1].chunk_stats
+
+
+@pytest.fixture(scope="module")
+def small_gbt():
+    ds = make_dataset("adult", scale=0.1)
+    g = train_gbt(ds.x_train, ds.y_train, n_trees=40, depth=5, device="cpu")
+    F = apply_gbt_scores(g.stacked(), torch.from_numpy(ds.x_train)).numpy()
+    return ds, g, fit_qwyc(F.astype(np.float64), beta=-g.base_score, alpha=0.01)
+
+
+@pytest.mark.parametrize("policy", BACKENDS)
+@pytest.mark.parametrize("exec_backend", ["host", "device"])
+def test_server_on_card_equals_cpu(dev, small_gbt, policy, exec_backend):
+    """Both backends and all three policies: on the host backend the card
+    runs B3 per stage through the lazy producer and B2 as the decide."""
+    ds, g, m = small_gbt
+    out = []
+    for d in (dev, "cpu"):
+        params = {k: v.to(d) for k, v in g.stacked().items()}
+
+        def chunk_score_fn(x, rows, t0, t1, params=params, d=d):
+            order = torch.as_tensor(m.order, device=d)
+            f, th, lv = (params[k][order] for k in ("feats", "thrs", "leaves"))
+            return gbt_scores(f, th, lv, x, t0=t0, t1=t1, rows=rows, block_n=64)
+
+        kw = (
+            {"scorer": TreeScorer(g.feats, g.thrs, g.leaves)}
+            if exec_backend == "device"
+            else {"chunk_score_fn": chunk_score_fn, "score_block_n": 64}
+        )
+        srv = QWYCServer(m, exec_backend=exec_backend, device=d, backend=policy,
+                         batch_size=64, **kw)
+        for row in ds.x_test:
+            srv.submit(row)
+        out.append((srv.drain(), srv.stats))
+    (a, sa), (b, sb) = out
+    assert a == b
+    assert sa.scores_computed == sb.scores_computed
+    assert sa.chunk_survivors == sb.chunk_survivors
+
+
+def test_cli_serves_on_card(dev, capsys):
+    serve.main(["--T", "40", "--scale", "0.1", "--alpha", "0.01", "--audit"])
+    out = capsys.readouterr().out
+    assert "(device backend, sorted-kernel policy, lazy)" in out
+    assert "diff vs full 0." in out
