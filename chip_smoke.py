@@ -20,13 +20,14 @@ Phases, each of which stops the run on failure:
    batch 256, chunk_t 8) over the test rows.  The verdicts, models
    evaluated and full scores equal the same server run with device="cpu"
    (the plain versions) and the ``evaluate_cascade`` oracle; megakernel on
-   equals off (results and billing); every kernel's launch count over this
-   phase is > 0.
+   equals off (results and billing).  The launch counts are set to 0 just
+   before each path (calibration, fused, unfused, CPU, eager) and read just
+   after it: each path must have launched exactly its own kernels.
 5. Times, after a warm-up: the per-flush latency at batch 128 / 256 / 1024
    (host clock, median and p90 of 100 flushes), the device's busy share of
-   one flush (profiler), and each kernel at its main-path shape beside its
-   plain version and its bound: device time per launch (profiler) and the
-   time of one Python call of the wrapper (CUDA events, median of 25).
+   a batch-256 flush (profiler device time over the unprofiled median
+   flush), and each kernel's device time per launch (profiler) at its
+   main-path shape beside its plain version's and its bound.
 
 Prints the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -53,15 +54,24 @@ PEAK_F32 = 67e12
 N_WARM, N_FLUSH = 5, 100
 
 KERNELS = {
-    # name: (source, TPU kernel it replaces)
+    # name: (source, TPU kernel it replaces, the served path whose launches
+    # the kernels line reports)
     "cascade_chunk": ("src/repro_torch/csrc/cascade_chunk.cu",
-                      "src/repro/kernels/cascade_kernel.py:346"),
+                      "src/repro/kernels/cascade_kernel.py:346", "unfused/both"),
     "gbt_scores": ("src/repro_torch/csrc/tree_scores.cu",
-                   "src/repro/kernels/tree_kernel.py:62"),
+                   "src/repro/kernels/tree_kernel.py:62", "fused/both"),
     "mega_stage_tree": ("src/repro_torch/csrc/mega_stage.cu",
-                        "src/repro/kernels/megakernel.py:556"),
+                        "src/repro/kernels/megakernel.py:556", "fused/both"),
     "mega_stage_matrix": ("src/repro_torch/csrc/mega_stage.cu",
-                          "src/repro/kernels/megakernel.py:556"),
+                          "src/repro/kernels/megakernel.py:556", "eager/both"),
+}
+# the kernels each path of phase 4 must launch; no other kernel may
+PATH_KERNELS = {
+    "calibration": {"gbt_scores"},  # the (N, 500) score matrices
+    "fused": {"gbt_scores", "mega_stage_tree"},  # default: sort key + B4 tree
+    "unfused": {"gbt_scores", "cascade_chunk"},  # megakernel=False: B3 + B2
+    "cpu": set(),  # device="cpu": the plain versions only
+    "eager": {"gbt_scores", "mega_stage_matrix"},  # score_fn matrix + B4 matrix
 }
 
 
@@ -98,25 +108,23 @@ class Check:
             raise AssertionError(f"{kernel} {what}: kernel != plain (max abs err {err})")
 
 
-def cuda_time_ms(fn, reps: int = 25, inner: int = 20) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events, after a warm-up."""
+def counted(launches: dict, path: str, fn):
+    """``fn()`` with every launch count set to 0 just before it; the counts
+    are read just after it, stored as ``launches[path]``, and must name
+    exactly the kernels of ``PATH_KERNELS`` for the path."""
     import torch
 
-    for _ in range(5):
-        fn()
+    from repro_torch.kernels import _build
+
+    _build.LAUNCHES.clear()
+    out = fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    got = {k: v for k, v in _build.LAUNCHES.items() if v}
+    want = PATH_KERNELS[path.split("/")[0]]
+    if set(got) != want:
+        raise AssertionError(f"{path}: launched {got}, expected exactly {sorted(want)}")
+    launches[path] = got
+    return out
 
 
 def device_work(prof) -> dict:
@@ -133,8 +141,9 @@ def device_work(prof) -> dict:
 
 def device_time_ms(fn, reps: int = 50) -> float:
     """Device time of one call of ``fn``: the profiler's sum over every
-    kernel and copy it launched, over ``reps`` calls, per call.  Unlike
-    ``cuda_time_ms`` this leaves out the host's time between launches."""
+    kernel and copy it launched, over ``reps`` calls, per call, after a
+    warm-up.  The host's time between launches is left out: at serving
+    shapes a call costs the host tens of times what it costs the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,8 +286,9 @@ def serve(server, x) -> list[dict]:
     return server.drain()
 
 
-def phase_main_path(report: dict) -> dict:
-    """Phase 4: exp1_adult end to end on the card, held against the CPU."""
+def phase_main_path(report: dict, launches: dict) -> dict:
+    """Phase 4: exp1_adult end to end on the card, held against the CPU.
+    Fills ``launches`` with each path's own launch counts."""
     import numpy as np
     import torch
 
@@ -300,11 +310,16 @@ def phase_main_path(report: dict) -> dict:
     def score_fn(x):
         return ops.gbt_scores(feats, thrs, leaves, x)
 
+    def matrices():
+        return tuple(
+            score_fn(torch.from_numpy(x).cuda()).cpu().numpy().astype(np.float64)
+            for x in (ds.x_train, ds.x_test)
+        )
+
     t = time.perf_counter()
-    F_train = score_fn(torch.from_numpy(ds.x_train).cuda()).cpu().numpy().astype(np.float64)
-    F_test = score_fn(torch.from_numpy(ds.x_test).cuda()).cpu().numpy().astype(np.float64)
+    F_train, F_test = counted(launches, "calibration", matrices)
     log(f"[phase 4] calibration matrix {F_train.shape} with B3 in "
-        f"{time.perf_counter() - t:.2f}s")
+        f"{time.perf_counter() - t:.2f}s; launches {launches['calibration']}")
     fits = {}
     for mode in ("both", "neg_only"):
         t = time.perf_counter()
@@ -321,18 +336,26 @@ def phase_main_path(report: dict) -> dict:
             chunk_t=8, **kw,
         )
 
-    out = {}
+    out, per_flush = {}, {}
+
+    def served(path, srv):
+        res = counted(launches, path, lambda: serve(srv, ds.x_test))
+        n = srv.stats.n_batches
+        per_flush[path] = {k: v / n for k, v in launches[path].items()}
+        log(f"[phase 4] launches {path}: {launches[path]} over {n} flushes")
+        return res
+
     for mode in ("both", "neg_only"):
         t = time.perf_counter()
         card = server(mode, "cuda")
-        res_card = serve(card, ds.x_test)
+        res_card = served(f"fused/{mode}", card)
         wall = time.perf_counter() - t
         cpu = server(mode, "cpu")
-        res_cpu = serve(cpu, ds.x_test)
+        res_cpu = served(f"cpu/{mode}", cpu)
         if res_card != res_cpu:  # verdicts, models evaluated, full scores
             raise AssertionError(f"{mode}: card results != CPU (plain) results")
         off = server(mode, "cuda", backend_opts={"megakernel": False})
-        res_off = serve(off, ds.x_test)
+        res_off = served(f"unfused/{mode}", off)
         if res_off != res_card:
             raise AssertionError(f"{mode}: megakernel off != on")
         for k in ("scores_computed", "chunk_survivors", "models_evaluated"):
@@ -363,7 +386,7 @@ def phase_main_path(report: dict) -> dict:
 
     # the eager path: the score matrix per flush through the matrix variant
     eager = server("both", "cuda", scorer=None, score_fn=score_fn)
-    res_eager = serve(eager, ds.x_test)
+    res_eager = served("eager/both", eager)
     ev = evaluate_cascade(fits["both"], F_test)
     if [r["models_evaluated"] for r in res_eager] != ev["exit_step"].tolist() or [
         r["decision"] for r in res_eager
@@ -372,6 +395,8 @@ def phase_main_path(report: dict) -> dict:
     log(f"[phase 4] eager serve (matrix variant): == oracle, diff vs full "
         f"{eager.stats.diff_rate:.4f} (alpha=0.005)")
     report["main_path"] = out
+    report["launches"] = launches
+    report["launches_per_flush"] = per_flush
     return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server)
 
 
@@ -427,14 +452,19 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
         wall_us = (time.perf_counter() - t) * 1e6
     by_name = device_work(prof)
     busy = sum(v[0] for v in by_name.values())
+    if not busy:
+        raise AssertionError("the profiler saw no device time in a flush")
+    # the profiler slows the host: the share is taken over the unprofiled
+    # median flush of the same batch and path, measured above
+    wall_unprofiled_us = lat["batch256"]["median_ms"] * 1e3
     report["profile_flush256"] = dict(
-        wall_us=wall_us, device_busy_us=busy,
-        busy_share=(busy / wall_us) if busy else None,
+        device_busy_us=busy, wall_unprofiled_median_us=wall_unprofiled_us,
+        busy_share=busy / wall_unprofiled_us, wall_profiled_us=wall_us,
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
     )
-    log(f"[phase 5] one flush (batch 256) under the profiler: wall {wall_us:.0f} us, "
-        f"device busy {busy:.0f} us"
-        + (f" ({busy / wall_us:.1%})" if busy else " (not measured: no device time)"))
+    log(f"[phase 5] one flush (batch 256, fused): device busy {busy:.0f} us = "
+        f"{busy / wall_unprofiled_us:.2%} of the unprofiled median flush "
+        f"{wall_unprofiled_us:.0f} us (wall under the profiler {wall_us:.0f} us)")
 
     g0, chunk, ep, en = ctx["chunk"]
     feats, thrs, leaves = ctx["forest"]
@@ -452,21 +482,20 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
     kernels = []
 
     def entry(name, fn, plain, nbytes, ops, shape, extra=None):
-        # ms: device time per launch; call_ms: one Python call of the
-        # wrapper, back to back (host-bound at these shapes)
+        # device time per launch, the plain version's per call
         ms, plain_ms = device_time_ms(fn), device_time_ms(plain)
-        call_ms, plain_call_ms = cuda_time_ms(fn), cuda_time_ms(plain)
         b, by = bound(nbytes, ops)
-        src, replaces = KERNELS[name]
+        src, replaces, path = KERNELS[name]
         e = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches.get(name, 0), max_abs_err=check.max_err[name],
+            launches=launches[path][name], max_abs_err=check.max_err[name],
             ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-            call_ms=call_ms, plain_call_ms=plain_call_ms, shape=shape, **(extra or {}),
+            path=path,
+            launches_by_path={p: c[name] for p, c in launches.items() if name in c},
+            shape=shape, **(extra or {}),
         )
         kernels.append(e)
         log(f"[phase 5] {name} {shape}: device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), "
-            f"per call {call_ms * 1e3:.2f} us (plain {plain_call_ms * 1e3:.2f} us), "
             f"bound {b * 1e3:.4f} us ({by})")
 
     entry(
@@ -557,15 +586,9 @@ def main() -> int:
     check = Check()
     ctx = phase_kernels(check)
 
-    # phase 4: the main path; counts from just before to just after
-    _build.LAUNCHES.clear()
-    main_ctx = phase_main_path(report)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"[phase 4] launches over the main path: {launches}")
-    missing = [k for k in KERNELS if launches.get(k, 0) == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # phase 4: the main path; each path's counts from just before to just after it
+    launches: dict = {}
+    main_ctx = phase_main_path(report, launches)
 
     # phase 5: times
     kernels = phase_times(ctx, main_ctx, launches, check, report)

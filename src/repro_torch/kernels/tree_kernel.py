@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from repro_torch.ensembles.gbt import apply_gbt_scores
 from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_N = 256
@@ -42,23 +43,18 @@ def gbt_scores_plain(
     rows: torch.Tensor | None = None,
     n_valid=None,
 ) -> torch.Tensor:
-    """Plain version of B3 (any device): trees [t0, t1) on the rows
-    ``x[rows]`` (indices clamped into range, as ``jnp.take`` clamps) ->
-    (n, t1 - t0) scores.  Row blocks of ``block_n`` starting at or past
-    ``n_valid`` are 0."""
+    """Plain version of B3 (any device): ``apply_gbt_scores`` of trees
+    [t0, t1) on the rows ``x[rows]`` (indices clamped into range, as
+    ``jnp.take`` clamps) -> (n, t1 - t0) scores.  Row blocks of ``block_n``
+    starting at or past ``n_valid`` are 0."""
     t0, t1 = _model_range(feats.shape[0], t0, t1)
-    f, th, lv = feats[t0:t1], thrs[t0:t1], leaves[t0:t1]
     if rows is not None:
         x = x[torch.clamp(rows.long(), 0, x.shape[0] - 1)]
-    n, tk = x.shape[0], t1 - t0
-    xg = x[:, f.reshape(-1).long()].reshape(n, tk, f.shape[1])
-    bits = (xg > th[None]).to(torch.int32)
-    idx = torch.zeros(n, tk, dtype=torch.int32, device=x.device)
-    for k in range(f.shape[1]):
-        idx = 2 * idx + bits[:, :, k]  # MSB-first, matches training layout
-    out = lv[torch.arange(tk, device=x.device)[None, :], idx.long()]
+    params = {"feats": feats[t0:t1], "thrs": thrs[t0:t1], "leaves": leaves[t0:t1]}
+    out = apply_gbt_scores(params, x)
     if n_valid is None:
         return out
+    n = x.shape[0]
     block_start = torch.arange(n, device=x.device) // block_n * block_n
     live = block_start < torch.as_tensor(n_valid, device=x.device)
     return torch.where(live[:, None], out, 0.0)
