@@ -9,27 +9,38 @@ Phases, each of which stops the run on failure:
    limit (``nvidia-smi``).
 2. Build: ``nvcc`` compiles every kernel source of ``src/repro_torch/csrc``
    (one process per source, all at once) into ``build/repro_torch_kernels``.
-3. Each kernel (B2 cascade_chunk, B3 gbt_scores, B4 mega_stage tree and
-   matrix) against its plain PyTorch version on the card, at the main
-   path's shapes and at the edges (n_valid 0, a ragged last block, ±inf
-   padded columns, rows retiring mid-block): every output ``torch.equal``.
-4. The main path, paper experiment 1 (exp1_adult) at full width: the adult
-   dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
+3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
+   tree, matrix and lattice, B5 lattice_scores) against its plain PyTorch
+   version on the card, at the main paths' shapes and at the edges (n_valid
+   0, a ragged last block, ±inf padded columns, rows retiring mid-block,
+   lattice inputs at the cube's corners, rows that never exit, the ±inf
+   "full evaluation" thresholds): every output ``torch.equal``.
+4. The first main path, paper experiment 1 (exp1_adult) at full width: the
+   adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
-   alpha = 0.005, then ``QWYCServer`` (device backend, sorted-kernel,
-   batch 256, chunk_t 8) over the test rows.  The verdicts, models
+   alpha = 0.005 (mode ``both``), then ``QWYCServer`` (device backend,
+   sorted-kernel, batch 256, chunk_t 8) over the test rows.  The verdicts, models
    evaluated and full scores equal the same server run with device="cpu"
    (the plain versions) and the ``evaluate_cascade`` oracle; megakernel on
-   equals off (results and billing).  The launch counts are set to 0 just
-   before each path (calibration, fused, unfused, CPU, eager) and read just
-   after it: each path must have launched exactly its own kernels.
-5. Times, after a warm-up: the per-flush latency at batch 128 / 256 / 1024
-   (host clock, median and p90 of 100 flushes), the device's busy share of
-   a batch-256 flush (profiler device time over the unprofiled median
-   flush), and each kernel's device time per launch (profiler) at its
-   main-path shape beside its plain version's and its bound.
+   equals off (results and billing).
+4b. The second main path, paper experiment 4 (exp4_rw2_joint) at full
+   width: rw2 (8000 / 2000 rows, D = 30), T = 500 lattices over S = 8
+   features trained jointly (300 AdamW steps on the card), the calibration
+   matrix with B5, ``fit_qwyc`` (alpha 0.005, neg_only).  Eager: B5 on the
+   test rows, the columns ordered, ``ops.cascade_decide`` (B1), equal to
+   ``evaluate_cascade``.  Served: the lattice server fused (B4 lattice) and
+   unfused (B5 + B2), both equal to the same server on the CPU and to the
+   eager B1 verdicts.
+   In both phases the launch counts are set to 0 just before each path and
+   read just after it: each path must have launched exactly its own kernels.
+5. Times, after a warm-up: the per-flush latency of both servers at batch
+   128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
+   flushes), the device's busy share of a batch-256 flush (profiler device
+   time over the unprofiled median flush), and each kernel's device time
+   per launch (profiler) at its main-path shape beside its plain version's
+   and its bound.
 
-Prints the ``kernels`` JSON line, then as the last line
+Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no result,
 without a CUDA device or outside a checkout of the repository.
@@ -52,10 +63,16 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # flush-latency samples per (batch, path), after N_WARM unrecorded flushes
 N_WARM, N_FLUSH = 5, 100
+# exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
+# phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
+# out to keep the run near 300 s
+GBT_MODES = ("both",)
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, the served path whose launches
     # the kernels line reports)
+    "cascade": ("src/repro_torch/csrc/cascade.cu",
+                "src/repro/kernels/cascade_kernel.py:127", "lattice_eager/neg_only"),
     "cascade_chunk": ("src/repro_torch/csrc/cascade_chunk.cu",
                       "src/repro/kernels/cascade_kernel.py:346", "unfused/both"),
     "gbt_scores": ("src/repro_torch/csrc/tree_scores.cu",
@@ -64,6 +81,12 @@ KERNELS = {
                         "src/repro/kernels/megakernel.py:556", "fused/both"),
     "mega_stage_matrix": ("src/repro_torch/csrc/mega_stage.cu",
                           "src/repro/kernels/megakernel.py:556", "eager/both"),
+    "mega_stage_lattice": ("src/repro_torch/csrc/mega_stage.cu",
+                           "src/repro/kernels/megakernel.py:556",
+                           "lattice_fused/neg_only"),
+    "lattice_scores": ("src/repro_torch/csrc/lattice_scores.cu",
+                       "src/repro/kernels/lattice_kernel.py:60",
+                       "lattice_fused/neg_only"),
 }
 # the kernels each path of phase 4 must launch; no other kernel may
 PATH_KERNELS = {
@@ -72,6 +95,11 @@ PATH_KERNELS = {
     "unfused": {"gbt_scores", "cascade_chunk"},  # megakernel=False: B3 + B2
     "cpu": set(),  # device="cpu": the plain versions only
     "eager": {"gbt_scores", "mega_stage_matrix"},  # score_fn matrix + B4 matrix
+    "lattice_calibration": {"lattice_scores"},  # the (N, 500) score matrix
+    "lattice_eager": {"lattice_scores", "cascade"},  # B5 test matrix + B1
+    "lattice_fused": {"lattice_scores", "mega_stage_lattice"},  # sort key + B4
+    "lattice_unfused": {"lattice_scores", "cascade_chunk"},  # B5 + B2
+    "lattice_cpu": set(),
 }
 
 
@@ -139,24 +167,46 @@ def device_work(prof) -> dict:
     return out
 
 
+def profile_device(window, prepare=None, tries: int = 3) -> dict:
+    """``device_work`` of one profiled run of ``window()`` (after
+    ``prepare()``, unprofiled).  On this card the profiler now and then
+    returns no device events for a window (seen once in a phase-5 window
+    that the run before had timed): the window is profiled again, at most
+    ``tries`` times in all, and the run fails if no attempt sees device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(tries):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            window()
+            torch.cuda.synchronize()
+        work = device_work(prof)
+        if work:
+            return work
+        log(f"[phase 5] profiler attempt {attempt + 1}/{tries} saw no device time")
+    raise AssertionError(f"the profiler saw no device time in {tries} attempts")
+
+
 def device_time_ms(fn, reps: int = 50) -> float:
     """Device time of one call of ``fn``: the profiler's sum over every
     kernel and copy it launched, over ``reps`` calls, per call, after a
     warm-up.  The host's time between launches is left out: at serving
     shapes a call costs the host tens of times what it costs the card."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def window():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for us, _ in device_work(prof).values())
-    if not total_us:
-        raise AssertionError("the profiler saw no device time")
+
+    total_us = sum(us for us, _ in profile_device(window).values())
     return total_us / reps / 1e3
 
 
@@ -165,14 +215,14 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_plan(rng, T: int, chunk_t: int, lead_t: int):
+def random_plan(rng, T: int, chunk_t: int, lead_t: int, lo=1.0, hi=4.0):
     import numpy as np
 
     from repro_torch.core.executor import CascadePlan
 
     return CascadePlan(
-        order=np.arange(T), eps_pos=rng.uniform(1.0, 4.0, size=T),
-        eps_neg=-rng.uniform(1.0, 4.0, size=T), beta=0.0, costs=np.ones(T),
+        order=np.arange(T), eps_pos=rng.uniform(lo, hi, size=T),
+        eps_neg=-rng.uniform(lo, hi, size=T), beta=0.0, costs=np.ones(T),
         chunk_t=chunk_t, lead_t=lead_t,
     )
 
@@ -183,12 +233,19 @@ def phase_kernels(check: Check) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_chunk_plain
+    from repro_torch.kernels.cascade_kernel import (
+        cascade_chunk_kernel,
+        cascade_chunk_plain,
+        cascade_kernel,
+        cascade_plain,
+    )
     from repro_torch.kernels.device_executor import (
         DevicePlan,
+        lattice_stage_scorer,
         matrix_stage_scorer,
         tree_stage_scorer,
     )
+    from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
     from repro_torch.kernels.megakernel import mega_stage_kernel, mega_stage_plain
     from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
 
@@ -272,11 +329,96 @@ def phase_kernels(check: Check) -> dict:
                     check.equal(f"mega_stage_{variant}", f"stage {stage} output {k}", a, b)
                 n_cases += 1
     log(f"[phase 3] B4 mega_stage tree + matrix == plain ({n_cases} cases)")
+
+    # B5: exp4's widths (D 30, S 8, T 500), the calibration shape and stage
+    # slabs, S in {1, 4, 8}; rows at the cube's corners (inputs 0 and 1)
+    D, LS = 30, 8
+
+    def lattices(S):
+        theta = rng.normal(size=(T, 1 << S)).astype(np.float32)
+        lf = np.stack([rng.choice(D, S, replace=False) for _ in range(T)]).astype(np.int32)
+        return torch.from_numpy(theta).to(dev), torch.from_numpy(lf).to(dev)
+
+    theta8, lfeats8 = lattices(LS)
+    xl = rng.uniform(size=(8000, D)).astype(np.float32)
+    xl[:300] = np.round(xl[:300])  # corners
+    xl_cal = torch.from_numpy(xl).to(dev)
+    check.equal(
+        "lattice_scores", "calibration 8000x500 S=8",
+        lattice_scores_kernel(theta8, lfeats8, xl_cal),
+        lattice_scores_plain(theta8, lfeats8, xl_cal),
+    )
+    xl_buf = xl_cal[:257].contiguous()  # 257: the trash row at index 256
+    n_cases = 1
+    for S in (1, 4, LS):
+        th, lf = (theta8, lfeats8) if S == LS else lattices(S)
+        for label, kw in [
+            ("stage slab", dict(t0=9, t1=17, rows=rows, n_valid=nv(256))),
+            ("ragged nv=100", dict(t0=1, t1=9, rows=rows, n_valid=nv(100))),
+            ("nv=0", dict(t0=0, t1=8, rows=rows, n_valid=nv(0))),
+            ("sort key, host nv", dict(t0=0, t1=1, n_valid=200)),
+            ("last lattices, ragged rows", dict(t0=T - 5, rows=rows[:131])),
+        ]:
+            check.equal(
+                "lattice_scores", f"S={S} {label}",
+                lattice_scores_kernel(th, lf, xl_buf, block_n=64, **kw),
+                lattice_scores_plain(th, lf, xl_buf, block_n=64, **kw),
+            )
+            n_cases += 1
+    log(f"[phase 3] B5 lattice_scores == plain ({n_cases} cases)")
+
+    # B4 lattice: the exp4 plan geometry, thresholds that retire rows
+    # mid-block, the ragged last stage's ±inf padded columns
+    lplan = DevicePlan.from_plan(random_plan(rng, T, 8, 1, lo=0.3, hi=1.5))
+    lattice = lattice_stage_scorer(
+        lplan, theta8.cpu().numpy(), lfeats8.cpu().numpy(), block_n=64, device=dev
+    )
+    leps = (torch.from_numpy(lplan.eps_pos).to(dev), torch.from_numpy(lplan.eps_neg).to(dev))
+    xr = xl_buf[rows].contiguous()
+    n_cases, mid_block = 0, 0
+    for stage in (0, 5, 63):
+        for n_valid in (nv(256), nv(0), nv(100), nv(200)):
+            t0 = int(lplan.stage_t0[stage])
+            args = (lattice.slabs, xr, g_buf, stage, t0, n_valid, *leps)
+            got = mega_stage_kernel(*args, block_n=64)
+            want = mega_stage_plain(*args, block_n=64)
+            for k, (a, b) in enumerate(zip(got, want)):
+                check.equal("mega_stage_lattice", f"stage {stage} output {k}", a, b)
+            live = got[3][: int(n_valid)]
+            mid_block += int(bool((live > 0).any() and (live == 0).any()))
+            n_cases += 1
+    if not mid_block:
+        raise AssertionError("B4 lattice check: no case retired rows mid-block")
+    log(f"[phase 3] B4 mega_stage lattice == plain ({n_cases} cases, "
+        f"{mid_block} retiring rows mid-block)")
+
+    # B1 at (2000, 500): T not a multiple of chunk_t, rows that never exit,
+    # the ±inf "full evaluation" thresholds
+    Fb = rng.normal(scale=0.3, size=(2000, T)).astype(np.float32)
+    Fb[:64] = 0.0  # never exit
+    Fb_t = torch.from_numpy(Fb).to(dev)
+    b_ep = torch.from_numpy(rng.uniform(1.0, 4.0, size=T).astype(np.float32)).to(dev)
+    b_en = -torch.from_numpy(rng.uniform(1.0, 4.0, size=T).astype(np.float32)).to(dev)
+    inf = torch.full((T,), float("inf"), device=dev)
+    for label, (F_, p_, n_, beta, ct) in [
+        ("qwyc-like", (Fb_t, b_ep, b_en, 0.0, 8)),
+        ("full evaluation ±inf", (Fb_t, inf, -inf, 0.0, 8)),
+        ("T=499, chunk 7, beta 0.1", (Fb_t[:, :499].contiguous(), b_ep[:499], b_en[:499], 0.1, 7)),
+    ]:
+        got = cascade_kernel(F_, p_, n_, beta, chunk_t=ct)
+        want = cascade_plain(F_, p_, n_, beta, chunk_t=ct)
+        for k, (a, b) in enumerate(zip(got, want)):
+            check.equal("cascade", f"{label} output {k}", a, b)
+        Tl = F_.shape[1]
+        if not bool((got[1][:64] == Tl).all()):
+            raise AssertionError(f"B1 {label}: a zero row exited")
+    log("[phase 3] B1 cascade == plain (3 cases)")
     torch.cuda.synchronize()
     return dict(
         chunk=(g0, chunk, ep, en), forest=(feats, thrs, leaves), x_cal=x_cal,
         x_buf=x_buf, rows=rows, dplan=dplan, tree=tree, matrix=matrix, F=F,
-        eps=(eps_pos, eps_neg), g_buf=g_buf,
+        eps=(eps_pos, eps_neg), g_buf=g_buf, lat=(theta8, lfeats8), xl_cal=xl_cal,
+        xl_buf=xl_buf, lplan=lplan, lattice=lattice, leps=leps,
     )
 
 
@@ -321,7 +463,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     log(f"[phase 4] calibration matrix {F_train.shape} with B3 in "
         f"{time.perf_counter() - t:.2f}s; launches {launches['calibration']}")
     fits = {}
-    for mode in ("both", "neg_only"):
+    for mode in GBT_MODES:
         t = time.perf_counter()
         fits[mode] = fit_qwyc(F_train, beta=beta, alpha=0.005, mode=mode)
         log(f"[phase 4] fit_qwyc(alpha=0.005, mode={mode}) in "
@@ -345,7 +487,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
         log(f"[phase 4] launches {path}: {launches[path]} over {n} flushes")
         return res
 
-    for mode in ("both", "neg_only"):
+    for mode in GBT_MODES:
         t = time.perf_counter()
         card = server(mode, "cuda")
         res_card = served(f"fused/{mode}", card)
@@ -400,25 +542,145 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server)
 
 
-def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dict) -> list:
-    """Phase 5: flush latency and per-kernel times by CUDA events."""
+def phase_lattice_path(report: dict, launches: dict) -> dict:
+    """Phase 4b: exp4_rw2_joint end to end on the card, eager (B5 + B1) and
+    served (fused and unfused), held against the CPU and against each
+    other.  Fills ``launches`` with each path's own launch counts."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import megakernel as mk
-    from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_chunk_plain
-    from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
+    from repro_torch.api.scorers import LatticeScorer
+    from repro_torch.core import evaluate_cascade, fit_qwyc
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.ensembles.lattice import init_lattice_ensemble, train_lattice_ensemble
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import QWYCServer
 
-    ds, server = main["ds"], main["server"]
+    T, S, mode = 500, 8, "neg_only"
+    t = time.perf_counter()
+    ds = make_dataset("rw2", scale=1.0)
+    lat = init_lattice_ensemble(T, ds.D, S=S, seed=0, device="cuda")
+    lat = train_lattice_ensemble(lat, ds.x_train, ds.y_train, mode="joint", steps=300)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    log(f"[phase 4b] rw2 {ds.x_train.shape}/{ds.x_test.shape}; train_lattice_ensemble "
+        f"T={T} S={S} joint, 300 steps on the card in {train_s:.1f}s")
+    theta, feats = lat["theta"], lat["feats"]
+    if not bool(torch.isfinite(theta).all()):
+        raise AssertionError("lattice training gave non-finite vertex values")
+    x_train = torch.from_numpy(ds.x_train).cuda()
+    x_test = torch.from_numpy(ds.x_test).cuda()
+
+    t = time.perf_counter()
+    F_train = counted(
+        launches, "lattice_calibration",
+        lambda: ops.lattice_scores(theta, feats, x_train).cpu().numpy().astype(np.float64),
+    )
+    log(f"[phase 4b] calibration matrix {F_train.shape} with B5 in "
+        f"{time.perf_counter() - t:.2f}s; launches {launches['lattice_calibration']}")
+    t = time.perf_counter()
+    fit = fit_qwyc(F_train, beta=0.0, alpha=0.005, mode=mode)
+    fit_s = time.perf_counter() - t
+    log(f"[phase 4b] fit_qwyc(alpha=0.005, mode={mode}) in {fit_s:.1f}s: train mean "
+        f"models {fit.train_mean_models:.2f}/{T}, train diff {fit.train_diff_rate:.4f}")
+
+    # eager Filter-and-Score: score the test matrix, order it, decide it whole
+    order = torch.as_tensor(fit.order, device="cuda")
+    # thresholds are by cascade position; B1 casts them to f32
+    eps_pos = torch.as_tensor(fit.eps_pos, device="cuda")
+    eps_neg = torch.as_tensor(fit.eps_neg, device="cuda")
+
+    def eager():
+        F = ops.lattice_scores(theta, feats, x_test)
+        dec, ex = ops.cascade_decide(F[:, order].contiguous(), eps_pos, eps_neg, fit.beta)
+        return F.cpu().numpy(), dec.cpu().numpy(), ex.cpu().numpy()
+
+    F_test, dec_eager, ex_eager = counted(launches, "lattice_eager/neg_only", eager)
+    ev = evaluate_cascade(fit, F_test.astype(np.float64))
+    if not (np.array_equal(dec_eager.astype(bool), ev["decisions"])
+            and np.array_equal(ex_eager, ev["exit_step"])):
+        raise AssertionError("eager B1 verdicts != evaluate_cascade")
+    y = ds.y_test > 0
+    log(f"[phase 4b] eager B5 + B1: == evaluate_cascade; mean models "
+        f"{ex_eager.mean():.3f}/{T}, diff vs full {ev['diff_rate']:.4f}, test acc "
+        f"{np.mean(dec_eager.astype(bool) == y):.4f}; launches "
+        f"{launches['lattice_eager/neg_only']}")
+
+    def server(device, **kw):
+        kw.setdefault("batch_size", 256)
+        return QWYCServer(
+            fit, scorer=LatticeScorer(theta, feats), exec_backend="device",
+            device=device, backend="sorted-kernel", chunk_t=8, **kw,
+        )
+
+    per_flush = report.setdefault("launches_per_flush", {})
+    res, srvs = {}, {}
+    for path, device, opts in (
+        ("lattice_fused", "cuda", {}),
+        ("lattice_unfused", "cuda", {"megakernel": False}),
+        ("lattice_cpu", "cpu", {}),
+    ):
+        key = f"{path}/{mode}"
+        t = time.perf_counter()
+        srv = srvs[path] = server(device, backend_opts=opts)
+        res[path] = counted(launches, key, lambda: serve(srv, ds.x_test))
+        nb, n_stages = srv.stats.n_batches, srv._dev[0].dplan.S
+        per_flush[key] = {k: v / nb for k, v in launches[key].items()}
+        want = {
+            "lattice_fused": {"lattice_scores": nb, "mega_stage_lattice": nb * n_stages},
+            "lattice_unfused": {"lattice_scores": nb * (1 + n_stages),
+                                "cascade_chunk": nb * n_stages},
+            "lattice_cpu": {},
+        }[path]
+        if launches[key] != want:
+            raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+        log(f"[phase 4b] serve {key}: {nb} flushes of {n_stages} stages in "
+            f"{time.perf_counter() - t:.1f}s; launches {launches[key]}")
+    if not res["lattice_fused"] == res["lattice_unfused"] == res["lattice_cpu"]:
+        raise AssertionError("lattice: fused, unfused and CPU results differ")
+    for k in ("scores_computed", "chunk_survivors", "models_evaluated"):
+        vals = [getattr(srvs[p].stats, k) for p in ("lattice_fused", "lattice_unfused", "lattice_cpu")]
+        if not vals[0] == vals[1] == vals[2]:
+            raise AssertionError(f"lattice: {k} differs (fused, unfused, cpu): {vals}")
+    got = res["lattice_fused"]
+    dec = np.array([r["decision"] for r in got])
+    ex = np.array([r["models_evaluated"] for r in got])
+    if not (np.array_equal(dec, dec_eager.astype(bool)) and np.array_equal(ex, ex_eager)):
+        raise AssertionError("lattice: served verdicts != eager B1 verdicts")
+    fs = [r["full_score"] for r in got if "full_score" in r]
+    if len(got) != len(ds.y_test) or not np.isfinite(fs).all() or len(fs) != int(dec.sum()):
+        raise AssertionError("lattice: missing results or non-finite full scores")
+    st = srvs["lattice_fused"].stats
+    acc = float(np.mean(dec == y))
+    report["lattice_path"] = dict(
+        config="exp4_rw2_joint", T=T, S=S, mode=mode, alpha=0.005,
+        train_s=train_s, fit_s=fit_s, train_mean_models=fit.train_mean_models,
+        mean_models=st.mean_models, speedup=st.speedup,
+        scores_computed=st.scores_computed, scores_possible=st.scores_possible,
+        n_batches=st.n_batches, stages_run=len(st.chunk_survivors),
+        test_acc=acc, full_scores=len(fs), diff_vs_full=ev["diff_rate"],
+    )
+    log(f"[phase 4b] served {mode}: mean models {st.mean_models:.3f}/{T}, scores "
+        f"computed {st.scores_computed}/{st.scores_possible}, {len(fs)} positives "
+        f"with full scores, test acc {acc:.4f}; fused == unfused == CPU plain == "
+        f"eager B1 == evaluate_cascade")
+    return dict(ds=ds, fit=fit, theta=theta, feats=feats, server=server,
+                F_ordered=torch.from_numpy(F_test).cuda()[:, order].contiguous(),
+                eps=(eps_pos, eps_neg), steps=int(ex_eager.sum()))
+
+
+def flush_latency(make_server, x, label: str) -> dict:
+    """Median and p90 flush latency at batch 128 / 256 / 1024, fused
+    (megakernel on, the default) and unfused, for the servers
+    ``make_server(batch_size=, backend_opts=)`` builds."""
     lat = {}
     for batch in (128, 256, 1024):
         for megakernel in (None, False):
-            srv = server("both", "cuda", batch_size=batch,
-                         backend_opts={"megakernel": megakernel})
+            srv = make_server(batch_size=batch, backend_opts={"megakernel": megakernel})
             times = []
             for k in range(N_WARM + N_FLUSH):
-                start = (k * batch) % (2000 - batch)
-                rows = ds.x_test[start : start + batch]
+                start = (k * batch) % (x.shape[0] - batch)
+                rows = x[start : start + batch]
                 for row in rows[:-1]:
                     srv.submit(row)
                 t = time.perf_counter()
@@ -432,39 +694,69 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
                 p90_ms=statistics.quantiles(times, n=10)[-1],
                 min_ms=min(times), max_ms=max(times), n=len(times),
             )
-            log(f"[phase 5] flush latency batch {batch} "
+            log(f"[phase 5] {label} flush latency batch {batch} "
                 f"({'fused' if megakernel is None else 'unfused'}): median "
                 f"{lat[key]['median_ms']:.3f} ms, p90 {lat[key]['p90_ms']:.3f} ms "
                 f"over {len(times)} flushes")
-    report["flush_latency"] = lat
+    return lat
 
-    # device busy share over one steady flush at batch 256
-    srv = server("both", "cuda")
-    serve(srv, ds.x_test[:256])
-    for row in ds.x_test[256:511]:
-        srv.submit(row)
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def busy_share(srv, x, median_ms: float, label: str) -> dict:
+    """Device busy share of one steady batch-256 flush of ``srv``: the
+    profiler's device time over the unprofiled median flush ``median_ms``
+    (the profiler slows the host, so its own wall would understate it)."""
+    serve(srv, x[:256])
+    wall = {}
+
+    def fill():  # 255 rows queued: the next submit flushes
+        for row in x[256:511]:
+            srv.submit(row)
+
+    def flush():
         t = time.perf_counter()
-        srv.submit(ds.x_test[511])  # the 256th row: one flush
-        wall_us = (time.perf_counter() - t) * 1e6
-    by_name = device_work(prof)
+        srv.submit(x[511])  # the 256th row: one flush
+        wall["us"] = (time.perf_counter() - t) * 1e6
+
+    by_name = profile_device(flush, prepare=fill)
     busy = sum(v[0] for v in by_name.values())
-    if not busy:
-        raise AssertionError("the profiler saw no device time in a flush")
-    # the profiler slows the host: the share is taken over the unprofiled
-    # median flush of the same batch and path, measured above
-    wall_unprofiled_us = lat["batch256"]["median_ms"] * 1e3
-    report["profile_flush256"] = dict(
+    wall_unprofiled_us = median_ms * 1e3
+    log(f"[phase 5] {label} one flush (batch 256, fused): device busy {busy:.0f} us = "
+        f"{busy / wall_unprofiled_us:.2%} of the unprofiled median flush "
+        f"{wall_unprofiled_us:.0f} us (wall under the profiler {wall['us']:.0f} us)")
+    return dict(
         device_busy_us=busy, wall_unprofiled_median_us=wall_unprofiled_us,
-        busy_share=busy / wall_unprofiled_us, wall_profiled_us=wall_us,
+        busy_share=busy / wall_unprofiled_us, wall_profiled_us=wall["us"],
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
     )
-    log(f"[phase 5] one flush (batch 256, fused): device busy {busy:.0f} us = "
-        f"{busy / wall_unprofiled_us:.2%} of the unprofiled median flush "
-        f"{wall_unprofiled_us:.0f} us (wall under the profiler {wall_us:.0f} us)")
+
+
+def phase_times(ctx: dict, main: dict, lmain: dict, launches: dict, check: Check,
+                report: dict) -> list:
+    """Phase 5: flush latency and per-kernel device times."""
+    import torch
+
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.kernels.cascade_kernel import (
+        cascade_chunk_kernel,
+        cascade_chunk_plain,
+        cascade_kernel,
+        cascade_plain,
+    )
+    from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
+    from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
+
+    ds, server = main["ds"], main["server"]
+    lat = flush_latency(lambda **kw: server("both", "cuda", **kw), ds.x_test, "exp1_adult")
+    report["flush_latency"] = lat
+    report["profile_flush256"] = busy_share(
+        server("both", "cuda"), ds.x_test, lat["batch256"]["median_ms"], "exp1_adult"
+    )
+    lds, lserver = lmain["ds"], lmain["server"]
+    llat = flush_latency(lambda **kw: lserver("cuda", **kw), lds.x_test, "exp4_rw2_joint")
+    report["lattice_flush_latency"] = llat
+    report["lattice_profile_flush256"] = busy_share(
+        lserver("cuda"), lds.x_test, llat["batch256"]["median_ms"], "exp4_rw2_joint"
+    )
 
     g0, chunk, ep, en = ctx["chunk"]
     feats, thrs, leaves = ctx["forest"]
@@ -498,6 +790,16 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
         log(f"[phase 5] {name} {shape}: device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), "
             f"bound {b * 1e3:.4f} us ({by})")
 
+    def calibration(name, fn, plain, nbytes, ops, shape):
+        # the one-off calibration shape, beside the serving shape's entry
+        ms = device_time_ms(fn, reps=20)
+        plain_ms = device_time_ms(plain, reps=5)
+        b, by = bound(nbytes, ops)
+        log(f"[phase 5] {name} calibration {shape}: device {ms * 1e3:.1f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
+        return dict(calib_shape=shape, calib_ms=ms, calib_plain_ms=plain_ms,
+                    calib_bound_ms=b, calib_bound_by=by)
+
     entry(
         "cascade_chunk",
         lambda: cascade_chunk_kernel(g0, chunk, ep, en, 0, block_n=64, n_valid=nv),
@@ -505,11 +807,11 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
         nbytes=4 * (m + m * ct + 2 * ct) + 16 * m, ops=3 * m * ct,
         shape=f"m={m} ct={ct}",
     )
-    cal_ms = device_time_ms(lambda: gbt_scores_kernel(feats, thrs, leaves, x_cal), reps=20)
-    cal_plain = device_time_ms(lambda: gbt_scores_plain(feats, thrs, leaves, x_cal), reps=5)
     N, T = x_cal.shape[0], feats.shape[0]
-    cal_bound, cal_by = bound(
-        4 * N * d + T * (8 * depth + 4 * L) + 4 * N * T, N * T * depth
+    extra = calibration(
+        "gbt_scores", lambda: gbt_scores_kernel(feats, thrs, leaves, x_cal),
+        lambda: gbt_scores_plain(feats, thrs, leaves, x_cal),
+        4 * N * d + T * (8 * depth + 4 * L) + 4 * N * T, N * T * depth, f"{N}x{T}",
     )
     entry(
         "gbt_scores",
@@ -518,12 +820,8 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
         lambda: gbt_scores_plain(feats, thrs, leaves, x_buf, block_n=64, t0=t0,
                                  t1=t0 + W, rows=rows_all, n_valid=nv),
         nbytes=256 * (4 * d + 8) + W * (8 * depth + 4 * L) + 4 * 256 * W,
-        ops=256 * W * depth, shape=f"stage: rows=256 trees={W}",
-        extra=dict(calib_shape=f"{N}x{T}", calib_ms=cal_ms, calib_plain_ms=cal_plain,
-                   calib_bound_ms=cal_bound, calib_bound_by=cal_by),
+        ops=256 * W * depth, shape=f"stage: rows=256 trees={W}", extra=extra,
     )
-    log(f"[phase 5] gbt_scores calibration {N}x{T}: device {cal_ms * 1e3:.1f} us, plain "
-        f"{cal_plain * 1e3:.1f} us, bound {cal_bound * 1e3:.2f} us ({cal_by})")
     out_bytes = 20 * 256 + 4 * 4
     entry(
         "mega_stage_tree",
@@ -542,6 +840,52 @@ def phase_times(ctx: dict, main: dict, launches: dict, check: Check, report: dic
                                     eps_pos, eps_neg, block_n=64),
         nbytes=256 * 4 * (W + 1) + 8 * W + 4 + out_bytes,
         ops=256 * W * 3, shape=f"cap=256 W={W} T_pad={F.shape[1]}",
+    )
+
+    # the lattice path: exp4's trained ensemble and fitted cascade
+    theta, lfeats = lmain["theta"], lmain["feats"]
+    Tl, S = lfeats.shape
+    P = 1 << S
+    flops = 3 * (P - 1)  # per (row, lattice): S halvings, 2 mul + 1 add each
+    xl_cal = torch.from_numpy(lds.x_train).cuda()
+    Nl, Dl = xl_cal.shape
+    extra = calibration(
+        "lattice_scores", lambda: lattice_scores_kernel(theta, lfeats, xl_cal),
+        lambda: lattice_scores_plain(theta, lfeats, xl_cal),
+        4 * Nl * Dl + Tl * 4 * (P + S) + 4 * Nl * Tl, Nl * Tl * flops, f"{Nl}x{Tl} S={S}",
+    )
+    xl_buf = torch.from_numpy(lds.x_test[:257]).cuda()
+    entry(
+        "lattice_scores",
+        lambda: lattice_scores_kernel(theta, lfeats, xl_buf, block_n=64, t0=t0,
+                                      t1=t0 + W, rows=rows_all, n_valid=nv),
+        lambda: lattice_scores_plain(theta, lfeats, xl_buf, block_n=64, t0=t0,
+                                     t1=t0 + W, rows=rows_all, n_valid=nv),
+        nbytes=256 * (4 * Dl + 8) + W * 4 * (P + S) + 4 * 256 * W,
+        ops=256 * W * flops, shape=f"stage: rows=256 lattices={W} S={S}", extra=extra,
+    )
+    lattice, (lep, len_) = ctx["lattice"], ctx["leps"]
+    xr_lat = xl_buf[rows_all].contiguous()
+    entry(
+        "mega_stage_lattice",
+        lambda: mk.mega_stage_kernel(lattice.slabs, xr_lat, g_buf, stage, t0, nv,
+                                     lep, len_, block_n=64),
+        lambda: mk.mega_stage_plain(lattice.slabs, xr_lat, g_buf, stage, t0, nv,
+                                    lep, len_, block_n=64),
+        nbytes=256 * 4 * (Dl + 1) + W * (4 * S + 4 * P + 8) + out_bytes,
+        ops=256 * W * (flops + 3), shape=f"cap=256 W={W} d={Dl} S={S}",
+    )
+    # B1 on the eager path's own inputs; a row reads the scores up to its
+    # exit, so the bound counts this run's steps
+    Fo, (bep, ben), steps = lmain["F_ordered"], lmain["eps"], lmain["steps"]
+    beta = lmain["fit"].beta
+    Nb, Tb = Fo.shape
+    entry(
+        "cascade",
+        lambda: cascade_kernel(Fo, bep, ben, beta),
+        lambda: cascade_plain(Fo, bep, ben, beta),
+        nbytes=4 * steps + 8 * Tb + 8 * Nb, ops=3 * steps,
+        shape=f"{Nb}x{Tb} chunk_t=8, {steps} steps walked",
     )
     return kernels
 
@@ -578,20 +922,30 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f}s" for k, v in secs.items()))
     for name in _build.SOURCES:
         for line in _build._library_path(name).with_suffix(".log").read_text().splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "stack frame" in line:
                 log(f"[phase 2]   {name}: {line.strip()}")
     report["build_s"] = secs
 
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[phase {name}] done in {phase_s[name]:.1f}s")
+        return out
+
     # phase 3: kernels against their plain versions
     check = Check()
-    ctx = phase_kernels(check)
+    ctx = timed("3", phase_kernels, check)
 
-    # phase 4: the main path; each path's counts from just before to just after it
+    # phase 4: the main paths; each path's counts from just before to just after it
     launches: dict = {}
-    main_ctx = phase_main_path(report, launches)
+    main_ctx = timed("4", phase_main_path, report, launches)
+    lattice_ctx = timed("4b", phase_lattice_path, report, launches)
 
     # phase 5: times
-    kernels = phase_times(ctx, main_ctx, launches, check, report)
+    kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, launches, check, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

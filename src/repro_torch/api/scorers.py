@@ -4,8 +4,8 @@
 A ``StageScorer`` is a plan-independent template: it holds ensemble params
 in ORIGINAL order, and ``bind(dplan, device)`` applies the plan's cascade
 order and lowers it onto the device as the executors' ``BoundScorer``.
-The lattice, neural and function scorers of the reference are not ported
-yet (ROADMAP.md).
+The neural and function scorers of the reference are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,11 +20,12 @@ from repro_torch.kernels.device_executor import (
     DEFAULT_BLOCK_N,
     BoundScorer,
     DevicePlan,
+    lattice_stage_scorer,
     matrix_stage_scorer,
     tree_stage_scorer,
 )
 
-__all__ = ["StageScorer", "MatrixScorer", "TreeScorer"]
+__all__ = ["StageScorer", "MatrixScorer", "TreeScorer", "LatticeScorer"]
 
 
 def _numpy(a) -> np.ndarray:
@@ -34,7 +35,7 @@ def _numpy(a) -> np.ndarray:
 class StageScorer(abc.ABC):
     """A plan-independent stage-scorer template."""
 
-    #: registry name of the scorer family ("matrix"/"tree")
+    #: registry name of the scorer family ("matrix"/"tree"/"lattice")
     name: str = "?"
 
     @abc.abstractmethod
@@ -86,6 +87,29 @@ class TreeScorer(StageScorer):
             _numpy(self.feats)[order],
             _numpy(self.thrs)[order],
             _numpy(self.leaves)[order],
+            block_n=self.block_n,
+            quant=self.quant,
+            device=device,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeScorer(StageScorer):
+    """Lattice scorer over (T, 2**S) theta / (T, S) feats stacks in
+    ORIGINAL ensemble order (numpy arrays or tensors)."""
+
+    theta: object
+    feats: object
+    block_n: int = DEFAULT_BLOCK_N
+    quant: str | None = None
+    name: str = dataclasses.field(default="lattice", init=False)
+
+    def bind(self, dplan: DevicePlan, device="cuda") -> BoundScorer:
+        order = np.asarray(dplan.plan.order)
+        return lattice_stage_scorer(
+            dplan,
+            _numpy(self.theta)[order],
+            _numpy(self.feats)[order],
             block_n=self.block_n,
             quant=self.quant,
             device=device,

@@ -1,6 +1,6 @@
 """Carry fitted objects across from the JAX package.
 
-Both functions take numpy arrays (``np.asarray`` of the JAX objects'
+Every function takes numpy arrays (``np.asarray`` of the JAX objects'
 fields), so this module imports nothing of JAX or of ``repro``.
 """
 
@@ -10,8 +10,9 @@ import numpy as np
 
 from repro_torch.core.qwyc import QWYCModel
 from repro_torch.ensembles.gbt import gbt_params_from_numpy
+from repro_torch.ensembles.lattice import lattice_params_from_numpy
 
-__all__ = ["gbt_params_from_numpy", "qwyc_model_from_numpy"]
+__all__ = ["gbt_params_from_numpy", "lattice_params_from_numpy", "qwyc_model_from_numpy"]
 
 
 def qwyc_model_from_numpy(

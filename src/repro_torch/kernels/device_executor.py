@@ -24,7 +24,8 @@ only enqueues work on the card:
   one transfer to the host.  A CUDA graph of the loop is later work.
 * **Megakernel.**  With f32 ``ParamSlabs`` the stage is one fused kernel
   (B4, ``megakernel.py``); otherwise (or with ``megakernel=False``) it is
-  the tree kernel (B3) -> column mask -> chunk decide (B2) -> cumsum pack.
+  the scorer's kernel (B3 for trees, B5 for lattices) -> column mask ->
+  chunk decide (B2) -> cumsum pack.
   The two are bit-identical in results and in billing.
 
 Stages are uniformized to the plan's maximum width ``W``: padded columns
@@ -44,6 +45,7 @@ from repro_torch.core.executor import CascadePlan, ChunkStat, ExecutorResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel
+from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
 __all__ = [
@@ -51,6 +53,7 @@ __all__ = [
     "BoundScorer",
     "DeviceExecutor",
     "DevicePlan",
+    "lattice_stage_scorer",
     "matrix_stage_scorer",
     "tree_stage_scorer",
 ]
@@ -191,6 +194,46 @@ def tree_stage_scorer(
         return gbt_scores_kernel(
             feats_p, thrs_p, leaves_p, x, block_n=block_n, t0=t0, t1=t0 + W,
             rows=rows, n_valid=n_valid,
+        )
+
+    return BoundScorer(fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs)
+
+
+def lattice_stage_scorer(
+    dplan: DevicePlan,
+    theta_ordered,
+    feats_ordered,
+    block_n: int = DEFAULT_BLOCK_N,
+    quant: str | None = None,
+    device="cuda",
+) -> BoundScorer:
+    """Lattice scorer: the slab scheme of ``tree_stage_scorer`` over the
+    cascade-ordered (theta, feats) stacks, scoring with B5."""
+    dev = resolve_device(device)
+    W, T_pad = dplan.W, dplan.T_pad
+    theta_o = np.asarray(theta_ordered, dtype=np.float32)
+    feats_o = np.asarray(feats_ordered, dtype=np.int32)
+    T = feats_o.shape[0]
+    slabs = mk.build_lattice_slabs(
+        dplan, theta_o, feats_o, quant=quant or dplan.quant, device=dev
+    )
+    theta_p = torch.from_numpy(np.pad(theta_o, ((0, T_pad - T), (0, 0)))).to(dev)
+    feats_p = torch.from_numpy(np.pad(feats_o, ((0, T_pad - T), (0, 0)))).to(dev)
+    n_feats = int(feats_o.max()) + 1 if feats_o.size else 0
+
+    def prepare(x) -> torch.Tensor:
+        x = np.asarray(x, dtype=np.float32)
+        # the kernels read x[:, feats] unchecked
+        if x.ndim != 2 or x.shape[1] < n_feats:
+            raise ValueError(
+                f"expected (n, >= {n_feats}) feature rows for the lattices, got {x.shape}"
+            )
+        return torch.as_tensor(x).to(dev)
+
+    def fn(x, rows, t0: int, n_valid) -> torch.Tensor:
+        return lattice_scores_kernel(
+            theta_p, feats_p, x, block_n=block_n, t0=t0, t1=t0 + W, rows=rows,
+            n_valid=n_valid,
         )
 
     return BoundScorer(fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs)

@@ -1,21 +1,24 @@
 """Kernel B4: the fused cascade stage step, with f32 parameter slabs.
 
-The counterpart of ``repro.kernels.megakernel`` (batch path, tree and
-matrix variants).  One stage step of the device executor is otherwise three
-passes over the survivor buffer: the score kernel (B3) writes a (cap, W)
-score buffer, the chunk decide (B2) reads it back, and a cap-wide cumsum
-packs the survivors.  ``csrc/mega_stage.cu`` fuses them into one kernel per
-row block: select the stage's slab, score its W models, walk
+The counterpart of ``repro.kernels.megakernel`` (batch path; tree, matrix
+and lattice variants).  One stage step of the device executor is otherwise
+three passes over the survivor buffer: the score kernel (B3 or B5) writes a
+(cap, W) score buffer, the chunk decide (B2) reads it back, and a cap-wide
+cumsum packs the survivors.  ``csrc/mega_stage.cu`` fuses them into one
+kernel per row block: select the stage's slab, score its W models, walk
 ``threshold_step`` W times, and emit the block-local compaction prefix and
 the block's survivor count; ``_combine_blocks`` turns those into pack
-positions with a (n_blocks,) exclusive scan.
+positions with a (n_blocks,) exclusive scan.  The lattice variant scores
+with the arithmetic of ``csrc/lattice.cuh``, shared with B5, and its plain
+version calls ``apply_lattice_scores``, so fused and unfused lattice
+scores agree bit for bit.
 
 ``ParamSlabs`` holds the cascade-ordered, stage-stacked parameters.  Only
 ``quant="f32"`` is ported: the bf16/int8 storage of the reference (and its
-tolerance oracle) is ROADMAP A9, and the lattice variant is ROADMAP A8.
-Blocks past the live count write inert outputs and compute nothing, the
-same block-guard billing as the multi-kernel path, so the fused and
-unfused paths are bit-identical in results and in billing.
+tolerance oracle) is ROADMAP A9.  Blocks past the live count write inert
+outputs and compute nothing, the same block-guard billing as the
+multi-kernel path, so the fused and unfused paths are bit-identical in
+results and in billing.
 """
 
 from __future__ import annotations
@@ -26,12 +29,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.ensembles.lattice import apply_lattice_scores
 from repro_torch.kernels import _build
 from repro_torch.kernels.cascade_kernel import threshold_step
+from repro_torch.kernels.lattice_kernel import MAX_DIMS
 
 __all__ = [
     "ParamSlabs",
     "QUANTS",
+    "build_lattice_slabs",
     "build_matrix_slabs",
     "build_tree_slabs",
     "check_quant",
@@ -45,6 +51,7 @@ QUANTS = ("f32", "bf16", "int8")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TREE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I] + [_P] * 12
 _MATRIX_ARGTYPES = [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I] + [_P] * 10
+_LATTICE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I] + [_P] * 11
 
 
 def check_quant(quant: str) -> None:
@@ -62,13 +69,13 @@ class ParamSlabs:
     """Cascade-ordered, stage-stacked parameter slabs on one device.
 
     ``data`` maps slab names to (S, W, ...) tensors, one uniform-width slab
-    per stage, zero-padded on the model axis (padded trees score exactly
-    0.0, which the ±inf threshold padding keeps inert).  For the matrix
-    variant the payload is the prepared operand itself, and ``data`` holds
-    only the (S,) true stage widths the kernel masks with.
+    per stage, zero-padded on the model axis (padded trees and lattices
+    score exactly 0.0, which the ±inf threshold padding keeps inert).  For
+    the matrix variant the payload is the prepared operand itself, and
+    ``data`` holds only the (S,) true stage widths the kernel masks with.
     """
 
-    variant: str  # "matrix" | "tree"
+    variant: str  # "matrix" | "tree" | "lattice"
     quant: str  # "f32"
     data: dict
     W: int
@@ -116,6 +123,24 @@ def build_tree_slabs(
     )
 
 
+def build_lattice_slabs(
+    dplan, theta_ordered, feats_ordered, quant: str = "f32", device="cuda"
+) -> ParamSlabs:
+    """Lattice slabs: the vertex values (the payload) and feature ids of the
+    cascade-ordered ensemble, stacked per stage.  ``lattice_stage_scorer``
+    passes ``dplan.quant``."""
+    check_quant(quant)
+    data = {
+        "feats": _stack_stages(dplan, np.asarray(feats_ordered), np.int32),
+        "payload": _stack_stages(dplan, np.asarray(theta_ordered), np.float32),
+    }
+    return ParamSlabs(
+        variant="lattice", quant=quant,
+        data={k: torch.from_numpy(v).to(device) for k, v in data.items()},
+        W=dplan.W, S=dplan.S,
+    )
+
+
 def _block_geometry(cap: int, block_n: int) -> tuple[int, int]:
     bn = min(block_n, cap) if cap else block_n
     return bn, -(-cap // bn) if cap else 0
@@ -148,6 +173,14 @@ def mega_stage_plain(
 
         def score_j(j):
             return torch.where(j < width, x[:, t0 + j], 0.0)
+    elif slabs.variant == "lattice":
+        scores = apply_lattice_scores(
+            {"feats": slabs.data["feats"][stage], "theta": slabs.data["payload"][stage]},
+            x,
+        )
+
+        def score_j(j):
+            return scores[:, j]
     else:
         raise ValueError(f"mega_stage: unknown variant {slabs.variant!r}")
     g = g0.clone()
@@ -183,9 +216,9 @@ def mega_stage_kernel(
     plain version, a CUDA tensor to ``csrc/mega_stage.cu``.
 
     ``x`` is the gathered operand for the buffer's rows: (cap, d) feature
-    rows for the tree variant, the (cap, T_pad) prepared score matrix for
-    the matrix variant.  ``stage``/``t0`` are the stage index and its first
-    cascade position; ``n_valid`` (an int or an int32 scalar tensor on the
+    rows for the tree and lattice variants, the (cap, T_pad) prepared score
+    matrix for the matrix variant.  ``stage``/``t0`` are the stage index
+    and its first cascade position; ``n_valid`` (an int or an int32 scalar tensor on the
     device) the live count; ``eps_pos``/``eps_neg`` the full (S, W)
     threshold tables, from which the kernel selects the stage's row.
     """
@@ -208,6 +241,10 @@ def mega_stage_kernel(
         ]
     elif slabs.variant == "matrix":
         checks.append(("widths", slabs.data["widths"], i32))
+    elif slabs.variant == "lattice":
+        checks += [
+            ("feats", slabs.data["feats"], i32), ("theta", slabs.data["payload"], f32),
+        ]
     else:
         raise ValueError(f"mega_stage: unknown variant {slabs.variant!r}")
     _build.check_cuda("mega_stage", *checks)
@@ -240,6 +277,20 @@ def mega_stage_kernel(
             x.shape[1], W, depth, bn, feats.data_ptr(),
             slabs.data["thrs"].data_ptr(), slabs.data["payload"].data_ptr(),
             eps_pos.data_ptr(), eps_neg.data_ptr(), *outs, _build.stream(dev),
+        )
+    elif slabs.variant == "lattice":
+        feats = slabs.data["feats"]
+        dims = feats.shape[2]
+        if not 1 <= dims <= MAX_DIMS:
+            raise ValueError(f"mega_stage: lattice S = {dims} not in [1, {MAX_DIMS}]")
+        fn = _build.function(
+            "mega_stage", "mega_stage_lattice_launch", _LATTICE_ARGTYPES
+        )
+        err = fn(
+            x.data_ptr(), g0.data_ptr(), int(stage), nv_ptr, nv_host, cap,
+            x.shape[1], W, dims, bn, feats.data_ptr(),
+            slabs.data["payload"].data_ptr(), eps_pos.data_ptr(),
+            eps_neg.data_ptr(), *outs, _build.stream(dev),
         )
     else:
         if not 0 <= t0 <= x.shape[1] - W:

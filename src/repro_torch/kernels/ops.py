@@ -3,8 +3,7 @@
 
 Each op takes tensors on one device: on a CPU tensor the kernel wrapper
 runs its plain PyTorch version, on a CUDA tensor it launches the
-hand-written kernel.  The whole-matrix ``cascade_decide`` and the lattice
-scores of the reference are not ported yet (ROADMAP.md).
+hand-written kernel.
 """
 
 from __future__ import annotations
@@ -14,10 +13,28 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel
+from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_kernel
+from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
-__all__ = ["cascade_chunk", "kernel_decide_fn", "gbt_scores", "ref"]
+__all__ = [
+    "cascade_decide",
+    "cascade_chunk",
+    "kernel_decide_fn",
+    "lattice_scores",
+    "gbt_scores",
+    "ref",
+]
+
+
+def cascade_decide(
+    scores_ordered, eps_pos, eps_neg, beta, block_n: int = 256, chunk_t: int = 8
+):
+    """Early-exit cascade over a cascade-ordered (N, T) score matrix (B1)
+    -> (decisions int32, exit_step int32)."""
+    return cascade_kernel(
+        scores_ordered, eps_pos, eps_neg, beta, block_n=block_n, chunk_t=chunk_t
+    )
 
 
 def cascade_chunk(g0, chunk_scores, eps_pos, eps_neg, t0, **kw):
@@ -66,11 +83,25 @@ def _bucket_rows(rows: torch.Tensor, block_n: int) -> tuple[torch.Tensor, int]:
     return rows, m
 
 
-def gbt_scores(feats, thrs, leaves, x, block_n: int = 256, **kw):
-    """(N, T) oblivious-tree base-model scores (or a t0/t1/rows slab)."""
+def _with_rows(kernel, x, block_n: int, kw: dict):
+    """``kernel`` with a ``rows`` gather bucketed to whole row blocks (and
+    the output sliced back), or without one."""
     rows = kw.pop("rows", None)
     if rows is None:
-        return gbt_scores_kernel(feats, thrs, leaves, x, block_n=block_n, **kw)
+        return kernel(block_n=block_n, **kw)
     rows, m = _bucket_rows(torch.as_tensor(rows, device=x.device).long(), block_n)
-    out = gbt_scores_kernel(feats, thrs, leaves, x, block_n=block_n, rows=rows, **kw)
-    return out[:m]
+    return kernel(block_n=block_n, rows=rows, **kw)[:m]
+
+
+def lattice_scores(theta, feats, x, block_n: int = 256, **kw):
+    """(N, T) lattice base-model scores (or a t0/t1/rows slab)."""
+    return _with_rows(
+        lambda **k: lattice_scores_kernel(theta, feats, x, **k), x, block_n, kw
+    )
+
+
+def gbt_scores(feats, thrs, leaves, x, block_n: int = 256, **kw):
+    """(N, T) oblivious-tree base-model scores (or a t0/t1/rows slab)."""
+    return _with_rows(
+        lambda **k: gbt_scores_kernel(feats, thrs, leaves, x, **k), x, block_n, kw
+    )

@@ -10,8 +10,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.ensembles.gbt import apply_gbt_scores
+from repro_torch.ensembles.lattice import apply_lattice_scores
 
-__all__ = ["cascade_ref", "gbt_scores_ref"]
+__all__ = ["cascade_ref", "lattice_scores_ref", "gbt_scores_ref"]
 
 
 def cascade_ref(
@@ -38,6 +39,17 @@ def cascade_ref(
     full_pos = g[:, -1] >= beta
     decisions = torch.where(any_hit, early_pos, full_pos)
     return decisions.to(torch.int32), exit_step
+
+
+def lattice_scores_ref(
+    theta: torch.Tensor, feats: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """Multilinear lattice interpolation, (N, T) scores.
+
+    theta: (T, 2**S); feats: (T, S) int32; x: (N, D) in [0, 1].  Contracted
+    dimension by dimension, feature 0 (the MSB of the vertex index) first.
+    """
+    return apply_lattice_scores({"feats": feats, "theta": theta}, x)
 
 
 def gbt_scores_ref(

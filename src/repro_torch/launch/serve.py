@@ -1,12 +1,16 @@
-"""Serving launcher: batched QWYC GBT serving end to end, the counterpart of
-``repro.launch.serve`` for the ported slice (``--ensemble gbt``).
+"""Serving launcher: batched QWYC serving end to end, the counterpart of
+``repro.launch.serve`` for the ported slice (``--ensemble gbt`` and
+``--ensemble lattice``).
 
-Trains the ensemble, fits QWYC ordering + thresholds on the train split's
-score matrix (computed with the tree kernel), then serves the test split
-through ``QWYCServer`` and reports speedup and faithfulness.
+Trains the ensemble (GBT on the host, lattices with AdamW on ``--device``),
+fits QWYC ordering + thresholds on the train split's score matrix (computed
+with the tree kernel B3 or the lattice kernel B5), then serves the test
+split through ``QWYCServer`` and reports speedup and faithfulness.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --dataset adult \
         --T 500 --alpha 0.005 --backend device --policy sorted-kernel
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset rw2 \
+        --ensemble lattice --T 500 --scale 1.0 --alpha 0.005 --mode neg_only
 
 ``--backend`` names the execution backend: ``auto`` (the default: the
 device backend, never the host loop), ``device`` or ``host``.
@@ -27,6 +31,7 @@ from repro_torch.core import fit_qwyc
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.ensembles.gbt import train_gbt
+from repro_torch.ensembles.lattice import init_lattice_ensemble, train_lattice_ensemble
 from repro_torch.kernels import ops
 from repro_torch.serving.engine import BACKENDS as POLICIES
 from repro_torch.serving.engine import QWYCServer
@@ -39,7 +44,7 @@ SCORE_BLOCK_N = 64
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="adult", choices=["adult", "nomao", "rw1", "rw2"])
-    ap.add_argument("--ensemble", default="gbt", choices=["gbt"])
+    ap.add_argument("--ensemble", default="gbt", choices=["gbt", "lattice"])
     ap.add_argument("--T", type=int, default=200)
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--alpha", type=float, default=0.005)
@@ -78,27 +83,54 @@ def main(argv=None) -> None:
     ds = make_dataset(args.dataset, scale=args.scale)
     print(f"[serve] dataset={args.dataset} train={len(ds.y_train)} test={len(ds.y_test)}")
 
-    gbt = train_gbt(
-        ds.x_train, ds.y_train, n_trees=args.T, depth=args.depth, device=device
-    )
-    beta = -gbt.base_score
-    feats, thrs, leaves = gbt.feats, gbt.thrs, gbt.leaves
+    if args.ensemble == "gbt":
+        gbt = train_gbt(
+            ds.x_train, ds.y_train, n_trees=args.T, depth=args.depth, device=device
+        )
+        beta = -gbt.base_score
+        feats, thrs, leaves = gbt.feats, gbt.thrs, gbt.leaves
 
-    def score_fn(x):
-        return ops.gbt_scores(feats, thrs, leaves, x)
+        def score_fn(x):
+            return ops.gbt_scores(feats, thrs, leaves, x)
 
-    def make_chunk_score_fn(order):
-        # params permuted to cascade order once, so a cascade range is a
-        # contiguous slab for the model-range kernel
-        idx = torch.as_tensor(order, device=device)
-        of, ot, ol = feats[idx], thrs[idx], leaves[idx]
+        def make_chunk_score_fn(order):
+            # params permuted to cascade order once, so a cascade range is a
+            # contiguous slab for the model-range kernel
+            idx = torch.as_tensor(order, device=device)
+            of, ot, ol = feats[idx], thrs[idx], leaves[idx]
 
-        def chunk_score_fn(x, rows, t0, t1):
-            return ops.gbt_scores(
-                of, ot, ol, x, t0=t0, t1=t1, rows=rows, block_n=SCORE_BLOCK_N
-            )
+            def chunk_score_fn(x, rows, t0, t1):
+                return ops.gbt_scores(
+                    of, ot, ol, x, t0=t0, t1=t1, rows=rows, block_n=SCORE_BLOCK_N
+                )
 
-        return chunk_score_fn
+            return chunk_score_fn
+
+        def make_scorer():
+            return scorers.TreeScorer(feats, thrs, leaves, block_n=SCORE_BLOCK_N)
+
+    else:
+        lat = init_lattice_ensemble(args.T, ds.D, S=min(8, ds.D), seed=0, device=device)
+        lat = train_lattice_ensemble(lat, ds.x_train, ds.y_train, mode="joint", steps=300)
+        beta = 0.0
+        theta, lfeats = lat["theta"], lat["feats"]
+
+        def score_fn(x):
+            return ops.lattice_scores(theta, lfeats, x)
+
+        def make_chunk_score_fn(order):
+            idx = torch.as_tensor(order, device=device)
+            th, fe = theta[idx], lfeats[idx]
+
+            def chunk_score_fn(x, rows, t0, t1):
+                return ops.lattice_scores(
+                    th, fe, x, t0=t0, t1=t1, rows=rows, block_n=SCORE_BLOCK_N
+                )
+
+            return chunk_score_fn
+
+        def make_scorer():
+            return scorers.LatticeScorer(theta, lfeats, block_n=SCORE_BLOCK_N)
 
     x_train = torch.from_numpy(ds.x_train).to(device)
     F_train = score_fn(x_train).cpu().numpy().astype(np.float64)
@@ -115,9 +147,7 @@ def main(argv=None) -> None:
     )
     if on_device and not args.eager:
         # fully lazy device path; chunk_score_fn stays as the audit reader
-        producer_kw["scorer"] = scorers.TreeScorer(
-            feats, thrs, leaves, block_n=SCORE_BLOCK_N
-        )
+        producer_kw["scorer"] = make_scorer()
     audit = args.audit or args.eager
     server = QWYCServer(
         qwyc,

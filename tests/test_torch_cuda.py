@@ -11,20 +11,29 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api.scorers import TreeScorer
+from repro_torch.api.scorers import LatticeScorer, TreeScorer
 from repro_torch.core import fit_qwyc
 from repro_torch.core.executor import CascadePlan
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.ensembles.gbt import apply_gbt_scores, train_gbt
 from repro_torch.kernels import _build
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_chunk_plain
+from repro_torch.ensembles.lattice import init_lattice_ensemble
+from repro_torch.kernels.cascade_kernel import (
+    cascade_chunk_kernel,
+    cascade_chunk_plain,
+    cascade_kernel,
+    cascade_plain,
+)
 from repro_torch.kernels.device_executor import (
     DeviceExecutor,
     DevicePlan,
+    lattice_stage_scorer,
     matrix_stage_scorer,
     tree_stage_scorer,
 )
+from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
 from repro_torch.kernels.megakernel import mega_stage_kernel, mega_stage_plain
+from repro_torch.kernels import ops
 from repro_torch.kernels.ops import gbt_scores
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
 from repro_torch.launch import serve
@@ -83,7 +92,46 @@ def test_gbt_scores_kernel_equals_plain(dev, n_valid):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("variant", ["tree", "matrix"])
+@pytest.mark.parametrize("chunk_t", [1, 8, 64])
+def test_cascade_kernel_equals_plain(dev, chunk_t):
+    """B1 with T not a multiple of chunk_t, rows that never exit and ±inf
+    "full evaluation" thresholds on the last positions."""
+    rng = np.random.default_rng(5)
+    n, T = 1000, 101
+    F = rng.normal(size=(n, T)).astype(np.float32)
+    F[:9] = 0.0
+    ep = rng.uniform(1.0, 4.0, size=T).astype(np.float32)
+    en = -rng.uniform(1.0, 4.0, size=T).astype(np.float32)
+    ep[-7:], en[-7:] = np.inf, -np.inf
+    args = (_t(F, dev), _t(ep, dev), _t(en, dev), 0.1)
+    before = _build.LAUNCHES["cascade"]
+    got = cascade_kernel(*args, block_n=256, chunk_t=chunk_t)
+    assert _build.LAUNCHES["cascade"] == before + 1
+    want = cascade_plain(*args, chunk_t=chunk_t)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[1][:9] == T).all() and (got[1] < T).any()
+
+
+@pytest.mark.parametrize("S", [1, 4, 8])
+@pytest.mark.parametrize("n_valid", [None, 0, 70])
+def test_lattice_scores_kernel_equals_plain(dev, S, n_valid):
+    rng = np.random.default_rng(S)
+    T, d = 45, 30
+    theta = _t(rng.normal(size=(T, 1 << S)).astype(np.float32), dev)
+    feats = _t(np.stack([rng.choice(d, S, replace=False) for _ in range(T)]).astype(np.int32), dev)
+    x = rng.uniform(size=(300, d)).astype(np.float32)
+    x[:40] = np.round(x[:40])  # the cube's corners
+    x = _t(x, dev)
+    rows = _t(rng.permutation(300)[:150], dev)
+    nv = None if n_valid is None else torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    for kw in (dict(), dict(t0=3, t1=40, rows=rows, n_valid=nv), dict(t0=44, n_valid=n_valid)):
+        a = lattice_scores_kernel(theta, feats, x, block_n=64, **kw)
+        b = lattice_scores_plain(theta, feats, x, block_n=64, **kw)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["tree", "matrix", "lattice"])
 @pytest.mark.parametrize("n_valid", [0, 1, 100, 128])
 def test_mega_stage_kernel_equals_plain(dev, variant, n_valid):
     rng = np.random.default_rng(3)
@@ -93,6 +141,13 @@ def test_mega_stage_kernel_equals_plain(dev, variant, n_valid):
         scorer = tree_stage_scorer(
             dplan, rng.integers(0, d, size=(T, depth)), rng.uniform(size=(T, depth)),
             rng.normal(size=(T, 1 << depth)), device=dev,
+        )
+        x = _t(rng.uniform(size=(128, d)).astype(np.float32), dev)
+    elif variant == "lattice":
+        d, S = 30, 8
+        scorer = lattice_stage_scorer(
+            dplan, rng.normal(size=(T, 1 << S)),
+            np.stack([rng.choice(d, S, replace=False) for _ in range(T)]), device=dev,
         )
         x = _t(rng.uniform(size=(128, d)).astype(np.float32), dev)
     else:
@@ -168,6 +223,37 @@ def test_server_on_card_equals_cpu(dev, small_gbt, policy, exec_backend):
 
 def test_cli_serves_on_card(dev, capsys):
     serve.main(["--T", "40", "--scale", "0.1", "--alpha", "0.01", "--audit"])
+    out = capsys.readouterr().out
+    assert "(device backend, sorted-kernel policy, lazy)" in out
+    assert "diff vs full 0." in out
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+def test_lattice_server_on_card_equals_cpu(dev, megakernel):
+    """exp4_rw2_joint's path at a small size, fused and unfused, on the card
+    against the same server on the CPU."""
+    ds = make_dataset("rw2", scale=0.1)
+    lat = init_lattice_ensemble(40, ds.D, 8, seed=0, device="cpu")
+    F = ops.lattice_scores(lat["theta"], lat["feats"], torch.from_numpy(ds.x_train))
+    m = fit_qwyc(F.numpy().astype(np.float64), beta=0.0, alpha=0.01, mode="neg_only")
+    out = []
+    for d in (dev, "cpu"):
+        srv = QWYCServer(
+            m, scorer=LatticeScorer(lat["theta"], lat["feats"]), exec_backend="device",
+            device=d, batch_size=64, backend_opts={"megakernel": megakernel},
+        )
+        for row in ds.x_test:
+            srv.submit(row)
+        out.append((srv.drain(), srv.stats))
+    (a, sa), (b, sb) = out
+    assert a == b
+    assert sa.scores_computed == sb.scores_computed
+    assert sa.chunk_survivors == sb.chunk_survivors
+
+
+def test_lattice_cli_serves_on_card(dev, capsys):
+    serve.main(["--dataset", "rw2", "--ensemble", "lattice", "--T", "40", "--scale", "0.1",
+                "--alpha", "0.01", "--mode", "neg_only", "--audit"])
     out = capsys.readouterr().out
     assert "(device backend, sorted-kernel policy, lazy)" in out
     assert "diff vs full 0." in out

@@ -12,13 +12,22 @@ import torch
 from repro.core.executor import decide_chunk_reference
 from repro.ensembles.gbt import apply_gbt as j_apply_gbt
 from repro.kernels import ref as j_ref
-from repro.kernels.cascade_kernel import cascade_chunk_pallas
+from repro.core import QWYCModel as JModel
+from repro.core import evaluate_cascade as j_evaluate_cascade
+from repro.kernels.cascade_kernel import cascade_chunk_pallas, cascade_pallas
 from repro_torch.core.executor import CascadePlan
 from repro_torch.ensembles.gbt import apply_gbt
 from repro_torch.kernels import ref
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_chunk_plain
+from repro_torch.kernels import ops
+from repro_torch.kernels.cascade_kernel import (
+    cascade_chunk_kernel,
+    cascade_chunk_plain,
+    cascade_kernel,
+    cascade_plain,
+)
 from repro_torch.kernels.device_executor import (
     DevicePlan,
+    lattice_stage_scorer,
     matrix_stage_scorer,
     tree_stage_scorer,
 )
@@ -117,6 +126,82 @@ def test_cascade_oracle_matches_jax_oracle(seed):
     assert 0 < int((ours[1] < T).sum()) < F.shape[0]
 
 
+def _b1_case(seed, n, T, grid, full_eval_cols=0, never_exit_rows=0):
+    """An ordered score matrix with thresholds.  ``grid`` puts scores on a
+    1/8 grid and thresholds between grid points, so every cumulative sum is
+    exact in f32 and f64 and in any summation order.  The last
+    ``full_eval_cols`` positions get the ±inf "full evaluation"
+    thresholds; the first ``never_exit_rows`` rows score 0 and never exit."""
+    rng = np.random.default_rng(seed)
+    if grid:
+        F = (rng.integers(-8, 9, size=(n, T)) / 8).astype(np.float32)
+        ep = (rng.integers(4, 24, size=T) / 8 + 1 / 16).astype(np.float32)
+        en = -(rng.integers(4, 24, size=T) / 8 + 1 / 16).astype(np.float32)
+    else:
+        F = rng.normal(size=(n, T)).astype(np.float32)
+        ep = rng.uniform(1.0, 4.0, size=T).astype(np.float32)
+        en = -rng.uniform(1.0, 4.0, size=T).astype(np.float32)
+    if full_eval_cols:
+        ep[T - full_eval_cols:], en[T - full_eval_cols:] = np.inf, -np.inf
+    F[:never_exit_rows] = 0.0
+    return F, ep, en
+
+
+@pytest.mark.parametrize(
+    "grid,T,chunk_t,full_eval_cols,beta",
+    [(True, 37, 8, 0, 0.0), (True, 24, 5, 24, 0.0), (True, 40, 8, 6, -0.5),
+     (False, 37, 8, 0, 0.0), (False, 41, 4, 41, 0.25), (False, 13, 16, 3, 0.0)],
+)
+def test_cascade_plain_matches_pallas_ref_and_evaluate(grid, T, chunk_t, full_eval_cols, beta):
+    """Plain B1 against ``cascade_pallas`` (interpret mode) on any scores,
+    and on grid scores also against ``ref.cascade_ref`` and
+    ``evaluate_cascade``: decisions and 1-based exit steps equal, with T
+    not a multiple of ``chunk_t``, rows that never exit, and ±inf
+    thresholds that send every row to the full ensemble."""
+    F, ep, en = _b1_case(T + chunk_t, 300, T, grid, full_eval_cols, never_exit_rows=7)
+    got = cascade_plain(*map(torch.from_numpy, (F, ep, en)), beta, chunk_t=chunk_t)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    wrapped = cascade_kernel(*map(torch.from_numpy, (F, ep, en)), beta, chunk_t=chunk_t)
+    via_ops = ops.cascade_decide(*map(torch.from_numpy, (F, ep, en)), beta, chunk_t=chunk_t)
+    for a, b, c in zip(got, wrapped, via_ops):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    want = cascade_pallas(
+        *map(jnp.asarray, (F, ep, en)), beta, block_n=64, chunk_t=chunk_t, interpret=True
+    )
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    dec, ex = (a.numpy() for a in got)
+    assert (ex[:7] == T).all()  # rows that never exit
+    if full_eval_cols == T:
+        assert (ex == T).all()
+    else:
+        assert (ex < T).any()
+    if grid:
+        for a, b in zip(got, j_ref.cascade_ref(*map(jnp.asarray, (F, ep, en)), beta)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        m = JModel(
+            order=np.arange(T), eps_pos=ep.astype(np.float64),
+            eps_neg=en.astype(np.float64), beta=beta, costs=np.ones(T), alpha=0.0,
+            mode="both",
+        )
+        ev = j_evaluate_cascade(m, F.astype(np.float64))
+        np.testing.assert_array_equal(dec.astype(bool), ev["decisions"])
+        np.testing.assert_array_equal(ex, ev["exit_step"])
+
+
+def test_cascade_plain_decides_survivors_with_f32_beta():
+    """A row still active at T compares its f32 sum with beta rounded to
+    f32, as the reference compares with its static Python float."""
+    F = np.array([[0.1, 0.2]], dtype=np.float32)
+    g = np.float32(np.float32(0.1) + np.float32(0.2))
+    inf = np.full(2, np.inf, np.float32)
+    for beta in (float(g), float(g) + 1e-12, float(np.nextafter(g, np.float32(1)))):
+        got = cascade_plain(torch.from_numpy(F), torch.from_numpy(inf), -torch.from_numpy(inf), beta)
+        want = cascade_pallas(jnp.asarray(F), jnp.asarray(inf), -jnp.asarray(inf), beta, interpret=True)
+        assert int(got[0][0]) == int(want[0][0])
+        assert int(got[1][0]) == int(want[1][0]) == 2
+
+
 @pytest.mark.parametrize(
     "t0,t1,use_rows,n_valid",
     [(0, None, False, None), (4, 12, False, None), (3, 11, True, None),
@@ -159,6 +244,12 @@ def _stage_case(seed, variant, n=120, T=21, chunk_t=8, lead_t=1):
     if variant == "tree":
         scorer = tree_stage_scorer(dplan, feats, thrs, leaves, device="cpu")
         xop = scorer.prepare(x)
+    elif variant == "lattice":
+        S = 4
+        theta = rng.normal(size=(T, 1 << S)).astype(np.float32)
+        lfeats = np.stack([rng.choice(x.shape[1], S, replace=False) for _ in range(T)])
+        scorer = lattice_stage_scorer(dplan, theta, lfeats, device="cpu")
+        xop = scorer.prepare(x)
     else:
         F = ref.gbt_scores_ref(*map(torch.from_numpy, (feats, thrs, leaves, x)))
         scorer = matrix_stage_scorer(dplan, device="cpu")
@@ -167,7 +258,8 @@ def _stage_case(seed, variant, n=120, T=21, chunk_t=8, lead_t=1):
 
 
 def _unfused_stage(dplan, scorer, x, rows, g_rows, s, n_active, block_n):
-    """The port's multi-kernel stage: B3 -> column mask -> B2 -> cumsum pack."""
+    """The port's multi-kernel stage: B3 or B5 -> column mask -> B2 ->
+    cumsum pack."""
     cap = rows.shape[0]
     t0 = int(dplan.stage_t0[s])
     scores = scorer.fn(x, rows, t0, n_active)
@@ -181,7 +273,7 @@ def _unfused_stage(dplan, scorer, x, rows, g_rows, s, n_active, block_n):
     return g, act, dec, ex, pack, keep.sum(dtype=torch.int32)
 
 
-@pytest.mark.parametrize("variant", ["tree", "matrix"])
+@pytest.mark.parametrize("variant", ["tree", "matrix", "lattice"])
 @pytest.mark.parametrize("n_active", [0, 1, 63, 64, 100, 120])
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_mega_stage_plain_matches_unfused_stage(variant, n_active, stage):

@@ -14,13 +14,18 @@ import repro_torch
 from repro_torch.api import backends, registry
 from repro_torch.core.executor import CascadePlan
 from repro_torch.kernels import _build
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel
+from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_kernel
 from repro_torch.kernels.device_executor import (
     DeviceExecutor,
     DevicePlan,
     matrix_stage_scorer,
 )
-from repro_torch.kernels.megakernel import build_matrix_slabs, mega_stage_kernel
+from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
+from repro_torch.kernels.megakernel import (
+    build_lattice_slabs,
+    build_matrix_slabs,
+    mega_stage_kernel,
+)
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 from repro_torch.launch import serve
 from repro_torch.serving.engine import QWYCServer
@@ -131,6 +136,11 @@ def test_wrappers_dispatch_on_tensor_device():
     mega_stage_kernel(
         slabs, torch.ones(4, dplan.T_pad), g0, 0, 0, 4, eps, eps, block_n=64
     )
+    theta, lfeats = torch.ones(dplan.T_pad, 4), torch.zeros(dplan.T_pad, 2, dtype=torch.int32)
+    lattice_scores_kernel(theta, lfeats, torch.ones(4, 3))
+    lslabs = build_lattice_slabs(dplan, theta.numpy(), lfeats.numpy(), device="cpu")
+    mega_stage_kernel(lslabs, torch.ones(4, 3), g0, 0, 0, 4, eps, eps, block_n=64)
+    cascade_kernel(s, e, e, 0.0)
     assert sum(_build.LAUNCHES.values()) == 0
     meta = torch.empty(4, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -139,6 +149,10 @@ def test_wrappers_dispatch_on_tensor_device():
         )
     with pytest.raises(ValueError, match="unsupported device"):
         gbt_scores_kernel(feats, torch.zeros(2, 1), torch.ones(2, 2), meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lattice_scores_kernel(theta, lfeats, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cascade_kernel(meta, e.to("meta"), e.to("meta"), 0.0)
 
 
 def test_quantized_slabs_name_the_roadmap_item():
@@ -146,3 +160,9 @@ def test_quantized_slabs_name_the_roadmap_item():
         DevicePlan.from_plan(_tiny_plan(), quant="bf16")
     with pytest.raises(ValueError, match="quant must be one of"):
         DevicePlan.from_plan(_tiny_plan(), quant="fp4")
+    dplan = DevicePlan.from_plan(_tiny_plan())
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        build_lattice_slabs(
+            dplan, np.zeros((6, 4), np.float32), np.zeros((6, 2), np.int32),
+            quant="bf16", device="cpu",
+        )
