@@ -10,11 +10,13 @@ Phases, each of which stops the run on failure:
 2. Build: ``nvcc`` compiles every kernel source of ``src/repro_torch/csrc``
    (one process per source, all at once) into ``build/repro_torch_kernels``.
 3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
-   tree, matrix and lattice, B5 lattice_scores) against its plain PyTorch
-   version on the card, at the main paths' shapes and at the edges (n_valid
-   0, a ragged last block, ±inf padded columns, rows retiring mid-block,
-   lattice inputs at the cube's corners, rows that never exit, the ±inf
-   "full evaluation" thresholds): every output ``torch.equal``.
+   tree, matrix and lattice, B5 lattice_scores, B6 cascade_lane, B7
+   mega_lane tree, matrix and lattice) against its plain PyTorch version on
+   the card, at the main paths' shapes and at the edges (n_valid 0, a
+   ragged last block, ±inf padded columns, rows retiring mid-block, lattice
+   inputs at the cube's corners, rows that never exit, the ±inf "full
+   evaluation" thresholds; for B6 and B7 lanes at every stage in one
+   block and last-stage lanes): every output ``torch.equal``.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -31,14 +33,26 @@ Phases, each of which stops the run on failure:
    ``evaluate_cascade``.  Served: the lattice server fused (B4 lattice) and
    unfused (B5 + B2), both equal to the same server on the CPU and to the
    eager B1 verdicts.
-   In both phases the launch counts are set to 0 just before each path and
-   read just after it: each path must have launched exactly its own kernels.
+4c. Streaming admission: both cells' ensembles and cascades (no new fit)
+   served by ``StreamingServer`` (capacity 256, window 1024, chunk_t 8,
+   block 64) over the test rows under the seed-2028 Poisson trace at 256
+   and 4.0 requests per stage step: fused (B7), unfused (lane_fn + B6),
+   eager for exp1 (B3 score matrix + B7 matrix) and on the CPU, all equal
+   in results and every wave's timeline, verdicts equal to
+   ``evaluate_cascade``, ``g_final`` equal bit for bit to phase 4/4b's
+   batch server, and (at the heavy rate) occupancy above the flush
+   server's at the same capacity.
+   In phases 4-4c the launch counts are set to 0 just before each path and
+   read just after it: each path must have launched exactly its own kernels
+   (a streaming path its B6 or B7 once per step enqueued).
 5. Times, after a warm-up: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
    flushes), the device's busy share of a batch-256 flush (profiler device
-   time over the unprofiled median flush), and each kernel's device time
-   per launch (profiler) at its main-path shape beside its plain version's
-   and its bound.
+   time over the unprofiled median flush); the streaming servers' drains
+   (requests/s, wave and step wall times, steps and syncs per wave,
+   PyTorch operator calls per step, one wave's busy share); and each
+   kernel's device time per launch (profiler) at its main-path shape
+   beside its plain version's and its bound.
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -49,6 +63,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -63,6 +78,13 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # flush-latency samples per (batch, path), after N_WARM unrecorded flushes
 N_WARM, N_FLUSH = 5, 100
+# phase 4c's streaming servers: lane capacity, admission ring, arrival rates
+# (requests per stage step: the streaming benchmark's heavy traffic at the
+# capacity, and the CLI's default), the protocol's trace seed; phase 5
+# times N_DRAINS drains of the test rows at the heavy rate
+STREAM_CAP, STREAM_WINDOW, STREAM_RATES = 256, 1024, (256.0, 4.0)
+ARRIVAL_SEED = 2028
+N_DRAINS = 5
 # exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
@@ -87,6 +109,15 @@ KERNELS = {
     "lattice_scores": ("src/repro_torch/csrc/lattice_scores.cu",
                        "src/repro/kernels/lattice_kernel.py:60",
                        "lattice_fused/neg_only"),
+    "cascade_lane": ("src/repro_torch/csrc/cascade_lane.cu",
+                     "src/repro/kernels/cascade_kernel.py:277", "stream_unfused/both/r256"),
+    "mega_lane_tree": ("src/repro_torch/csrc/mega_stage.cu",
+                       "src/repro/kernels/megakernel.py:724", "stream_fused/both/r256"),
+    "mega_lane_matrix": ("src/repro_torch/csrc/mega_stage.cu",
+                         "src/repro/kernels/megakernel.py:724", "stream_eager/both/r256"),
+    "mega_lane_lattice": ("src/repro_torch/csrc/mega_stage.cu",
+                          "src/repro/kernels/megakernel.py:724",
+                          "lattice_stream_fused/neg_only/r256"),
 }
 # the kernels each path of phase 4 must launch; no other kernel may
 PATH_KERNELS = {
@@ -100,6 +131,14 @@ PATH_KERNELS = {
     "lattice_fused": {"lattice_scores", "mega_stage_lattice"},  # sort key + B4
     "lattice_unfused": {"lattice_scores", "cascade_chunk"},  # B5 + B2
     "lattice_cpu": set(),
+    # phase 4c, streaming admission
+    "stream_fused": {"mega_lane_tree"},  # B7 tree
+    "stream_unfused": {"cascade_lane"},  # lane_fn (plain PyTorch) + B6
+    "stream_eager": {"gbt_scores", "mega_lane_matrix"},  # score_fn matrix + B7 matrix
+    "stream_cpu": set(),
+    "lattice_stream_fused": {"mega_lane_lattice"},  # B7 lattice
+    "lattice_stream_unfused": {"cascade_lane"},  # lane_fn + B6
+    "lattice_stream_cpu": set(),
 }
 
 
@@ -237,6 +276,8 @@ def phase_kernels(check: Check) -> dict:
         cascade_chunk_kernel,
         cascade_chunk_plain,
         cascade_kernel,
+        cascade_lane_kernel,
+        cascade_lane_plain,
         cascade_plain,
     )
     from repro_torch.kernels.device_executor import (
@@ -246,7 +287,12 @@ def phase_kernels(check: Check) -> dict:
         tree_stage_scorer,
     )
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
-    from repro_torch.kernels.megakernel import mega_stage_kernel, mega_stage_plain
+    from repro_torch.kernels.megakernel import (
+        mega_lane_kernel,
+        mega_lane_plain,
+        mega_stage_kernel,
+        mega_stage_plain,
+    )
     from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
 
     dev = torch.device("cuda")
@@ -413,12 +459,62 @@ def phase_kernels(check: Check) -> dict:
         if not bool((got[1][:64] == Tl).all()):
             raise AssertionError(f"B1 {label}: a zero row exited")
     log("[phase 3] B1 cascade == plain (3 cases)")
+
+    # B6 at (256, 8): each lane's threshold row gathered at its own stage of
+    # exp1's plan geometry (the ragged last stage's ±inf padded columns
+    # included, their scores zeroed as the executor zeroes them)
+    S = dplan.S
+    stage = torch.from_numpy(rng.integers(0, S, size=256).astype(np.int32)).to(dev)
+    stage[:S] = torch.arange(S, dtype=torch.int32, device=dev)  # every stage in block 0
+    col_valid = torch.from_numpy(dplan.col_valid).to(dev)
+    lane_scores = torch.where(col_valid[stage], chunk, 0.0)
+    lep, len_ = eps_pos[stage], eps_neg[stage]
+    n_cases = 0
+    for label, n_valid in [("nv=256", nv(256)), ("nv=0", nv(0)), ("ragged nv=200", nv(200)),
+                           ("host nv", 131), ("all", None)]:
+        got = cascade_lane_kernel(g0, lane_scores, lep, len_, block_n=64, n_valid=n_valid)
+        want = cascade_lane_plain(g0, lane_scores, lep, len_, n_valid=n_valid)
+        for k, (a, b) in enumerate(zip(got, want)):
+            check.equal("cascade_lane", f"{label} output {k}", a, b)
+        n_cases += 1
+    if not bool((got[3] > 0).any() and (got[1] > 0).any()):
+        raise AssertionError("B6 check: no lane exited, or every lane exited")
+    log(f"[phase 3] B6 cascade_lane == plain ({n_cases} cases)")
+
+    # B7 at cap 256, W 8, block 64: lanes over all S stages in block 0,
+    # last-stage (stop) lanes, rows retiring mid-block, trash rows past
+    # n_valid, the ragged last stage; tree and matrix on exp1's geometry,
+    # lattice on exp4's
+    stop = stage >= S - 1
+    n_cases, mid_block = 0, 0
+    for variant, slabs, xop, (ep_t, en_t) in (
+        ("tree", tree.slabs, x_buf, (eps_pos, eps_neg)),
+        ("matrix", matrix.slabs, F, (eps_pos, eps_neg)),
+        ("lattice", lattice.slabs, xl_buf, leps),
+    ):
+        for n_valid in (nv(256), nv(0), nv(100), nv(200), 64):
+            args = (slabs, xop, rows, g_buf, stage, stop, n_valid, ep_t, en_t)
+            got = mega_lane_kernel(*args, block_n=64)
+            want = mega_lane_plain(*args, block_n=64)
+            for k, (a, b) in enumerate(zip(got, want)):
+                check.equal(f"mega_lane_{variant}", f"nv {int(n_valid)} output {k}", a, b)
+            live = got[3][: int(n_valid)]
+            mid_block += int(bool((live > 0).any() and (live == 0).any()))
+            n_cases += 1
+        stop_ran_out = bool(((got[1] == 1) & stop[:256]).any())
+        if not stop_ran_out:
+            raise AssertionError(f"B7 {variant} check: no last-stage lane ran out active")
+    if mid_block < 9:
+        raise AssertionError(f"B7 check: only {mid_block} cases retired rows mid-block")
+    log(f"[phase 3] B7 mega_lane tree + matrix + lattice == plain ({n_cases} cases, "
+        f"{mid_block} retiring rows mid-block)")
     torch.cuda.synchronize()
     return dict(
         chunk=(g0, chunk, ep, en), forest=(feats, thrs, leaves), x_cal=x_cal,
         x_buf=x_buf, rows=rows, dplan=dplan, tree=tree, matrix=matrix, F=F,
         eps=(eps_pos, eps_neg), g_buf=g_buf, lat=(theta8, lfeats8), xl_cal=xl_cal,
         xl_buf=xl_buf, lplan=lplan, lattice=lattice, leps=leps,
+        lanes=dict(stage=stage, stop=stop, scores=lane_scores, eps=(lep, len_)),
     )
 
 
@@ -478,7 +574,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             chunk_t=8, **kw,
         )
 
-    out, per_flush = {}, {}
+    out, per_flush, batch_g = {}, {}, {}
 
     def served(path, srv):
         res = counted(launches, path, lambda: serve(srv, ds.x_test))
@@ -514,6 +610,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             raise AssertionError(f"{mode}: non-finite full scores or missing results")
         st = card.stats
         acc = float(np.mean(dec == (ds.y_test > 0)))
+        batch_g[mode] = np.concatenate([r.g_final for r in card.flush_results])
         out[mode] = dict(
             mean_models=st.mean_models, speedup=st.speedup,
             scores_computed=st.scores_computed, scores_possible=st.scores_possible,
@@ -539,7 +636,8 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     report["main_path"] = out
     report["launches"] = launches
     report["launches_per_flush"] = per_flush
-    return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server)
+    return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server,
+                F_test=F_test, batch_g=batch_g)
 
 
 def phase_lattice_path(report: dict, launches: dict) -> dict:
@@ -666,7 +764,150 @@ def phase_lattice_path(report: dict, launches: dict) -> dict:
         f"eager B1 == evaluate_cascade")
     return dict(ds=ds, fit=fit, theta=theta, feats=feats, server=server,
                 F_ordered=torch.from_numpy(F_test).cuda()[:, order].contiguous(),
-                eps=(eps_pos, eps_neg), steps=int(ex_eager.sum()))
+                eps=(eps_pos, eps_neg), steps=int(ex_eager.sum()),
+                F_test=F_test.astype(np.float64),
+                batch_g=np.concatenate([r.g_final for r in srvs["lattice_fused"].flush_results]))
+
+
+def stream_serve(server, x, arrivals) -> list[dict]:
+    for row, a in zip(x, arrivals):
+        server.submit(row, arrival=a)
+    return server.drain()
+
+
+def poisson_arrivals(n: int, rate: float):
+    """The streaming protocol's arrival trace: cumulative exponential
+    inter-arrivals at ``rate`` requests per stage step, seed 2028."""
+    import numpy as np
+
+    return np.cumsum(np.random.default_rng(ARRIVAL_SEED).exponential(1.0 / rate, size=n))
+
+
+def flush_occupancy(executor, x, cap: int) -> float:
+    """Mean occupancy of the flush server at capacity ``cap`` on the same
+    executor (batch b = rows [b cap, (b + 1) cap)): rows entering each stage
+    over stages run x cap, as the streaming benchmark models it."""
+    num = den = 0
+    for b0 in range(0, x.shape[0], cap):
+        nb = min(cap, x.shape[0] - b0)
+        res = executor.run(x[b0 : b0 + nb], nb, capacity=cap)
+        num += sum(c.n_in for c in res.chunk_stats)
+        den += len(res.chunk_stats) * cap
+    return num / max(den, 1)
+
+
+def phase_streaming(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
+    """Phase 4c: both cells served by ``StreamingServer`` at full width
+    (capacity 256, window 1024, chunk_t 8, block 64) under the seed-2028
+    Poisson trace at 256 and 4.0 requests per step, fused (B7), unfused
+    (lane_fn + B6), eager (exp1: the B3 score matrix + B7 matrix) and on
+    the CPU, each path's launches counted on their own.  No new fit: the
+    ensembles and cascades of phases 4 and 4b."""
+    import numpy as np
+
+    from repro_torch.api.scorers import LatticeScorer, TreeScorer
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.serving.engine import StreamingServer
+
+    gbt = main["gbt"]
+    cells = {
+        "exp1_adult": dict(
+            prefix="stream", mode="both", ds=main["ds"], fit=main["fits"]["both"],
+            scorer=TreeScorer(gbt.feats, gbt.thrs, gbt.leaves), score_fn=main["score_fn"],
+            F_test=main["F_test"], batch_g=main["batch_g"]["both"], fused="mega_lane_tree",
+        ),
+        "exp4_rw2_joint": dict(
+            prefix="lattice_stream", mode="neg_only", ds=lmain["ds"], fit=lmain["fit"],
+            scorer=LatticeScorer(lmain["theta"], lmain["feats"]), score_fn=None,
+            F_test=lmain["F_test"], batch_g=lmain["batch_g"], fused="mega_lane_lattice",
+        ),
+    }
+
+    def server(cell, device, opts=None, eager=False):
+        c = cells[cell]
+        kw = {"score_fn": c["score_fn"]} if eager else {"scorer": c["scorer"]}
+        return StreamingServer(
+            c["fit"], exec_backend="device", device=device, batch_size=STREAM_CAP,
+            window=STREAM_WINDOW, chunk_t=8, block_n=64, backend_opts=opts or {}, **kw,
+        )
+
+    out = {}
+    for cell, c in cells.items():
+        x = c["ds"].x_test
+        n, T = x.shape[0], c["fit"].T
+        ev = evaluate_cascade(c["fit"], c["F_test"])
+        paths = [("fused", "cuda", {}, False), ("unfused", "cuda", {"megakernel": False}, False),
+                 ("cpu", "cpu", {}, False)]
+        if c["score_fn"] is not None:
+            paths.append(("eager", "cuda", {}, True))
+        for rate in STREAM_RATES:
+            arrivals = poisson_arrivals(n, rate)
+            res, srvs = {}, {}
+            for path, device, opts, eager in paths:
+                key = f"{c['prefix']}_{path}/{c['mode']}/r{rate:g}"
+                t = time.perf_counter()
+                srv = srvs[path] = server(cell, device, opts, eager)
+                res[path] = counted(launches, key, lambda: stream_serve(srv, x, arrivals))
+                waves = srv.stream_results
+                enq = sum(w.steps_enqueued for w in waves)
+                want = {
+                    "fused": {c["fused"]: enq}, "unfused": {"cascade_lane": enq},
+                    "eager": {"gbt_scores": len(waves), "mega_lane_matrix": enq}, "cpu": {},
+                }[path]
+                if launches[key] != want:
+                    raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+                log(f"[phase 4c] {key}: {len(waves)} waves, {srv.stats.stream_steps} steps run, "
+                    f"{enq} enqueued, {sum(w.syncs for w in waves)} syncs in "
+                    f"{time.perf_counter() - t:.1f}s; launches {launches[key]}")
+            ref_srv = srvs["fused"]
+            for path, srv in srvs.items():
+                if res[path] != res["fused"]:
+                    raise AssertionError(f"{cell} r{rate:g}: {path} results != fused")
+                if len(srv.stream_results) != len(ref_srv.stream_results):
+                    raise AssertionError(f"{cell} r{rate:g}: {path} wave count differs")
+                for a, b in zip(srv.stream_results, ref_srv.stream_results):
+                    for k in ("decisions", "exit_step", "g_final", "admit_step", "done_step",
+                              "latency_steps", "occupancy"):
+                        if not np.array_equal(getattr(a, k), getattr(b, k)):
+                            raise AssertionError(f"{cell} r{rate:g}: {path} {k} != fused")
+                    if a.steps_run != b.steps_run or (
+                        path != "eager" and a.scores_computed != b.scores_computed
+                    ):
+                        raise AssertionError(f"{cell} r{rate:g}: {path} steps or billing differ")
+                if path != "eager" and srv.stats.latency_steps != ref_srv.stats.latency_steps:
+                    raise AssertionError(f"{cell} r{rate:g}: {path} latency_steps differ")
+            waves = ref_srv.stream_results
+            dec = np.concatenate([w.decisions for w in waves])
+            ex = np.concatenate([w.exit_step for w in waves])
+            g = np.concatenate([w.g_final for w in waves])
+            if not (np.array_equal(dec, ev["decisions"]) and np.array_equal(ex, ev["exit_step"])):
+                raise AssertionError(f"{cell} r{rate:g}: streamed verdicts != evaluate_cascade")
+            if g.view(np.int32).tolist() != c["batch_g"].view(np.int32).tolist():
+                raise AssertionError(f"{cell} r{rate:g}: streamed g_final != batch g_final")
+            st = ref_srv.stats
+            flush_occ = flush_occupancy(ref_srv._dev[0], x, STREAM_CAP)
+            if rate == STREAM_RATES[0] and not st.mean_occupancy > flush_occ:
+                raise AssertionError(
+                    f"{cell}: streaming occupancy {st.mean_occupancy:.4f} <= flush "
+                    f"server's {flush_occ:.4f} at capacity {STREAM_CAP}"
+                )
+            out[f"{cell}/r{rate:g}"] = dict(
+                rate=rate, waves=len(waves), steps_run=st.stream_steps,
+                steps_enqueued=sum(w.steps_enqueued for w in waves),
+                syncs=sum(w.syncs for w in waves), mean_occupancy=st.mean_occupancy,
+                flush_occupancy=flush_occ, latency_p50=st.latency_p50,
+                latency_p95=st.latency_p95, latency_p99=st.latency_p99,
+                latency_mean=st.latency_mean, mean_models=st.mean_models,
+                scores_computed=st.scores_computed, scores_possible=st.scores_possible,
+            )
+            log(f"[phase 4c] {cell} rate {rate:g}: fused == unfused == CPU"
+                f"{' == eager' if 'eager' in srvs else ''} == evaluate_cascade, g_final == "
+                f"batch; {len(waves)} waves, {st.stream_steps} steps, occupancy "
+                f"{st.mean_occupancy:.4f} (flush server {flush_occ:.4f}), latency p50/p95/p99 "
+                f"{st.latency_p50:.0f}/{st.latency_p95:.0f}/{st.latency_p99:.0f} steps, "
+                f"mean models {st.mean_models:.3f}/{T}, scores {st.scores_computed}")
+    report["streaming"] = out
+    return dict(server=server, cells=cells)
 
 
 def flush_latency(make_server, x, label: str) -> dict:
@@ -730,9 +971,122 @@ def busy_share(srv, x, median_ms: float, label: str) -> dict:
     )
 
 
-def phase_times(ctx: dict, main: dict, lmain: dict, launches: dict, check: Check,
-                report: dict) -> list:
-    """Phase 5: flush latency and per-kernel device times."""
+class OpCount:
+    """Counts the PyTorch operator calls (aten ops: allocations, gathers,
+    scatters, elementwise ops, copies) made while it is entered."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def stream_timing(make_server, x, label: str) -> dict:
+    """Streaming at the heavy rate (phase 4c's first): ``N_DRAINS`` drains of
+    the test rows after one warm-up drain, each wave timed on the host clock
+    (a wave ends in its results' transfer); then one wave's PyTorch
+    operator calls, and one wave profiled for the device busy share over
+    the unprofiled median wave."""
+    import numpy as np
+
+    arrivals = poisson_arrivals(x.shape[0], STREAM_RATES[0])
+    srv = make_server()
+    walls, drains, per_step = [], [], []
+    orig = srv.flush
+
+    def timed_flush():
+        t = time.perf_counter()
+        out = orig()
+        dt = time.perf_counter() - t
+        if out:
+            walls.append(dt * 1e3)
+            per_step.append(dt * 1e3 / srv.stream_results[-1].steps_enqueued)
+        return out
+
+    srv.flush = timed_flush
+
+    def later(a):
+        # the trace again, after every arrival the server has seen (its
+        # arrival clock only moves forward)
+        return a + (math.ceil(srv._clock) + 1.0 if srv.stats.n_requests else 0.0)
+
+    stream_serve(srv, x, later(arrivals))  # warm-up
+    walls.clear()
+    per_step.clear()
+    n0 = len(srv.stream_results)
+    for _ in range(N_DRAINS):
+        t = time.perf_counter()
+        stream_serve(srv, x, later(arrivals))
+        drains.append(time.perf_counter() - t)
+    waves = srv.stream_results[n0:]
+    med_drain = statistics.median(drains)
+    st = srv.stats
+    out = dict(
+        requests_per_s=x.shape[0] / med_drain, drain_median_s=med_drain, drains=drains,
+        wave_median_ms=statistics.median(walls),
+        wave_p90_ms=statistics.quantiles(walls, n=10)[-1],
+        step_median_ms=statistics.median(per_step),
+        step_p90_ms=statistics.quantiles(per_step, n=10)[-1],
+        waves=len(walls), steps_run_per_wave=float(np.mean([w.steps_run for w in waves])),
+        steps_enqueued_per_wave=float(np.mean([w.steps_enqueued for w in waves])),
+        syncs_per_wave=float(np.mean([w.syncs for w in waves])),
+        latency_p50=st.latency_p50, latency_p95=st.latency_p95, latency_p99=st.latency_p99,
+    )
+    # one full wave (the window's first 1024 rows): its operator calls, then
+    # its device time under the profiler
+    w = STREAM_WINDOW
+    first = {}
+
+    def fill():
+        first["a"] = later(arrivals[:w])
+        for row, a in zip(x[: w - 1], first["a"]):
+            srv.submit(row, arrival=a)
+
+    def wave():
+        srv.submit(x[w - 1], arrival=first["a"][-1])  # the window's last row: one wave
+
+    fill()
+    with OpCount() as ops:
+        wave()
+    enq = srv.stream_results[-1].steps_enqueued
+    out["torch_ops_per_step"] = ops.n / enq
+    by_name = profile_device(wave, prepare=fill)
+    busy = sum(v[0] for v in by_name.values())
+    med_us = out["wave_median_ms"] * 1e3
+    out.update(
+        device_busy_us=busy, busy_share=busy / med_us,
+        top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+    )
+    log(f"[phase 5] {label} streaming (rate {STREAM_RATES[0]:g}, cap {STREAM_CAP}, window "
+        f"{w}): {out['requests_per_s']:.0f} requests/s over a drain of {x.shape[0]}; wave "
+        f"median {out['wave_median_ms']:.3f} ms, p90 {out['wave_p90_ms']:.3f} ms over "
+        f"{len(walls)} waves; step median {out['step_median_ms']:.4f} ms, p90 "
+        f"{out['step_p90_ms']:.4f} ms; {out['steps_run_per_wave']:.1f} steps run, "
+        f"{out['steps_enqueued_per_wave']:.1f} enqueued, {out['syncs_per_wave']:.1f} syncs "
+        f"per wave; latency p50/p95/p99 {st.latency_p50:.0f}/{st.latency_p95:.0f}/"
+        f"{st.latency_p99:.0f} steps; {out['torch_ops_per_step']:.1f} PyTorch ops per "
+        f"step; one wave's device busy {busy:.0f} us = {out['busy_share']:.2%} of the "
+        f"median wave")
+    return out
+
+
+def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, launches: dict,
+                check: Check, report: dict) -> list:
+    """Phase 5: flush latency, streaming wave times and per-kernel device
+    times."""
     import torch
 
     from repro_torch.kernels import megakernel as mk
@@ -740,6 +1094,8 @@ def phase_times(ctx: dict, main: dict, lmain: dict, launches: dict, check: Check
         cascade_chunk_kernel,
         cascade_chunk_plain,
         cascade_kernel,
+        cascade_lane_kernel,
+        cascade_lane_plain,
         cascade_plain,
     )
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
@@ -757,6 +1113,11 @@ def phase_times(ctx: dict, main: dict, lmain: dict, launches: dict, check: Check
     report["lattice_profile_flush256"] = busy_share(
         lserver("cuda"), lds.x_test, llat["batch256"]["median_ms"], "exp4_rw2_joint"
     )
+    report["stream_timing"] = {
+        cell: stream_timing(lambda c=cell: smain["server"](c, "cuda"),
+                            smain["cells"][cell]["ds"].x_test, cell)
+        for cell in smain["cells"]
+    }
 
     g0, chunk, ep, en = ctx["chunk"]
     feats, thrs, leaves = ctx["forest"]
@@ -875,6 +1236,48 @@ def phase_times(ctx: dict, main: dict, lmain: dict, launches: dict, check: Check
         nbytes=256 * 4 * (Dl + 1) + W * (4 * S + 4 * P + 8) + out_bytes,
         ops=256 * W * (flops + 3), shape=f"cap=256 W={W} d={Dl} S={S}",
     )
+    # B6 and B7 on phase 3's mixed-stage buffer: lanes over every stage,
+    # per-lane threshold rows; a slab is read once per distinct stage
+    lanes = ctx["lanes"]
+    stage, stop = lanes["stage"], lanes["stop"]
+    lep_, len_l = lanes["eps"]
+    n_st = int(torch.unique(stage).numel())
+    entry(
+        "cascade_lane",
+        lambda: cascade_lane_kernel(g0, lanes["scores"], lep_, len_l, block_n=64, n_valid=nv),
+        lambda: cascade_lane_plain(g0, lanes["scores"], lep_, len_l, n_valid=nv),
+        nbytes=4 * (m + 3 * m * ct) + 16 * m, ops=3 * m * ct,
+        shape=f"m={m} ct={ct}, lanes at {n_st} stages",
+    )
+    lane_in = 256 * (8 + 4 + 4 + 1) + out_bytes + n_st * W * 8  # rows, g0, stage, stop
+    entry(
+        "mega_lane_tree",
+        lambda: mk.mega_lane_kernel(tree.slabs, x_buf, rows_all, g_buf, stage, stop, nv,
+                                    eps_pos, eps_neg, block_n=64),
+        lambda: mk.mega_lane_plain(tree.slabs, x_buf, rows_all, g_buf, stage, stop, nv,
+                                   eps_pos, eps_neg, block_n=64),
+        nbytes=lane_in + 256 * 4 * d + n_st * W * (8 * depth + 4 * L),
+        ops=256 * W * (depth + 3), shape=f"cap=256 W={W} d={d} depth={depth}, {n_st} stages",
+    )
+    entry(
+        "mega_lane_matrix",
+        lambda: mk.mega_lane_kernel(matrix.slabs, F, rows_all, g_buf, stage, stop, nv,
+                                    eps_pos, eps_neg, block_n=64),
+        lambda: mk.mega_lane_plain(matrix.slabs, F, rows_all, g_buf, stage, stop, nv,
+                                   eps_pos, eps_neg, block_n=64),
+        nbytes=lane_in + 256 * 4 * W + n_st * 8, ops=256 * W * 3,
+        shape=f"cap=256 W={W} T_pad={F.shape[1]}, {n_st} stages",
+    )
+    entry(
+        "mega_lane_lattice",
+        lambda: mk.mega_lane_kernel(lattice.slabs, xl_buf, rows_all, g_buf, stage, stop, nv,
+                                    lep, len_, block_n=64),
+        lambda: mk.mega_lane_plain(lattice.slabs, xl_buf, rows_all, g_buf, stage, stop, nv,
+                                   lep, len_, block_n=64),
+        nbytes=lane_in + 256 * 4 * Dl + n_st * W * (4 * S + 4 * P),
+        ops=256 * W * (flops + 3), shape=f"cap=256 W={W} d={Dl} S={S}, {n_st} stages",
+    )
+
     # B1 on the eager path's own inputs; a row reads the scores up to its
     # exit, so the bound counts this run's steps
     Fo, (bep, ben), steps = lmain["F_ordered"], lmain["eps"], lmain["steps"]
@@ -943,9 +1346,11 @@ def main() -> int:
     launches: dict = {}
     main_ctx = timed("4", phase_main_path, report, launches)
     lattice_ctx = timed("4b", phase_lattice_path, report, launches)
+    stream_ctx = timed("4c", phase_streaming, report, launches, main_ctx, lattice_ctx)
 
     # phase 5: times
-    kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, launches, check, report)
+    kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, launches,
+                    check, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

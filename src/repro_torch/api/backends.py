@@ -29,9 +29,13 @@ __all__ = ["BackendCapabilities", "HostBackend", "DeviceBackend"]
 class BackendCapabilities:
     """``on_device``: the whole stage loop (scoring, decide, compaction)
     is enqueued on the device with no per-stage host round trip; False
-    means the host stage loop with per-stage producer calls."""
+    means the host stage loop with per-stage producer calls.
+    ``streaming``: the executor has ``run_stream`` (fixed-capacity lanes
+    that an admission ring refills mid-cascade), which ``StreamingServer``
+    needs."""
 
     on_device: bool
+    streaming: bool = False
 
 
 def _as_cascade_plan(plan: CascadePlan | DevicePlan) -> CascadePlan:
@@ -65,7 +69,7 @@ class DeviceBackend:
     """The device stage loop (``DeviceExecutor``)."""
 
     name = "device"
-    capabilities = BackendCapabilities(on_device=True)
+    capabilities = BackendCapabilities(on_device=True, streaming=True)
 
     def available(self) -> tuple[bool, str]:
         if torch.cuda.is_available():

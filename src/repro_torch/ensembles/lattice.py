@@ -30,6 +30,7 @@ __all__ = [
     "lattice_params_from_numpy",
     "apply_lattice_scores",
     "apply_lattice",
+    "interpolate",
     "train_lattice_ensemble",
 ]
 
@@ -82,17 +83,25 @@ def init_lattice_ensemble(
     return lattice_params_from_numpy(theta, feature_subsets, device=device)
 
 
+def interpolate(v: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Multilinear interpolation of vertex values ``v`` (..., 2^S) at the
+    inputs ``xs`` (..., S) -> (...): S halvings, feature 0 first, each
+    ``v_lo * (1 - x_j) + v_hi * x_j`` in separately rounded f32 ops (the
+    order of ``csrc/lattice.cuh``).  ``v`` broadcasts against ``xs``'s
+    leading dimensions at the first halving."""
+    for j in range(xs.shape[-1]):
+        h = v.shape[-1] // 2
+        xj = xs[..., j : j + 1]
+        v = v[..., :h] * (1.0 - xj) + v[..., h:] * xj
+    return v[..., 0]
+
+
 def _contract(theta: torch.Tensor, feats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(n, t) scores of the t lattices on the n rows of ``x``."""
     n = x.shape[0]
     t, s = feats.shape
     xs = x[:, feats.reshape(-1).long()].reshape(n, t, s)
-    v = theta  # (t, 2^S), broadcast against the rows at the first halving
-    for j in range(s):
-        h = v.shape[-1] // 2
-        xj = xs[:, :, j : j + 1]
-        v = v[..., :h] * (1.0 - xj) + v[..., h:] * xj
-    return v[..., 0]
+    return interpolate(theta, xs)  # theta (t, 2^S) broadcasts over the rows
 
 
 def apply_lattice_scores(params: dict, x: torch.Tensor) -> torch.Tensor:

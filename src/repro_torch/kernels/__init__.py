@@ -2,11 +2,14 @@
 PyTorch versions.
 
 cascade_kernel:  B1, the whole-matrix decide; B2, one stage's threshold
-                 walk (the chunk decide).
+                 walk (the chunk decide); B6, the walk with a threshold row
+                 per lane (the lane decide of streaming admission).
 tree_kernel:     B3, oblivious-forest scores.
-megakernel:      B4, the fused stage step (score + decide + block prefix).
+megakernel:      B4, the fused stage step (score + decide + block prefix);
+                 B7, the same for lanes at different stages (streaming).
 lattice_kernel:  B5, multilinear lattice scores.
-device_executor: the whole stage loop on the device, no host sync.
+device_executor: the whole stage loop on the device, no host sync, and the
+                 streaming admission loop.
 ops:             public entry points over the kernels.
 
 Sources live in ``repro_torch/csrc/`` and are compiled by ``_build`` at

@@ -28,7 +28,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("cascade", "cascade_chunk", "tree_scores", "lattice_scores", "mega_stage")
+SOURCES = (
+    "cascade", "cascade_chunk", "cascade_lane", "tree_scores", "lattice_scores",
+    "mega_stage",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no multiply may contract into an add (threshold_step's partial sums,

@@ -10,11 +10,13 @@ the single source of the step semantics on tensors; its CUDA twin is
   (N, T) score matrix (``ops.cascade_decide``, the eager Filter-and-Score
   evaluation of the paper's tables).
 * B2 ``cascade_chunk_kernel``: one stage's walk, the serving path's decide.
+* B6 ``cascade_lane_kernel``: B2 with a threshold row per lane, the decide
+  of the unfused streaming step (``csrc/cascade_lane.cu``).
 
 Each wrapper sends a CPU tensor to its plain version (``cascade_plain``,
-``cascade_chunk_plain``) and a CUDA tensor to the hand-written kernel (or
-raises).  The lane and group decides of the reference module are listed in
-ROADMAP.md.
+``cascade_chunk_plain``, ``cascade_lane_plain``) and a CUDA tensor to the
+hand-written kernel (or raises).  The group decide of the reference module
+is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -34,11 +36,14 @@ __all__ = [
     "cascade_plain",
     "cascade_chunk_kernel",
     "cascade_chunk_plain",
+    "cascade_lane_kernel",
+    "cascade_lane_plain",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _CASCADE_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
+_LANE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 
 
 def threshold_step(g, active, decided_pos, exit_step, f_t, ep, en, step_1b):
@@ -140,6 +145,80 @@ def cascade_chunk_kernel(
     )
     _build.check("cascade_chunk", err, "cascade_chunk")
     _build.LAUNCHES["cascade_chunk"] += 1
+    return g, active, dec, ex
+
+
+def cascade_lane_plain(
+    g0: torch.Tensor,
+    chunk_scores: torch.Tensor,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    n_valid=None,
+):
+    """Plain version of B6 (any device, float32): ``cascade_chunk_plain``
+    with (m, ct) PER-ROW threshold rows, so one buffer mixes rows at
+    different stages.  ``exit_step`` is RELATIVE (1-based within the chunk,
+    0 where the row survived); the caller rebases by each row's stage
+    start.  Rows at or past ``n_valid`` start inactive."""
+    m, ct = chunk_scores.shape
+    dev = chunk_scores.device
+    g = g0.clone()
+    active = _live(m, n_valid, dev)
+    dec = torch.zeros(m, dtype=torch.bool, device=dev)
+    ex = torch.zeros(m, dtype=torch.int32, device=dev)
+    for j in range(ct):
+        g, active, dec, ex = threshold_step(
+            g, active, dec, ex, chunk_scores[:, j], eps_pos[:, j], eps_neg[:, j],
+            j + 1,
+        )
+    return g, active.to(torch.int32), dec.to(torch.int32), ex
+
+
+def cascade_lane_kernel(
+    g0: torch.Tensor,
+    chunk_scores: torch.Tensor,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    block_n: int = DEFAULT_BLOCK_N,
+    n_valid=None,
+):
+    """Threshold tests for ONE mixed-stage chunk (B6), same contract as
+    ``cascade_lane_plain``: ``eps_pos``/``eps_neg`` are (m, ct), each row's
+    thresholds gathered at its own stage.  ``n_valid`` and ``block_n`` as
+    in ``cascade_chunk_kernel``.
+    """
+    if chunk_scores.device.type == "cpu":
+        return cascade_lane_plain(g0, chunk_scores, eps_pos, eps_neg, n_valid)
+    if chunk_scores.device.type != "cuda":
+        raise ValueError(f"cascade_lane: unsupported device {chunk_scores.device}")
+    f32 = torch.float32
+    _build.check_cuda(
+        "cascade_lane", ("chunk_scores", chunk_scores, f32), ("g0", g0, f32),
+        ("eps_pos", eps_pos, f32), ("eps_neg", eps_neg, f32),
+    )
+    m, ct = chunk_scores.shape
+    if g0.shape != (m,) or eps_pos.shape != (m, ct) or eps_neg.shape != (m, ct):
+        raise ValueError(
+            f"cascade_lane: g0 {tuple(g0.shape)}, eps {tuple(eps_pos.shape)}/"
+            f"{tuple(eps_neg.shape)} do not fit scores {(m, ct)}"
+        )
+    if not 1 <= block_n <= 1024:
+        raise ValueError(f"cascade_lane: block_n {block_n} not in [1, 1024]")
+    dev = chunk_scores.device
+    g = torch.empty(m, dtype=f32, device=dev)
+    active, dec, ex = (torch.empty(m, dtype=torch.int32, device=dev) for _ in range(3))
+    if m == 0:
+        return g, active, dec, ex
+    nv_ptr, nv_host = _build.n_valid_args(n_valid, m, dev)
+    fn = _build.function("cascade_lane", "cascade_lane_launch", _LANE_ARGTYPES)
+    err = fn(
+        g0.data_ptr(), chunk_scores.data_ptr(), eps_pos.data_ptr(),
+        eps_neg.data_ptr(), nv_ptr, nv_host, m, ct, int(block_n),
+        g.data_ptr(), active.data_ptr(), dec.data_ptr(), ex.data_ptr(),
+        _build.stream(dev),
+    )
+    _build.check("cascade_lane", err, "cascade_lane")
+    _build.LAUNCHES["cascade_lane"] += 1
     return g, active, dec, ex
 
 

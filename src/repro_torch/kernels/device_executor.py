@@ -31,6 +31,21 @@ only enqueues work on the card:
 Stages are uniformized to the plan's maximum width ``W``: padded columns
 carry ±inf thresholds and zeroed scores, so they never move a partial sum
 or trigger an exit.
+
+**Streaming admission** (``run_stream``, the reference's
+``_stream_program``): the survivor buffer becomes a set of ``cap`` lanes
+that a ring of ``R`` pending rows refills as lanes free up, each lane at
+its own stage.  A step is the admission refill, one mixed-stage kernel
+(B7, ``mega_lane``; or the scorer's ``lane_fn`` and the lane decide B6),
+the finished rows' scatters and the repack.  Every buffer indexed by a row
+id has ``R + 1`` entries, the trash slot at ``R``.  The number of steps
+depends on the data, so the loop is enqueued in bursts: after each burst
+the live count and the ring head come back in one two-word transfer, and
+the loop stops once no lane is live and the ring is empty.  A step
+enqueued past that point is inert (every kernel retires at once, every
+scatter lands in the trash slot), and a device counter advances only on
+the steps where the reference's loop condition held, so ``steps_run``,
+``admit_step``, ``done_step`` and the occupancy equal the reference's.
 """
 
 from __future__ import annotations
@@ -44,21 +59,26 @@ import torch
 from repro_torch.core.executor import CascadePlan, ChunkStat, ExecutorResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import megakernel as mk
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel
+from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_lane_kernel
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
 __all__ = [
     "DEFAULT_BLOCK_N",
+    "STREAM_BURST",
     "BoundScorer",
     "DeviceExecutor",
     "DevicePlan",
+    "StreamResult",
     "lattice_stage_scorer",
     "matrix_stage_scorer",
+    "stream_occupancy",
     "tree_stage_scorer",
 ]
 
 DEFAULT_BLOCK_N = 64
+# streaming steps enqueued between two reads of the loop's end condition
+STREAM_BURST = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,6 +148,12 @@ class BoundScorer:
     exact producer, billed at the executor's block).  ``slabs``: the
     params as stage-stacked ``ParamSlabs``, the ticket into the fused
     stage step.
+    ``lane_fn(x, rows, t0_lane, n_valid) -> (cap, W)``: the per-lane-stage
+    variant for streaming admission, ``t0_lane`` a (cap,) tensor of each
+    lane's own cascade start (refilled stage-0 rows sit next to
+    mid-cascade ones in one buffer).  A scorer without one streams only
+    through the fused step (B7).  Only stateless scorers are ported: the
+    reference's state carry comes with the neural scorer (ROADMAP A13).
     """
 
     fn: Callable
@@ -135,6 +161,18 @@ class BoundScorer:
     width: int
     block_n: int | None = None
     slabs: mk.ParamSlabs | None = None
+    lane_fn: Callable | None = None
+
+    @property
+    def has_lanes(self) -> bool:
+        return self.lane_fn is not None
+
+    def lane_stage(self, t0_lane, rows, x, n_valid) -> torch.Tensor:
+        """The per-lane-stage protocol: scores of positions
+        [t0_lane[i], t0_lane[i] + W) for lane i's row."""
+        if self.lane_fn is None:
+            raise ValueError("this scorer has no per-lane stage scoring (lane_fn)")
+        return self.lane_fn(x, rows, t0_lane, n_valid)
 
 
 def matrix_stage_scorer(
@@ -155,7 +193,13 @@ def matrix_stage_scorer(
     def fn(x, rows, t0: int, n_valid) -> torch.Tensor:
         return x[rows, t0 : t0 + W]
 
-    return BoundScorer(fn=fn, prepare=prepare, width=W, slabs=slabs)
+    def lane_fn(x, rows, t0_lane, n_valid) -> torch.Tensor:
+        # lane i reads columns [t0_lane[i], t0_lane[i] + W), always in range
+        # since x is padded to T_pad
+        idx = t0_lane.long()[:, None] + torch.arange(W, device=x.device)
+        return torch.gather(x[rows], 1, idx)
+
+    return BoundScorer(fn=fn, prepare=prepare, width=W, slabs=slabs, lane_fn=lane_fn)
 
 
 def tree_stage_scorer(
@@ -196,7 +240,15 @@ def tree_stage_scorer(
             rows=rows, n_valid=n_valid,
         )
 
-    return BoundScorer(fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs)
+    def lane_fn(x, rows, t0_lane, n_valid) -> torch.Tensor:
+        # each lane's own W trees, a pure leaf select: bit-identical to B3
+        pos = t0_lane.long()[:, None] + torch.arange(W, device=x.device)
+        lane = {"feats": feats_p[pos], "thrs": thrs_p[pos], "payload": leaves_p[pos]}
+        return mk.lane_scores("tree", x[rows], lane, W)
+
+    return BoundScorer(
+        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn
+    )
 
 
 def lattice_stage_scorer(
@@ -236,7 +288,79 @@ def lattice_stage_scorer(
             n_valid=n_valid,
         )
 
-    return BoundScorer(fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs)
+    def lane_fn(x, rows, t0_lane, n_valid) -> torch.Tensor:
+        # each lane's own W lattices, contracted dimension by dimension as
+        # apply_lattice_scores and csrc/lattice.cuh do (not the reference's
+        # corner-weight sum), so the scores equal B5's bit for bit
+        pos = t0_lane.long()[:, None] + torch.arange(W, device=x.device)
+        lane = {"feats": feats_p[pos], "payload": theta_p[pos]}
+        return mk.lane_scores("lattice", x[rows], lane, W)
+
+    return BoundScorer(
+        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn
+    )
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """Result of a streaming (continuous-batching) run, as the reference's.
+
+    Per-row results mirror ``ExecutorResult``; the streaming-specific
+    fields are the loop-step timeline: ``admit_step[i]`` is the loop step
+    at which row i left the admission ring for a survivor slot,
+    ``done_step[i]`` the step at which its decision was recorded, and
+    ``occupancy[s]`` the live slot count at step s (reconstructed
+    host-side from admit/done — a lane is live at every step in
+    [admit, done]).  Latency in steps is ``done_step - arrival + 1``.
+    ``chunk_stats`` stays empty (stages are mixed per step); billing uses
+    the same block-guard accounting as the batch path, applied to the
+    per-step live count.  ``steps_enqueued`` and ``syncs`` are the port's
+    own loop accounting: the steps put on the device (``steps_run`` plus
+    the inert ones of the last burst) and the device -> host transfers the
+    run waited for.
+    """
+
+    decisions: np.ndarray  # (n,) bool
+    exit_step: np.ndarray  # (n,) int64, 1-based; T if never exited
+    g_final: np.ndarray  # (n,) float32
+    admit_step: np.ndarray  # (n,) int64 — loop step of slot admission
+    done_step: np.ndarray  # (n,) int64 — loop step of the decision
+    steps_run: int  # total loop steps executed
+    occupancy: np.ndarray  # (steps_run,) int64 live slots per step
+    capacity: int  # survivor-slot capacity (occupancy denominator)
+    scores_computed: int
+    scores_possible: int
+    chunk_stats: list = dataclasses.field(default_factory=list)
+    steps_enqueued: int = 0
+    syncs: int = 0
+
+    @property
+    def mean_occupancy(self) -> float:
+        """Mean live-slot fraction over the run's loop steps."""
+        if self.steps_run == 0:
+            return 0.0
+        return float(self.occupancy.mean()) / max(self.capacity, 1)
+
+    @property
+    def latency_steps(self) -> np.ndarray:
+        """Admission wait + service, in loop steps (admission-relative:
+        callers add their own queue wait before the ring)."""
+        return self.done_step - self.admit_step + 1
+
+
+def stream_occupancy(
+    admit_step: np.ndarray, done_step: np.ndarray, steps_run: int
+) -> np.ndarray:
+    """(steps_run,) live-slot count per loop step from the admit/done
+    timeline: a row occupies its slot (and is scored) at every step in
+    [admit, done].  Shared by the executors' billing, the streaming
+    benchmark and the tests."""
+    occ = np.zeros(steps_run + 1, dtype=np.int64)
+    if steps_run == 0 or admit_step.size == 0:
+        return occ[:steps_run]
+    np.add.at(occ, admit_step, 1)
+    np.add.at(occ, done_step + 1, -1)
+    return np.cumsum(occ[:steps_run])
 
 
 class DeviceExecutor:
@@ -277,6 +401,7 @@ class DeviceExecutor:
         self._eps_pos = torch.from_numpy(dp.eps_pos).to(dev)
         self._eps_neg = torch.from_numpy(dp.eps_neg).to(dev)
         self._col_valid = torch.from_numpy(dp.col_valid).to(dev)
+        self._stage_t0 = torch.from_numpy(dp.stage_t0).to(dev)
         self._beta = float(np.float32(dp.plan.beta))
 
     def _bn_bill(self) -> int:
@@ -410,4 +535,188 @@ class DeviceExecutor:
             chunk_stats=chunk_stats,
             scores_computed=sum(c.scores_computed for c in chunk_stats),
             scores_possible=n * T,
+        )
+
+    # -- streaming admission (continuous batching) -----------------------
+
+    def _stream_program(self, x, n: int, cap: int, arr: np.ndarray):
+        """The admission-ring loop over ``n`` rows of ``x`` ((R + 1, ...),
+        the last row the trash row) with ``cap`` lanes; ``arr`` (n,) the
+        nondecreasing arrival steps.  Returns the device result buffers
+        and the host's count of steps enqueued and syncs."""
+        dp, dev = self.dplan, self.device
+        S, T = dp.S, dp.plan.T
+        R = x.shape[0] - 1  # ring size == output size; R = trash id
+        i32 = torch.int32
+        lane = torch.arange(cap, device=dev)
+        rows = torch.full((cap,), R, dtype=torch.int64, device=dev)
+        stage = torch.zeros(cap, dtype=i32, device=dev)
+        g = torch.zeros(cap, dtype=torch.float32, device=dev)
+        n_live = torch.zeros((), dtype=i32, device=dev)
+        head = torch.zeros((), dtype=i32, device=dev)
+        steps_run = torch.zeros((), dtype=i32, device=dev)
+        dec = torch.zeros(R + 1, dtype=torch.bool, device=dev)
+        ex = torch.full((R + 1,), T, dtype=i32, device=dev)
+        gout = torch.zeros(R + 1, dtype=torch.float32, device=dev)
+        admit = torch.zeros(R + 1, dtype=i32, device=dev)
+        done = torch.zeros(R + 1, dtype=i32, device=dev)
+        step, syncs = 0, 0
+        # the loop runs at least until the last arrival's step: no sync before
+        burst = max(STREAM_BURST, int(arr[-1]) + 1)
+        while True:
+            for _ in range(burst):
+                # the reference's loop condition, on the device: live lanes
+                # or a non-empty ring.  Once false it stays false, and the
+                # step below is inert.
+                steps_run += (n - head + n_live).clamp_(max=1)
+                # admission refill: the free lanes at the back of the
+                # front-packed buffer take the next rows of the ring whose
+                # arrival step has come, at stage 0.  A free lane already
+                # holds stage 0 and g 0 (the repack zeroes it), and ring
+                # slot j holds row j, so a new lane's row id is head + its
+                # offset past the live lanes.
+                arrived = int(np.searchsorted(arr, step, side="right"))
+                k = torch.minimum(cap - n_live, arrived - head)
+                off = lane - n_live
+                is_new = (off >= 0) & (off < k)
+                rows = torch.where(is_new, off + head, rows)
+                admit[torch.where(is_new, rows, R)] = step
+                n_live = n_live + k
+                head = head + k
+                # the mixed-stage step: each lane at its own stage
+                stop = stage >= S - 1  # lanes running their last stage
+                t0_lane = self._stage_t0[stage]
+                if self.megakernel:
+                    g_new, active, dpos, ex_rel, pack, n_keep = mk.mega_lane(
+                        self.scorer.slabs, x, rows, g, stage, stop, n_live,
+                        self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
+                    )
+                else:
+                    scores = self.scorer.lane_stage(t0_lane, rows, x, n_live)
+                    scores = torch.where(self._col_valid[stage], scores, 0.0)
+                    g_new, active, dpos, ex_rel = cascade_lane_kernel(
+                        g, scores.contiguous(), self._eps_pos[stage],
+                        self._eps_neg[stage], block_n=self.block_n, n_valid=n_live,
+                    )
+                    # cumsum-prefix compaction: survivors advance a stage
+                    keep = active.bool() & ~stop
+                    pos = torch.cumsum(keep, dim=0, dtype=i32) - 1
+                    pack = torch.where(keep, pos, cap)
+                    n_keep = keep.sum(dtype=i32)
+                # B6 and B7 start lanes past n_live inactive, so only live
+                # lanes exit (ex_rel > 0) or run out (still active at their
+                # last stage: decided by the full score, as the batch path's
+                # epilogue does)
+                newly = ex_rel > 0
+                fin = newly | (active.bool() & stop)
+                scat = torch.where(fin, rows, R)
+                dec[scat] = torch.where(newly, dpos.bool(), g_new >= self._beta)
+                ex[scat] = torch.where(newly, ex_rel + t0_lane, T)
+                gout[scat] = g_new
+                done[scat] = step
+                # repack: survivors to the front, freed lanes to (R, 0, 0.0)
+                pack = pack.long()
+                rows = torch.full((cap + 1,), R, dtype=torch.int64, device=dev).index_copy_(
+                    0, pack, rows
+                )[:cap]
+                stage = torch.zeros(cap + 1, dtype=i32, device=dev).index_copy_(
+                    0, pack, stage + 1
+                )[:cap]
+                g = torch.zeros(cap + 1, dtype=torch.float32, device=dev).index_copy_(
+                    0, pack, g_new
+                )[:cap]
+                n_live = n_keep
+                step += 1
+            live, taken = torch.stack([n_live, head]).tolist()
+            syncs += 1
+            if live == 0 and taken == n:
+                break
+            burst = STREAM_BURST
+        return dec[:n], ex[:n], gout[:n], admit[:n], done[:n], steps_run, step, syncs
+
+    def run_stream(
+        self,
+        batch,
+        n: int,
+        arrivals=None,
+        capacity: int | None = None,
+        ring_capacity: int | None = None,
+        prepared: bool = False,
+    ) -> StreamResult:
+        """Continuously stream ``n`` rows through ``capacity`` survivor lanes.
+
+        ``arrivals`` (optional, (n,) nondecreasing ints) gates admission:
+        row i cannot be admitted before loop step ``arrivals[i]`` (None =
+        everyone is already waiting).  ``capacity`` pins the lane count
+        (block-padded; default all ``n`` rows at once) and
+        ``ring_capacity`` the admission-ring size (default ``n``), so a
+        server's waves share one buffer geometry.  ``prepared=True`` means
+        ``batch`` is already the scorer-prepared operand.
+        """
+        plan = self.dplan.plan
+        T = plan.T
+        if not self.scorer.has_lanes and not self.megakernel:
+            raise ValueError(
+                "run_stream needs a scorer with per-lane stage scoring "
+                "(lane_fn) on the multi-kernel path; this scorer only "
+                "supports batch stages"
+            )
+        if n == 0:
+            return StreamResult(
+                decisions=np.zeros(0, dtype=bool),
+                exit_step=np.zeros(0, dtype=np.int64),
+                g_final=np.zeros(0, dtype=np.float32),
+                admit_step=np.zeros(0, dtype=np.int64),
+                done_step=np.zeros(0, dtype=np.int64),
+                steps_run=0,
+                occupancy=np.zeros(0, dtype=np.int64),
+                capacity=self._cap(capacity or 1),
+                scores_computed=0,
+                scores_possible=0,
+            )
+        cap = self._cap(capacity or n)
+        R = max(n, int(ring_capacity or n))
+        arr = (
+            np.zeros(n, dtype=np.int64)
+            if arrivals is None
+            else np.asarray(arrivals, dtype=np.int64)
+        )
+        if arr.shape != (n,):
+            raise ValueError(f"arrivals has shape {arr.shape}, expected ({n},)")
+        if (np.diff(arr) < 0).any():
+            raise ValueError("arrivals must be nondecreasing")
+        x = batch if prepared else self.scorer.prepare(batch)
+        if x.device != self.device:
+            raise ValueError(f"operand on {x.device}, executor on {self.device}")
+        # R ring rows, then the trash row R (zeros) that free lanes read
+        x = x[: R + 1]
+        x = torch.nn.functional.pad(x, (0, 0, 0, R + 1 - x.shape[0]))
+        dec, ex, g, admit, done, steps_run, enqueued, syncs = self._stream_program(
+            x.contiguous(), n, cap, arr
+        )
+        # the one transfer of the results, after the loop
+        words = torch.cat(
+            [steps_run[None], dec.to(torch.int32), ex, g.view(torch.int32), admit, done]
+        ).cpu().numpy()
+        steps_run = int(words[0])
+        dec, ex, g, admit, done = np.split(words[1:], 5)
+        admit, done = admit.astype(np.int64), done.astype(np.int64)
+        occ = stream_occupancy(admit, done, steps_run)
+        # block-guard billing per loop step, as the batch path: the live
+        # lanes are front-packed, so a guarded kernel computes
+        # ceil(live / block) blocks of the W-wide slab
+        bn, W = self._bn_bill(), self.dplan.W
+        return StreamResult(
+            decisions=dec.astype(bool),
+            exit_step=ex.astype(np.int64),
+            g_final=g.view(np.float32),
+            admit_step=admit,
+            done_step=done,
+            steps_run=steps_run,
+            occupancy=occ,
+            capacity=cap,
+            scores_computed=int(((-(-occ // bn)) * bn * W).sum()),
+            scores_possible=n * T,
+            steps_enqueued=enqueued,
+            syncs=syncs + 1,
         )

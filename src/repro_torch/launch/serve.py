@@ -16,6 +16,12 @@ split through ``QWYCServer`` and reports speedup and faithfulness.
 device backend, never the host loop), ``device`` or ``host``.
 ``--device`` picks the torch device: ``cuda`` (the default, an error
 without a card) or ``cpu``, which runs every kernel's plain version.
+``--streaming`` serves through ``StreamingServer`` (continuous batching)
+under a seeded Poisson arrival trace of ``--arrival-rate`` requests per
+stage step:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --dataset adult \
+        --T 500 --alpha 0.005 --streaming --arrival-rate 4
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ from repro_torch.ensembles.gbt import train_gbt
 from repro_torch.ensembles.lattice import init_lattice_ensemble, train_lattice_ensemble
 from repro_torch.kernels import ops
 from repro_torch.serving.engine import BACKENDS as POLICIES
-from repro_torch.serving.engine import QWYCServer
+from repro_torch.serving.engine import QWYCServer, StreamingServer
 
 # row-block size for the lazy chunked score kernels: survivors are padded
 # up to a multiple of this (billed honestly via score_block_n below)
 SCORE_BLOCK_N = 64
+# the streaming protocol's fixed arrival-trace seed
+ARRIVAL_SEED = 2028
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,14 +79,42 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", default="cuda", choices=["cuda", "cpu"],
         help="torch device (cpu runs the kernels' plain versions)",
     )
+    ap.add_argument(
+        "--streaming", action="store_true",
+        help="continuous batching: requests wait in an arrival-order queue "
+        "and the device admission ring refills freed survivor slots "
+        "mid-cascade; needs an on-device --backend",
+    )
+    ap.add_argument(
+        "--max-wait", type=float, default=None,
+        help="streaming admission deadline in stage steps: launch a partial "
+        "wave once the oldest queued request has waited this long "
+        "(default: wait for a full window)",
+    )
+    ap.add_argument(
+        "--stream-window", type=int, default=None,
+        help="streaming admission-ring size per device wave (default: 4x the "
+        "slot capacity)",
+    )
+    ap.add_argument(
+        "--arrival-rate", type=float, default=4.0,
+        help="streaming Poisson arrival rate in requests per stage step "
+        "(fixed seed, so the trace and the billing are deterministic)",
+    )
     return ap
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     device = resolve_device(args.device)
     backend = resolve_backend(args.backend, device=device)
     on_device = backend.capabilities.on_device
+    if args.streaming and not backend.capabilities.streaming:
+        ap.error(
+            f"--streaming needs an on-device backend (resolved {backend.name!r}; "
+            "see BackendCapabilities.streaming)"
+        )
 
     ds = make_dataset(args.dataset, scale=args.scale)
     print(f"[serve] dataset={args.dataset} train={len(ds.y_train)} test={len(ds.y_test)}")
@@ -149,9 +185,7 @@ def main(argv=None) -> None:
         # fully lazy device path; chunk_score_fn stays as the audit reader
         producer_kw["scorer"] = make_scorer()
     audit = args.audit or args.eager
-    server = QWYCServer(
-        qwyc,
-        backend=args.policy,
+    common_kw = dict(
         batch_size=args.batch_size,
         chunk_t=args.chunk_t,
         audit_full_scores=audit,
@@ -160,15 +194,42 @@ def main(argv=None) -> None:
         device=device,
         **producer_kw,
     )
+    if args.streaming:
+        server = StreamingServer(
+            qwyc, window=args.stream_window, max_wait=args.max_wait, **common_kw
+        )
+        # deterministic Poisson arrival trace (stage-step units): the seed of
+        # the streaming protocol, so the CLI's numbers repeat run to run
+        arr_rng = np.random.default_rng(ARRIVAL_SEED)
+        arrivals = np.cumsum(
+            arr_rng.exponential(1.0 / args.arrival_rate, size=len(ds.y_test))
+        )
+    else:
+        server = QWYCServer(qwyc, backend=args.policy, **common_kw)
+        arrivals = None
     for i in range(len(ds.y_test)):
-        server.submit(ds.x_test[i])
+        if arrivals is None:
+            server.submit(ds.x_test[i])
+        else:
+            server.submit(ds.x_test[i], arrival=arrivals[i])
     results = server.drain()
 
     st = server.stats
     acc = np.mean([r["decision"] == bool(y) for r, y in zip(results, ds.y_test)])
+    if args.streaming:
+        print(
+            f"[serve] streaming: {st.admitted_rows} admitted over "
+            f"{st.stream_steps} stage steps in {st.n_batches} wave(s)  "
+            f"mean occupancy {st.mean_occupancy:.1%}\n"
+            f"        latency (steps) mean {st.latency_mean:.1f}  "
+            f"p50 {st.latency_p50:.0f}  p95 {st.latency_p95:.0f}  "
+            f"p99 {st.latency_p99:.0f}"
+            + (f"  (max_wait={args.max_wait})" if args.max_wait is not None else "")
+        )
     print(
         f"[serve] {st.n_requests} requests in {st.n_batches} batches "
-        f"({server.exec.name} backend, {args.policy} policy, "
+        f"({server.exec.name} backend, "
+        f"{'streaming' if args.streaming else args.policy + ' policy'}, "
         f"{'eager' if args.eager else 'lazy'})\n"
         f"        mean models {st.mean_models:.2f}/{args.T}  "
         f"modeled speedup {st.speedup:.2f}x\n"

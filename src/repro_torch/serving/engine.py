@@ -1,5 +1,5 @@
 """Batched-request QWYC serving engine, the counterpart of
-``repro.serving.engine`` (``QWYCServer``; the streaming server, the
+``repro.serving.engine`` (``QWYCServer`` and ``StreamingServer``; the
 admission quarantine, the drift watchdog, the mesh and the degradation
 ladder are later slices, ROADMAP.md).
 
@@ -26,6 +26,12 @@ Three policies differ in batching/sorting and the decide:
 Filter-and-Score mode (neg_only): positively classified requests get the
 full ensemble score attached — lazily, since a neg_only positive ran the
 whole cascade (its ``g_final`` IS the full score).
+
+``StreamingServer`` serves continuously instead of batch at a time: queued
+requests wait in an arrival-order queue, and each window of them streams
+through the device executor's admission ring (``run_stream``), which
+refills freed survivor lanes mid-cascade.  Per-request latency (in stage
+steps) and lane occupancy land in ``ServeStats``.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.device_executor import DevicePlan, matrix_stage_scorer
 
-__all__ = ["ServeStats", "QWYCServer", "BACKENDS"]
+__all__ = ["ServeStats", "QWYCServer", "StreamingServer", "BACKENDS"]
 
 BACKENDS = ("cascade-scan", "kernel", "sorted-kernel")
 
@@ -69,6 +75,13 @@ class ServeStats:
     audit_scores: int = 0  # extra scores for diff auditing (not serving work)
     chunk_survivors: list[int] = dataclasses.field(default_factory=list)
     # chunk_survivors[k] = total rows that entered stage k, summed over batches
+    # streaming accounting (StreamingServer; all in deterministic stage steps)
+    admitted_rows: int = 0  # rows admitted into stream survivor slots
+    stream_steps: int = 0  # total streaming loop steps executed
+    stream_slot_steps: int = 0  # sum over steps of live slots (occupancy mass)
+    stream_cap_steps: int = 0  # sum over steps of slot capacity
+    latency_steps: list[int] = dataclasses.field(default_factory=list)
+    # latency_steps[i] = enqueue->decision latency of request i, in steps
 
     @property
     def mean_models(self) -> float:
@@ -86,6 +99,36 @@ class ServeStats:
     def compute_fraction(self) -> float:
         """Scores actually produced / scores the eager path would produce."""
         return self.scores_computed / max(self.scores_possible, 1)
+
+    @property
+    def mean_occupancy(self) -> float:
+        """Mean live-slot fraction over all streaming loop steps."""
+        return self.stream_slot_steps / max(self.stream_cap_steps, 1)
+
+    def latency_pct(self, q: float) -> float:
+        """q-th percentile of per-request enqueue->decision latency
+        (stage steps)."""
+        if not self.latency_steps:
+            return 0.0
+        return float(np.percentile(np.asarray(self.latency_steps), q))
+
+    @property
+    def latency_mean(self) -> float:
+        if not self.latency_steps:
+            return 0.0
+        return float(np.mean(self.latency_steps))
+
+    @property
+    def latency_p50(self) -> float:
+        return self.latency_pct(50)
+
+    @property
+    def latency_p95(self) -> float:
+        return self.latency_pct(95)
+
+    @property
+    def latency_p99(self) -> float:
+        return self.latency_pct(99)
 
 
 class QWYCServer:
@@ -157,6 +200,9 @@ class QWYCServer:
         self._results: list[tuple[int, dict]] = []  # (seq, result)
         self._seq = 0
         self._dev: tuple | None = None
+        # the executor result of every flush, in order (per-row g_final,
+        # billing); StreamingServer keeps its waves' in stream_results
+        self.flush_results: list = []
 
     def submit(self, x) -> None:
         self._queue.append(np.asarray(x, dtype=np.float32))
@@ -215,6 +261,16 @@ class QWYCServer:
         self._dev = (executor, scorer, eager_matrix, key_fn)
         return self._dev
 
+    def _eager_or_raw(self, xb: np.ndarray, eager_matrix: bool):
+        """(batch operand, ordered|None) for an on-device run: the eager
+        path scores the whole batch once and puts the columns in cascade
+        order (the matrix scorer's operand and the full-score source);
+        lazy scorers take the raw features."""
+        if not eager_matrix:
+            return xb, None
+        ordered = _numpy(self.score_fn(self._tensor(xb)))[:, self.qwyc.order]
+        return ordered, ordered
+
     def _run_device(self, xb: np.ndarray, n: int):
         """Device path for one batch -> (result, ordered|None, billed).
 
@@ -224,12 +280,7 @@ class QWYCServer:
         """
         executor, scorer, eager_matrix, key_fn = self._device_state()
         cap = executor._cap(max(n, self.flush_size))
-        ordered = None
-        if eager_matrix:
-            ordered = _numpy(self.score_fn(self._tensor(xb)))[:, self.qwyc.order]
-            batch = ordered
-        else:
-            batch = xb
+        batch, ordered = self._eager_or_raw(xb, eager_matrix)
         row_order = None
         key_scores = 0
         prepared = False
@@ -268,6 +319,7 @@ class QWYCServer:
             )
         else:
             res, ordered, audit_read, device_billed = self._run_host(xb, n)
+        self.flush_results.append(res)
         return self._finish_flush(
             t_start, xb, n, res, ordered, audit_read, device_billed, seqs
         )
@@ -363,8 +415,131 @@ class QWYCServer:
         st.wall_s += time.time() - t_start
         return out
 
-    def drain(self) -> list[dict]:
-        self.flush()
+    def _merge_results(self) -> list[dict]:
+        """Every result not drained yet, in submission order."""
         merged = sorted(self._results, key=lambda t: t[0])
         self._results = []
         return [d for _, d in merged]
+
+    def drain(self) -> list[dict]:
+        self.flush()
+        return self._merge_results()
+
+
+class StreamingServer(QWYCServer):
+    """Continuous-batching server: admit queued requests into freed
+    survivor lanes mid-cascade.
+
+    The flush server (``QWYCServer``) serves batch at a time: a flush's
+    fixed-capacity survivor buffers drain as rows exit, and the mostly idle
+    tail of the cascade holds the NEXT batch's requests hostage.  This
+    server keeps an arrival-order queue, stamps every request with an
+    arrival step, and hands windows of pending requests to the executor's
+    admission ring (``run_stream``): freed lanes are refilled mid-cascade,
+    admitted rows start at stage 0 next to mid-cascade ones, and the
+    decisions stay equal per row to the batch path's.
+
+    * ``batch_size`` is the survivor-lane CAPACITY (the in-flight
+      concurrency), the "equal capacity" knob the flush server compares at.
+    * ``window`` is the admission-ring size: how many queued requests one
+      device wave streams through (default ``4 x`` the capacity).
+    * ``max_wait`` (stage steps) is the admission deadline: a submit that
+      finds the oldest queued request waiting ``>= max_wait`` launches a
+      PARTIAL wave instead of holding out for a full window.
+    * latency is accounted end to end in stage steps: queue wait before the
+      wave + ring wait + service (``ServeStats.latency_steps``).
+
+    Streaming admission replaces the sorting policy (the ring is the
+    arrival order), so only the ``kernel`` policy is accepted, and the
+    execution backend needs the ``streaming`` capability (the device
+    backend; the host loop has no lanes to refill).  There is no
+    degradation ladder: a failed wave raises.
+    """
+
+    def __init__(
+        self,
+        qwyc: QWYCModel,
+        *,
+        window: int | None = None,
+        max_wait: float | None = None,
+        backend: str = "kernel",
+        exec_backend="auto",
+        **kw,
+    ):
+        if backend != "kernel":
+            raise ValueError(
+                "StreamingServer: streaming admission replaces the sorting "
+                f"policy; only backend='kernel' is supported (got {backend!r})"
+            )
+        super().__init__(qwyc, backend=backend, exec_backend=exec_backend, **kw)
+        if not self.exec.capabilities.streaming:
+            raise ValueError(
+                f"exec_backend {self.exec.name!r} does not support streaming "
+                "admission (needs an on-device executor with run_stream)"
+            )
+        self.window = int(window) if window else 4 * self.flush_size
+        if self.window < self.flush_size:
+            raise ValueError(
+                f"window ({self.window}) must be >= the slot capacity "
+                f"({self.flush_size}); a smaller ring can never fill the slots"
+            )
+        self.max_wait = None if max_wait is None else float(max_wait)
+        self._squeue: list[tuple[np.ndarray, float, int]] = []
+        self._clock = 0.0
+        # per-wave StreamResults: the timeline of every wave
+        self.stream_results: list = []
+
+    def submit(self, x, arrival: float | None = None) -> None:
+        """Enqueue a request at ``arrival`` (stage-step units, nondecreasing
+        across submits; default: the last stamp seen).  A full window, or a
+        ``max_wait`` deadline breach, launches a device wave."""
+        a = self._clock if arrival is None else float(arrival)
+        if a < self._clock:
+            raise ValueError(
+                f"arrivals must be nondecreasing (got {a} after {self._clock})"
+            )
+        self._clock = a
+        self._squeue.append((np.asarray(x, dtype=np.float32), a, self._seq))
+        self._seq += 1
+        if len(self._squeue) >= self.window:
+            self.flush()
+        elif self.max_wait is not None and a - self._squeue[0][1] >= self.max_wait:
+            self.flush()
+
+    def flush(self) -> list[dict]:
+        """Stream one window (possibly partial) of queued requests."""
+        if not self._squeue:
+            return []
+        t_start = time.time()
+        wave, self._squeue = self._squeue[: self.window], self._squeue[self.window :]
+        xb = np.stack([e[0] for e in wave])
+        seqs = [e[2] for e in wave]
+        n = xb.shape[0]
+        base = wave[0][1]
+        arr_steps = np.floor(np.array([e[1] for e in wave]) - base).astype(np.int32)
+        executor, _, eager_matrix, _ = self._device_state()
+        batch, ordered = self._eager_or_raw(xb, eager_matrix)
+        res = executor.run_stream(
+            batch, n, arrivals=arr_steps, capacity=self.flush_size,
+            ring_capacity=self.window,
+        )
+        billed = n * self.qwyc.T if eager_matrix else res.scores_computed
+        audit_read = (
+            self._producers(xb)[0] if self.chunk_score_fn is not None else None
+        )
+        out = self._finish_flush(t_start, xb, n, res, ordered, audit_read, billed, seqs)
+        self.stream_results.append(res)
+        st = self.stats
+        st.admitted_rows += n
+        st.stream_steps += res.steps_run
+        st.stream_slot_steps += int(res.occupancy.sum())
+        st.stream_cap_steps += res.steps_run * res.capacity
+        # end-to-end latency: steps queued BEFORE the wave launched (launch
+        # = the wave's first arrival) + ring wait + service
+        st.latency_steps.extend((res.done_step - arr_steps + 1).astype(int).tolist())
+        return out
+
+    def drain(self) -> list[dict]:
+        while self._squeue:
+            self.flush()
+        return self._merge_results()

@@ -22,6 +22,8 @@ from repro_torch.kernels.cascade_kernel import (
     cascade_chunk_kernel,
     cascade_chunk_plain,
     cascade_kernel,
+    cascade_lane_kernel,
+    cascade_lane_plain,
     cascade_plain,
 )
 from repro_torch.kernels.device_executor import (
@@ -32,12 +34,17 @@ from repro_torch.kernels.device_executor import (
     tree_stage_scorer,
 )
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
-from repro_torch.kernels.megakernel import mega_stage_kernel, mega_stage_plain
+from repro_torch.kernels.megakernel import (
+    mega_lane_kernel,
+    mega_lane_plain,
+    mega_stage_kernel,
+    mega_stage_plain,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import gbt_scores
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
 from repro_torch.launch import serve
-from repro_torch.serving.engine import BACKENDS, QWYCServer
+from repro_torch.serving.engine import BACKENDS, QWYCServer, StreamingServer
 
 pytestmark = pytest.mark.cuda
 
@@ -257,3 +264,107 @@ def test_lattice_cli_serves_on_card(dev, capsys):
     out = capsys.readouterr().out
     assert "(device backend, sorted-kernel policy, lazy)" in out
     assert "diff vs full 0." in out
+
+
+@pytest.mark.parametrize("n_valid", [None, 0, 77, 256])
+def test_cascade_lane_kernel_equals_plain(dev, n_valid):
+    """B6: per-lane threshold rows with ±inf padded columns on a third of
+    the lanes (a ragged stage), relative exits."""
+    rng = np.random.default_rng(11)
+    m, ct = 256, 8
+    s = rng.normal(size=(m, ct)).astype(np.float32)
+    ep = rng.uniform(0.5, 3, size=(m, ct)).astype(np.float32)
+    en = -rng.uniform(0.5, 3, size=(m, ct)).astype(np.float32)
+    ragged = rng.random(m) < 0.3
+    ep[ragged, 5:], en[ragged, 5:], s[ragged, 5:] = np.inf, -np.inf, 0.0
+    g0 = _t(rng.normal(size=m).astype(np.float32), dev)
+    s, ep, en = _t(s, dev), _t(ep, dev), _t(en, dev)
+    nv = None if n_valid is None else torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["cascade_lane"]
+    got = cascade_lane_kernel(g0, s, ep, en, block_n=64, n_valid=nv)
+    assert _build.LAUNCHES["cascade_lane"] == before + 1
+    for a, b in zip(got, cascade_lane_plain(g0, s, ep, en, n_valid=nv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["tree", "matrix", "lattice"])
+@pytest.mark.parametrize("n_valid", [0, 1, 100, 256])
+def test_mega_lane_kernel_equals_plain(dev, variant, n_valid):
+    """B7: lanes over every stage in one block, last-stage (stop) lanes,
+    rows retiring mid-block, the ragged last stage, trash rows."""
+    rng = np.random.default_rng(12)
+    dplan = DevicePlan.from_plan(_plan(rng))
+    T, depth, d, cap = 37, 5, 14, 256
+    if variant == "tree":
+        scorer = tree_stage_scorer(
+            dplan, rng.integers(0, d, size=(T, depth)), rng.uniform(size=(T, depth)),
+            rng.normal(size=(T, 1 << depth)), device=dev,
+        )
+        x = _t(rng.uniform(size=(300, d)).astype(np.float32), dev)
+    elif variant == "lattice":
+        d, S = 30, 8
+        scorer = lattice_stage_scorer(
+            dplan, rng.normal(size=(T, 1 << S)),
+            np.stack([rng.choice(d, S, replace=False) for _ in range(T)]), device=dev,
+        )
+        x = _t(rng.uniform(size=(300, d)).astype(np.float32), dev)
+    else:
+        scorer = matrix_stage_scorer(dplan, device=dev)
+        x = scorer.prepare(rng.normal(size=(300, T)))
+    stage = rng.integers(0, dplan.S, size=cap).astype(np.int32)
+    stage[: dplan.S] = np.arange(dplan.S)
+    rows = rng.permutation(300)[:cap]
+    rows[n_valid:] = 299
+    stage_t, stop = _t(stage, dev), _t(stage >= dplan.S - 1, dev)
+    g0 = _t(rng.normal(scale=0.5, size=cap).astype(np.float32), dev)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    args = (scorer.slabs, x, _t(rows, dev), g0, stage_t, stop, nv,
+            _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev))
+    before = _build.LAUNCHES[f"mega_lane_{variant}"]
+    got = mega_lane_kernel(*args, block_n=64)
+    assert _build.LAUNCHES[f"mega_lane_{variant}"] == before + 1
+    for a, b in zip(got, mega_lane_plain(*args, block_n=64)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+@pytest.mark.parametrize("ensemble", ["gbt", "lattice"])
+def test_streaming_server_on_card_equals_cpu(dev, small_gbt, ensemble, megakernel):
+    """The streaming server (B7, or lane_fn + B6) on the card against the
+    same server on the CPU under one Poisson trace: results, every
+    streaming stat and every wave's timeline and ``g_final``."""
+    if ensemble == "gbt":
+        ds, g, m = small_gbt
+        scorer = TreeScorer(g.feats, g.thrs, g.leaves)
+    else:
+        ds = make_dataset("rw2", scale=0.1)
+        lat = init_lattice_ensemble(40, ds.D, 8, seed=0, device="cpu")
+        F = ops.lattice_scores(lat["theta"], lat["feats"], torch.from_numpy(ds.x_train))
+        m = fit_qwyc(F.numpy().astype(np.float64), beta=0.0, alpha=0.01, mode="neg_only")
+        scorer = LatticeScorer(lat["theta"], lat["feats"])
+    arrivals = np.cumsum(np.random.default_rng(2028).exponential(1 / 16.0, size=len(ds.x_test)))
+    out = []
+    for d in (dev, "cpu"):
+        srv = StreamingServer(
+            m, scorer=scorer, exec_backend="device", device=d, batch_size=64, window=128,
+            backend_opts={"megakernel": megakernel},
+        )
+        for row, a in zip(ds.x_test, arrivals):
+            srv.submit(row, arrival=a)
+        out.append((srv.drain(), srv))
+    (a, sa), (b, sb) = out
+    assert a == b
+    for k in ("scores_computed", "stream_steps", "stream_slot_steps", "latency_steps"):
+        assert getattr(sa.stats, k) == getattr(sb.stats, k), k
+    for ra, rb in zip(sa.stream_results, sb.stream_results):
+        for k in ("decisions", "exit_step", "g_final", "admit_step", "done_step"):
+            np.testing.assert_array_equal(getattr(ra, k), getattr(rb, k))
+        assert ra.steps_enqueued == rb.steps_enqueued
+
+
+def test_streaming_cli_serves_on_card(dev, capsys):
+    serve.main(["--T", "40", "--scale", "0.1", "--alpha", "0.01", "--streaming",
+                "--arrival-rate", "16", "--batch-size", "64"])
+    out = capsys.readouterr().out
+    assert "[serve] streaming: 200 admitted" in out
+    assert "(device backend, streaming, lazy)" in out

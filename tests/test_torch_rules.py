@@ -14,7 +14,11 @@ import repro_torch
 from repro_torch.api import backends, registry
 from repro_torch.core.executor import CascadePlan
 from repro_torch.kernels import _build
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_kernel
+from repro_torch.kernels.cascade_kernel import (
+    cascade_chunk_kernel,
+    cascade_kernel,
+    cascade_lane_kernel,
+)
 from repro_torch.kernels.device_executor import (
     DeviceExecutor,
     DevicePlan,
@@ -24,11 +28,12 @@ from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.megakernel import (
     build_lattice_slabs,
     build_matrix_slabs,
+    mega_lane_kernel,
     mega_stage_kernel,
 )
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 from repro_torch.launch import serve
-from repro_torch.serving.engine import QWYCServer
+from repro_torch.serving.engine import QWYCServer, StreamingServer
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -109,6 +114,34 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
         serve.main(["--T", "4", "--scale", "0.01"])
 
 
+def test_streaming_entry_points_raise_without_cuda(no_cuda):
+    """``run_stream``, ``StreamingServer`` and ``serve --streaming`` default
+    to the card and raise without one; naming the CPU runs them."""
+    plan = _tiny_plan()
+    dplan = DevicePlan.from_plan(plan)
+    from repro_torch.core.qwyc import QWYCModel
+
+    m = QWYCModel(
+        order=plan.order, eps_pos=plan.eps_pos, eps_neg=plan.eps_neg, beta=0.0,
+        costs=plan.costs, alpha=0.0, mode="both",
+    )
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingServer(m, score_fn=lambda x: x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingServer(m, score_fn=lambda x: x, exec_backend="device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--T", "4", "--scale", "0.01", "--streaming"])
+    scorer = matrix_stage_scorer(dplan, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceExecutor(dplan, scorer).run_stream(np.zeros((2, 6), np.float32), 2)
+    res = DeviceExecutor(dplan, scorer, device="cpu").run_stream(
+        np.zeros((2, 6), np.float32), 2
+    )
+    assert res.exit_step.tolist() == [6, 6] and res.steps_run == dplan.S
+    assert backends.DeviceBackend.capabilities.streaming
+    assert not backends.HostBackend.capabilities.streaming
+
+
 def test_auto_raises_without_cuda_instead_of_picking_host(no_cuda):
     with pytest.raises(RuntimeError, match="'auto' needs a CUDA device"):
         registry.resolve_backend("auto")
@@ -141,6 +174,16 @@ def test_wrappers_dispatch_on_tensor_device():
     lslabs = build_lattice_slabs(dplan, theta.numpy(), lfeats.numpy(), device="cpu")
     mega_stage_kernel(lslabs, torch.ones(4, 3), g0, 0, 0, 4, eps, eps, block_n=64)
     cascade_kernel(s, e, e, 0.0)
+    e2 = torch.zeros(4, 2)
+    cascade_lane_kernel(g0, s, e2, e2)
+    rows = torch.zeros(4, dtype=torch.int64)
+    stage = torch.zeros(4, dtype=torch.int32)
+    stop = torch.zeros(4, dtype=torch.bool)
+    mega_lane_kernel(
+        slabs, torch.ones(4, dplan.T_pad), rows, g0, stage, stop, 4, eps, eps,
+        block_n=64,
+    )
+    mega_lane_kernel(lslabs, torch.ones(4, 3), rows, g0, stage, stop, 4, eps, eps, block_n=64)
     assert sum(_build.LAUNCHES.values()) == 0
     meta = torch.empty(4, 2, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -153,6 +196,13 @@ def test_wrappers_dispatch_on_tensor_device():
         lattice_scores_kernel(theta, lfeats, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         cascade_kernel(meta, e.to("meta"), e.to("meta"), 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cascade_lane_kernel(g0.to("meta"), meta, meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        mega_lane_kernel(
+            slabs, meta, rows.to("meta"), g0.to("meta"), stage.to("meta"),
+            stop.to("meta"), 4, eps.to("meta"), eps.to("meta"), block_n=64,
+        )
 
 
 def test_quantized_slabs_name_the_roadmap_item():
