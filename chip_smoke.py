@@ -11,12 +11,14 @@ Phases, each of which stops the run on failure:
    (one process per source, all at once) into ``build/repro_torch_kernels``.
 3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
    tree, matrix and lattice, B5 lattice_scores, B6 cascade_lane, B7
-   mega_lane tree, matrix and lattice) against its plain PyTorch version on
+   mega_lane tree, matrix and lattice, B8 cascade_group) against its plain
+   PyTorch version on
    the card, at the main paths' shapes and at the edges (n_valid 0, a
    ragged last block, ±inf padded columns, rows retiring mid-block, lattice
    inputs at the cube's corners, rows that never exit, the ±inf "full
    evaluation" thresholds; for B6 and B7 lanes at every stage in one
-   block and last-stage lanes): every output ``torch.equal``.
+   block and last-stage lanes; for B8 tied scores, groups of at most k
+   documents, n_live 0): every output ``torch.equal``.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -42,17 +44,28 @@ Phases, each of which stops the run on failure:
    ``evaluate_cascade``, ``g_final`` equal bit for bit to phase 4/4b's
    batch server, and (at the heavy rate) occupancy above the flush
    server's at the same capacity.
-   In phases 4-4c the launch counts are set to 0 just before each path and
+4d. Query-level ranking exit: exp1's GBT and phase 4's calibration matrix
+   and order, the rows cut into ragged query groups (Poisson mean 16, seed
+   2031), ``api.fit(groups=, topk=10)`` at alpha 0.05, the test queries
+   served by ``compile(...).serve(score_fn=B3, batch_size=256)`` on the card
+   (B3 + B8 per stage), with device="cpu", on the host rung and by
+   ``run_grouped_host``: verdicts, exit stages and margins equal bit for
+   bit; the margin-inf run equals ``full_cascade_topk``.
+   In phases 4-4d the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
-   (a streaming path its B6 or B7 once per step enqueued).
+   (a streaming path its B6 or B7 once per step enqueued; the ranking path
+   one B8 per stage and per epilogue of each bucket wave, and one B3 per
+   flush).
 5. Times, after a warm-up: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
    flushes), the device's busy share of a batch-256 flush (profiler device
    time over the unprofiled median flush); the streaming servers' drains
    (requests/s, wave and step wall times, steps and syncs per wave,
-   PyTorch operator calls per step, one wave's busy share); and each
-   kernel's device time per launch (profiler) at its main-path shape
-   beside its plain version's and its bound.
+   PyTorch operator calls per step, one wave's busy share); the ranking
+   server's drains of the test queries (median and p90 wall, PyTorch calls
+   per grouped stage, one drain's busy share); and each kernel's device
+   time per launch (profiler) at its main-path shape beside its plain
+   version's and its bound.
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -85,6 +98,11 @@ N_WARM, N_FLUSH = 5, 100
 STREAM_CAP, STREAM_WINDOW, STREAM_RATES = 256, 1024, (256.0, 4.0)
 ARRIVAL_SEED = 2028
 N_DRAINS = 5
+# phase 4d's ranking configuration (the CLI's --groups 16 --topk 10, at the
+# middle of benchmarks/bench_ranking.py's alphas), queries per flush, and
+# phase 5's timed drains of the test queries
+RANK_GROUP_MEAN, RANK_K, RANK_ALPHA, RANK_BATCH = 16, 10, 0.05, 256
+N_RANK_DRAINS = 20
 # exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
@@ -118,6 +136,8 @@ KERNELS = {
     "mega_lane_lattice": ("src/repro_torch/csrc/mega_stage.cu",
                           "src/repro/kernels/megakernel.py:724",
                           "lattice_stream_fused/neg_only/r256"),
+    "cascade_group": ("src/repro_torch/csrc/cascade_group.cu",
+                      "src/repro/kernels/cascade_kernel.py:474", "rank/both"),
 }
 # the kernels each path of phase 4 must launch; no other kernel may
 PATH_KERNELS = {
@@ -139,6 +159,10 @@ PATH_KERNELS = {
     "lattice_stream_fused": {"mega_lane_lattice"},  # B7 lattice
     "lattice_stream_unfused": {"cascade_lane"},  # lane_fn + B6
     "lattice_stream_cpu": set(),
+    # phase 4d, ranking: score_fn's B3 matrix per flush + B8 per stage and
+    # per wave's epilogue; rank(margin_inf=True) over precomputed scores
+    "rank": {"gbt_scores", "cascade_group"},
+    "rank_inf": {"cascade_group"},
 }
 
 
@@ -275,6 +299,8 @@ def phase_kernels(check: Check) -> dict:
     from repro_torch.kernels.cascade_kernel import (
         cascade_chunk_kernel,
         cascade_chunk_plain,
+        cascade_group_kernel,
+        cascade_group_plain,
         cascade_kernel,
         cascade_lane_kernel,
         cascade_lane_plain,
@@ -508,6 +534,32 @@ def phase_kernels(check: Check) -> dict:
         raise AssertionError(f"B7 check: only {mid_block} cases retired rows mid-block")
     log(f"[phase 3] B7 mega_lane tree + matrix + lattice == plain ({n_cases} cases, "
         f"{mid_block} retiring rows mid-block)")
+
+    # B8 over (G 37, B) bucket layouts: integer scores (ties), groups of at
+    # most k documents, eps +inf and 0 beside drawn thresholds, n_live 0,
+    # below G and all (a device scalar and a host int)
+    G = 37
+    n_cases, exits = 0, 0
+    for B in (4, 64, 256):
+        for k in (1, 10):
+            gg = rng.integers(-3, 4, size=(G, B)).astype(np.float32)
+            gg[1::2] += rng.normal(scale=0.3, size=(G, B))[1::2].astype(np.float32)
+            sizes = rng.integers(1, B + 1, size=G)
+            sizes[:3] = [1, min(k, B), min(k + 1, B)]
+            valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+            eps = rng.uniform(0.0, 2.0, size=G).astype(np.float32)
+            eps[3], eps[4] = np.inf, 0.0
+            args = [torch.from_numpy(a).to(dev) for a in (gg, valid, eps)] + [k]
+            for n_live in (None, nv(0), nv(20), 29):
+                got = cascade_group_kernel(*args, n_live=n_live)
+                want = cascade_group_plain(*args, n_live=n_live)
+                for j, (a, b) in enumerate(zip(got, want)):
+                    check.equal("cascade_group", f"B={B} k={k} output {j}", a, b)
+                exits += int(got[1].sum())
+                n_cases += 1
+    if not exits:
+        raise AssertionError("B8 check: no group exited")
+    log(f"[phase 3] B8 cascade_group == plain ({n_cases} cases, {exits} exits)")
     torch.cuda.synchronize()
     return dict(
         chunk=(g0, chunk, ep, en), forest=(feats, thrs, leaves), x_cal=x_cal,
@@ -637,7 +689,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     report["launches"] = launches
     report["launches_per_flush"] = per_flush
     return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server,
-                F_test=F_test, batch_g=batch_g)
+                F_train=F_train, F_test=F_test, batch_g=batch_g, beta=beta)
 
 
 def phase_lattice_path(report: dict, launches: dict) -> dict:
@@ -910,6 +962,136 @@ def phase_streaming(report: dict, launches: dict, main: dict, lmain: dict) -> di
     return dict(server=server, cells=cells)
 
 
+def submit_queries(server, x, offsets) -> list[dict]:
+    for i in range(offsets.size - 1):
+        server.submit(x[offsets[i] : offsets[i + 1]])
+    return server.drain()
+
+
+def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
+    """Phase 4d: query-level ranking exit on exp1_adult's GBT (no new
+    ensemble, no new greedy search: phase 4's B3 calibration matrix and its
+    ``both`` fit's order).  The train and test rows are cut into ragged
+    query groups (Poisson mean ``RANK_GROUP_MEAN``, seed 2031, as the CLI
+    cuts them); ``api.fit(groups=, topk=10)`` calibrates the group margin
+    thresholds; the test queries are served through
+    ``compile(...).serve(score_fn=B3, batch_size=256)`` on the card (B3 +
+    B8), with device="cpu", on the host rung, and replayed by
+    ``run_grouped_host``: all four equal bit for bit, and the margin-inf
+    run's verdicts equal ``full_cascade_topk``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import GROUPS_SEED, _ragged_sizes
+    from repro_torch.ranking import (
+        bucket_layout,
+        full_cascade_topk,
+        group_offsets,
+        ndcg_at_k,
+        pack_by_bucket,
+        run_grouped_host,
+    )
+
+    ds, gbt, beta = main["ds"], main["gbt"], main["beta"]
+    F_train, F_test = main["F_train"], main["F_test"]
+    rng = np.random.default_rng(GROUPS_SEED)
+    sizes_tr = _ragged_sizes(len(ds.y_train), RANK_GROUP_MEAN, rng)
+    sizes_te = _ragged_sizes(len(ds.y_test), RANK_GROUP_MEAN, rng)
+    off = group_offsets(sizes_te)
+    t = time.perf_counter()
+    fitted = api.fit(
+        F_train, groups=sizes_tr, topk=RANK_K, alpha=RANK_ALPHA, beta=beta, mode="both",
+        chunk_t=8, order=main["fits"]["both"].order, optimize_order=False,
+    )
+    fit_s = time.perf_counter() - t
+    gp = fitted.grouped
+    log(f"[phase 4d] grouped fit ({sizes_tr.size} train queries, mean "
+        f"{sizes_tr.mean():.1f} docs; k={gp.k}, alpha={RANK_ALPHA}, phase 4's order) in "
+        f"{fit_s:.1f}s: S={gp.S}, buckets {gp.buckets}, train disagreement "
+        f"{gp.train_disagreement:.4f}")
+
+    params = {d: tuple(a.to(d) for a in (gbt.feats, gbt.thrs, gbt.leaves)) for d in ("cuda", "cpu")}
+    calls = {"n": 0}
+
+    def score_fn(x):  # B3 on the card (the plain version on a CPU tensor)
+        calls["n"] += 1
+        return ops.gbt_scores(*params[x.device.type], x)
+
+    def server(backend, device):
+        return fitted.compile(backend, device=device).serve(
+            score_fn=score_fn, batch_size=RANK_BATCH
+        )
+
+    card = server("device", "cuda")
+    res_card = counted(launches, "rank/both", lambda: submit_queries(card, ds.x_test, off))
+    st = card.stats
+    want = {"gbt_scores": calls["n"], "cascade_group": st.n_waves * (gp.S + 1)}
+    if launches["rank/both"] != want:
+        raise AssertionError(f"rank/both: launched {launches['rank/both']}, expected {want}")
+    res_cpu = submit_queries(server("device", "cpu"), ds.x_test, off)
+    res_host = submit_queries(server("host", "cuda"), ds.x_test, off)
+    oracle = run_grouped_host(gp, F_test, sizes_te)
+
+    def fields(res):
+        verd = np.full((len(res), gp.k), -1, dtype=np.int64)
+        for i, r in enumerate(res):
+            verd[i, : len(r["ranking"])] = np.asarray(r["ranking"]) + off[i]
+        ex = np.array([r["exit_stage"] for r in res])
+        m = np.array([r["margin"] for r in res], dtype=np.float32)
+        return verd, ex, m.view(np.int32)
+
+    ref = (oracle.verdicts.astype(np.int64), oracle.exit_stage, oracle.margin.view(np.int32))
+    for name, res in (("card", res_card), ("cpu", res_cpu), ("host rung", res_host)):
+        if len(res) != sizes_te.size or not all(
+            np.array_equal(a, b) for a, b in zip(fields(res), ref)
+        ):
+            raise AssertionError(f"ranking: {name} verdicts/exit stages/margins != run_grouped_host")
+    compiled = fitted.compile("device", device="cuda")
+    inf = counted(launches, "rank_inf/both",
+                  lambda: compiled.rank(scores=F_test, groups=sizes_te, margin_inf=True))
+    full = full_cascade_topk(F_test, sizes_te, gp.k, order=gp.plan.order)
+    if not np.array_equal(fields(inf)[0], full.astype(np.int64)):
+        raise AssertionError("ranking: margin-inf verdicts != full_cascade_topk")
+    if not all(r["exit_stage"] == gp.S for r in inf):
+        raise AssertionError("ranking: a margin-inf query exited early")
+    ndcg = ndcg_at_k(ds.y_test, fields(res_card)[0], sizes_te, gp.k)
+    ndcg_full = ndcg_at_k(ds.y_test, full, sizes_te, gp.k)
+    report["ranking"] = dict(
+        config="exp1_adult ranking", k=gp.k, alpha=RANK_ALPHA, S=gp.S, buckets=gp.buckets,
+        queries=int(sizes_te.size), docs=int(sizes_te.sum()), fit_s=fit_s,
+        waves=st.n_waves, mean_exit_stage=st.mean_exit_stage,
+        scores_computed=st.scores_computed, scores_possible=st.scores_possible,
+        ndcg=ndcg, ndcg_full=ndcg_full, train_disagreement=gp.train_disagreement,
+    )
+    log(f"[phase 4d] ranking {sizes_te.size} test queries / {int(sizes_te.sum())} docs in "
+        f"{st.n_waves} waves: mean exit stage {st.mean_exit_stage:.3f}/{gp.S}, scores "
+        f"computed {st.scores_computed}/{st.scores_possible} "
+        f"({st.compute_fraction:.2%} of eager), NDCG@{gp.k} {ndcg:.4f} (full cascade "
+        f"{ndcg_full:.4f}); card == CPU == host rung == run_grouped_host, margin-inf == "
+        f"full_cascade_topk; launches {launches['rank/both']}")
+    # B8's input at the widest bucket wave's first stage, for phase 5
+    b, gidx = max(pack_by_bucket(sizes_te, gp.buckets).items())
+    rows, valid = bucket_layout(sizes_te[gidx], b, offsets=off[gidx])
+    cap_g = card.executor._cap_groups(len(gidx), RANK_BATCH)
+    Fo = torch.from_numpy(F_test.astype(np.float32)[:, gp.plan.order]).cuda()
+    rows_t = torch.zeros(cap_g, b, dtype=torch.int64, device="cuda")
+    rows_t[: len(gidx)] = torch.from_numpy(rows).cuda()
+    valid_t = torch.zeros(cap_g, b, dtype=torch.int32, device="cuda")
+    valid_t[: len(gidx)] = torch.from_numpy(valid.astype(np.int32)).cuda()
+    g0 = torch.zeros(cap_g, b, device="cuda")
+    t0, t1 = gp.plan.stages[0]
+    for j in range(t0, t1):
+        g0 = g0 + torch.where(valid_t != 0, Fo[rows_t, j], 0.0)
+    eps0 = torch.full((cap_g,), float(gp.eps_g[0]), device="cuda")
+    return dict(
+        server=lambda: server("device", "cuda"), x=ds.x_test, offsets=off,
+        b8=(g0, valid_t, eps0, gp.k, torch.tensor(len(gidx), dtype=torch.int32, device="cuda")),
+        b8_shape=f"G={cap_g} (live {len(gidx)}) B={b} k={gp.k}", S=gp.S,
+    )
+
+
 def flush_latency(make_server, x, label: str) -> dict:
     """Median and p90 flush latency at batch 128 / 256 / 1024, fused
     (megakernel on, the default) and unfused, for the servers
@@ -1083,16 +1265,52 @@ def stream_timing(make_server, x, label: str) -> dict:
     return out
 
 
-def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, launches: dict,
-                check: Check, report: dict) -> list:
-    """Phase 5: flush latency, streaming wave times and per-kernel device
-    times."""
+def rank_timing(rmain: dict) -> dict:
+    """Phase 4d's card server: ``N_RANK_DRAINS`` drains of the test queries
+    after a warm-up one (host clock, each ending in its results' transfer);
+    one drain's PyTorch operator calls per grouped stage enqueued; one
+    drain profiled for the device busy share over the unprofiled median."""
+    make, x, off, S = rmain["server"], rmain["x"], rmain["offsets"], rmain["S"]
+    srv = make()
+    submit_queries(srv, x, off)  # warm-up
+    walls = []
+    for _ in range(N_RANK_DRAINS):
+        t = time.perf_counter()
+        submit_queries(srv, x, off)
+        walls.append((time.perf_counter() - t) * 1e3)
+    waves = srv.stats.n_waves
+    with OpCount() as ops:
+        submit_queries(srv, x, off)
+    waves = srv.stats.n_waves - waves
+    by_name = profile_device(lambda: submit_queries(srv, x, off))
+    busy = sum(v[0] for v in by_name.values())
+    med = statistics.median(walls)
+    out = dict(
+        drain_median_ms=med, drain_p90_ms=statistics.quantiles(walls, n=10)[-1],
+        drains=len(walls), queries=off.size - 1, waves_per_drain=waves,
+        torch_ops_per_stage=ops.n / (waves * S), device_busy_us=busy,
+        busy_share=busy / (med * 1e3),
+        top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+    )
+    log(f"[phase 5] ranking drain of {off.size - 1} queries ({waves} waves of {S} stages): "
+        f"median {med:.3f} ms, p90 {out['drain_p90_ms']:.3f} ms over {len(walls)} drains; "
+        f"{out['torch_ops_per_stage']:.1f} PyTorch ops per grouped stage; one drain's "
+        f"device busy {busy:.0f} us = {out['busy_share']:.2%} of the median drain")
+    return out
+
+
+def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict,
+                launches: dict, check: Check, report: dict) -> list:
+    """Phase 5: flush latency, streaming wave times, the ranking drain and
+    per-kernel device times."""
     import torch
 
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.cascade_kernel import (
         cascade_chunk_kernel,
         cascade_chunk_plain,
+        cascade_group_kernel,
+        cascade_group_plain,
         cascade_kernel,
         cascade_lane_kernel,
         cascade_lane_plain,
@@ -1118,6 +1336,7 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, launches: dict,
                             smain["cells"][cell]["ds"].x_test, cell)
         for cell in smain["cells"]
     }
+    report["rank_timing"] = rank_timing(rmain)
 
     g0, chunk, ep, en = ctx["chunk"]
     feats, thrs, leaves = ctx["forest"]
@@ -1290,6 +1509,19 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, launches: dict,
         nbytes=4 * steps + 8 * Tb + 8 * Nb, ops=3 * steps,
         shape=f"{Nb}x{Tb} chunk_t=8, {steps} steps walked",
     )
+
+    # B8 on the main path's widest bucket wave, its first stage's input:
+    # g and valid read once, eps and n_live read, margin and exit written;
+    # about one compare a lane per pass
+    gq, vq, eq, k, nl = rmain["b8"]
+    Gq, Bq = gq.shape
+    entry(
+        "cascade_group",
+        lambda: cascade_group_kernel(gq, vq, eq, k, n_live=nl),
+        lambda: cascade_group_plain(gq, vq, eq, k, n_live=nl),
+        nbytes=8 * Gq * Bq + 4 * Gq + 4 + 8 * Gq, ops=(k + 1) * Gq * Bq,
+        shape=rmain["b8_shape"],
+    )
     return kernels
 
 
@@ -1347,10 +1579,11 @@ def main() -> int:
     main_ctx = timed("4", phase_main_path, report, launches)
     lattice_ctx = timed("4b", phase_lattice_path, report, launches)
     stream_ctx = timed("4c", phase_streaming, report, launches, main_ctx, lattice_ctx)
+    rank_ctx = timed("4d", phase_ranking, report, launches, main_ctx)
 
     # phase 5: times
-    kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, launches,
-                    check, report)
+    kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,
+                    launches, check, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -32,10 +32,13 @@ class BackendCapabilities:
     means the host stage loop with per-stage producer calls.
     ``streaming``: the executor has ``run_stream`` (fixed-capacity lanes
     that an admission ring refills mid-cascade), which ``StreamingServer``
-    needs."""
+    needs.  ``grouped``: the backend can rank ragged query groups (the
+    host oracle ``run_grouped_host``, or the executor's ``run_grouped``),
+    which ``fit(groups=)`` needs."""
 
     on_device: bool
     streaming: bool = False
+    grouped: bool = False
 
 
 def _as_cascade_plan(plan: CascadePlan | DevicePlan) -> CascadePlan:
@@ -47,7 +50,7 @@ class HostBackend:
     escape hatch for host-side score producers.  Runs only when named."""
 
     name = "host"
-    capabilities = BackendCapabilities(on_device=False)
+    capabilities = BackendCapabilities(on_device=False, grouped=True)
 
     def available(self) -> tuple[bool, str]:
         return True, "host stage loop runs anywhere (numpy control flow)"
@@ -69,7 +72,7 @@ class DeviceBackend:
     """The device stage loop (``DeviceExecutor``)."""
 
     name = "device"
-    capabilities = BackendCapabilities(on_device=True, streaming=True)
+    capabilities = BackendCapabilities(on_device=True, streaming=True, grouped=True)
 
     def available(self) -> tuple[bool, str]:
         if torch.cuda.is_available():

@@ -8,11 +8,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.executor import CascadePlan
 from repro_torch.core.qwyc import QWYCModel
 from repro_torch.ensembles.gbt import gbt_params_from_numpy
 from repro_torch.ensembles.lattice import lattice_params_from_numpy
+from repro_torch.ranking.plan import GroupedPlan
 
-__all__ = ["gbt_params_from_numpy", "lattice_params_from_numpy", "qwyc_model_from_numpy"]
+__all__ = [
+    "gbt_params_from_numpy",
+    "grouped_plan_from_numpy",
+    "lattice_params_from_numpy",
+    "qwyc_model_from_numpy",
+]
 
 
 def qwyc_model_from_numpy(
@@ -42,3 +49,39 @@ def qwyc_model_from_numpy(
         order=order, beta=float(beta), alpha=float(alpha), mode=mode, **arrays
     )
 
+
+
+def grouped_plan_from_numpy(
+    model: QWYCModel,
+    eps_g,
+    k: int,
+    buckets,
+    chunk_t: int,
+    train_exit_stage=None,
+    train_disagreement: float = 0.0,
+) -> GroupedPlan:
+    """A fitted grouped (ranking) cascade -> the port's ``GroupedPlan``.
+
+    ``model`` is the port's ``QWYCModel`` of the grouped fit (see
+    ``qwyc_model_from_numpy``); ``eps_g`` (S,) the per-stage margin
+    thresholds for the stages that ``chunk_t`` cuts, ``k`` the ranking
+    depth, ``buckets`` the admission pad widths.
+    """
+    plan = CascadePlan.from_qwyc(model, chunk_t=chunk_t)
+    eps_g = np.asarray(eps_g, dtype=np.float32)
+    if eps_g.shape != (len(plan.stages),):
+        raise ValueError(
+            f"eps_g has shape {eps_g.shape}, expected ({len(plan.stages)},) "
+            f"stages at chunk_t={chunk_t}"
+        )
+    return GroupedPlan(
+        plan=plan,
+        model=model,
+        eps_g=eps_g,
+        k=int(k),
+        buckets=tuple(int(b) for b in buckets),
+        train_exit_stage=(
+            None if train_exit_stage is None else np.asarray(train_exit_stage, np.int64)
+        ),
+        train_disagreement=float(train_disagreement),
+    )

@@ -29,8 +29,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = (
-    "cascade", "cascade_chunk", "cascade_lane", "tree_scores", "lattice_scores",
-    "mega_stage",
+    "cascade", "cascade_chunk", "cascade_lane", "cascade_group", "tree_scores",
+    "lattice_scores", "mega_stage",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

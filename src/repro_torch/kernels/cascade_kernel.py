@@ -12,11 +12,12 @@ the single source of the step semantics on tensors; its CUDA twin is
 * B2 ``cascade_chunk_kernel``: one stage's walk, the serving path's decide.
 * B6 ``cascade_lane_kernel``: B2 with a threshold row per lane, the decide
   of the unfused streaming step (``csrc/cascade_lane.cu``).
+* B8 ``cascade_group_kernel``: the group decide of a ranking cascade, a
+  query's top-k stability margin and its exit (``csrc/cascade_group.cu``).
 
 Each wrapper sends a CPU tensor to its plain version (``cascade_plain``,
-``cascade_chunk_plain``, ``cascade_lane_plain``) and a CUDA tensor to the
-hand-written kernel (or raises).  The group decide of the reference module
-is listed in ROADMAP.md.
+``cascade_chunk_plain``, ``cascade_lane_plain``, ``cascade_group_plain``)
+and a CUDA tensor to the hand-written kernel (or raises).
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_N = 256
 DEFAULT_CHUNK_T = 8
+# groups per CTA of B8 (one warp each), and the group-capacity quantum of
+# the grouped stage loop, as the reference's block_g
+DEFAULT_BLOCK_G = 8
 
 __all__ = [
     "threshold_step",
@@ -38,12 +42,15 @@ __all__ = [
     "cascade_chunk_plain",
     "cascade_lane_kernel",
     "cascade_lane_plain",
+    "cascade_group_kernel",
+    "cascade_group_plain",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _CASCADE_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
 _LANE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_GROUP_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 
 
 def threshold_step(g, active, decided_pos, exit_step, f_t, ep, en, step_1b):
@@ -309,3 +316,90 @@ def cascade_kernel(
     _build.check("cascade", err, "cascade")
     _build.LAUNCHES["cascade"] += 1
     return dec, ex
+
+
+def cascade_group_plain(
+    g: torch.Tensor, valid: torch.Tensor, eps: torch.Tensor, k: int, n_live=None
+):
+    """Plain version of B8 (any device, float32) -> (margin (G,) f32,
+    exit (G,) int32).
+
+    The reference's form: k + 1 masked-max passes over each group's valid
+    lanes, each consuming its first (lowest-lane) hit; the margin is the
+    k-th minus the (k+1)-th best score, +inf for a group of at most k
+    documents.  Only the first ``n_live`` groups (None: all) may exit, and
+    strictly when ``margin > eps``.
+    """
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    G, _ = g.shape
+    dev = g.device
+    ninf = torch.tensor(float("-inf"), dtype=g.dtype, device=dev)
+    valid = valid != 0
+    work = torch.where(valid, g, ninf)
+    avail = valid
+    vk = vk1 = None
+    for i in range(k + 1):
+        masked = torch.where(avail, work, ninf)
+        cur = masked.amax(dim=1)
+        if i == k - 1:
+            vk = cur
+        elif i == k:
+            vk1 = cur
+        if i < k:
+            hit = avail & (masked == cur[:, None])
+            first = hit & (torch.cumsum(hit, dim=1, dtype=torch.int32) == 1)
+            avail = avail & ~first
+    size = valid.sum(dim=1)
+    margin = torch.where(size <= k, float("inf"), vk - vk1)
+    exit_g = _live(G, n_live, dev) & (margin > eps)
+    return margin, exit_g.to(torch.int32)
+
+
+def cascade_group_kernel(
+    g: torch.Tensor,
+    valid: torch.Tensor,
+    eps: torch.Tensor,
+    k: int,
+    n_live=None,
+):
+    """Group decide over one (G, B) bucket layout (B8), same contract as
+    ``cascade_group_plain``.
+
+    ``g`` (G, B) float32 carries each group's partial document scores,
+    ``valid`` (G, B) int32 marks real lanes, ``eps`` (G,) float32 is each
+    group's margin threshold.  ``n_live`` (None, an int, or an int32 scalar
+    tensor on the device) marks only the first groups live: the grouped
+    stage loop keeps live groups front-packed and the count on the card.
+    Margins are reported for every group, exits only for live ones.
+    """
+    if g.device.type == "cpu":
+        return cascade_group_plain(g, valid, eps, k, n_live)
+    if g.device.type != "cuda":
+        raise ValueError(f"cascade_group: unsupported device {g.device}")
+    _build.check_cuda(
+        "cascade_group", ("g", g, torch.float32), ("valid", valid, torch.int32),
+        ("eps", eps, torch.float32),
+    )
+    if g.ndim != 2 or valid.shape != g.shape or eps.shape != g.shape[:1]:
+        raise ValueError(
+            f"cascade_group: g {tuple(g.shape)}, valid {tuple(valid.shape)}, eps "
+            f"{tuple(eps.shape)} are not (G, B), (G, B), (G,)"
+        )
+    G, B = g.shape
+    if k < 1 or B < 1:
+        raise ValueError(f"cascade_group: k = {k} and B = {B} must be >= 1")
+    dev = g.device
+    margin = torch.empty(G, dtype=torch.float32, device=dev)
+    exit_g = torch.empty(G, dtype=torch.int32, device=dev)
+    if G == 0:
+        return margin, exit_g
+    nl_ptr, nl_host = _build.n_valid_args(n_live, G, dev)
+    fn = _build.function("cascade_group", "cascade_group_launch", _GROUP_ARGTYPES)
+    err = fn(
+        g.data_ptr(), valid.data_ptr(), eps.data_ptr(), nl_ptr, nl_host, G, B,
+        int(k), margin.data_ptr(), exit_g.data_ptr(), _build.stream(dev),
+    )
+    _build.check("cascade_group", err, "cascade_group")
+    _build.LAUNCHES["cascade_group"] += 1
+    return margin, exit_g

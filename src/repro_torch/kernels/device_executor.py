@@ -46,6 +46,18 @@ enqueued past that point is inert (every kernel retires at once, every
 scatter lands in the trash slot), and a device counter advances only on
 the steps where the reference's loop condition held, so ``steps_run``,
 ``admit_step``, ``done_step`` and the occupancy equal the reference's.
+
+**Grouped (ranking) loop** (``run_grouped``, the reference's
+``_grouped_program``): the batch stage loop at GROUP granularity.  The
+buffers are (cap_g, B) bucket-layout rectangles, a query group is B
+contiguous lanes, and the decide is the group decide (B8, top-k
+stability margin) instead of the row threshold test.  Groups exit as a
+unit, live groups stay front-packed (whole-group compaction, trash slot
+``cap_g``), and ``n_active`` counts live groups on the device, read by
+B8 as ``n_live``.  As in the reference it always runs the scorer's stage
+function and B8 (the fused stage step has no group semantics), and the
+stage's scores are added column by column, the host oracle's f32 add
+order, so margins and verdicts equal ``run_grouped_host``'s bit for bit.
 """
 
 from __future__ import annotations
@@ -59,7 +71,12 @@ import torch
 from repro_torch.core.executor import CascadePlan, ChunkStat, ExecutorResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import megakernel as mk
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_lane_kernel
+from repro_torch.kernels.cascade_kernel import (
+    DEFAULT_BLOCK_G,
+    cascade_chunk_kernel,
+    cascade_group_kernel,
+    cascade_lane_kernel,
+)
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
@@ -69,7 +86,9 @@ __all__ = [
     "BoundScorer",
     "DeviceExecutor",
     "DevicePlan",
+    "GroupedResult",
     "StreamResult",
+    "group_topk_rows",
     "lattice_stage_scorer",
     "matrix_stage_scorer",
     "stream_occupancy",
@@ -185,7 +204,10 @@ def matrix_stage_scorer(
     slabs = mk.build_matrix_slabs(dplan, quant=quant or dplan.quant, device=dev)
 
     def prepare(ordered) -> torch.Tensor:
-        F = torch.as_tensor(np.asarray(ordered, dtype=np.float32)).to(dev)
+        if isinstance(ordered, torch.Tensor):  # e.g. a score kernel's output
+            F = ordered.to(device=dev, dtype=torch.float32)
+        else:
+            F = torch.as_tensor(np.asarray(ordered, dtype=np.float32)).to(dev)
         if F.ndim != 2 or F.shape[1] != T:
             raise ValueError(f"expected an (n, {T}) ordered score matrix, got {tuple(F.shape)}")
         return torch.nn.functional.pad(F, (0, T_pad - T))
@@ -361,6 +383,54 @@ def stream_occupancy(
     np.add.at(occ, admit_step, 1)
     np.add.at(occ, done_step + 1, -1)
     return np.cumsum(occ[:steps_run])
+
+
+@dataclasses.dataclass
+class GroupedResult:
+    """One ranked verdict per query group, as the reference's.
+
+    ``verdicts`` (G, k) are flat GLOBAL document row ids in rank order,
+    -1 past the group's size.  ``exit_stage`` is 1-based; ``S`` for
+    groups that ran the full cascade.  ``margin`` is the top-k stability
+    margin at decision time.  ``chunk_stats`` counts GROUPS in/exited
+    per stage; ``scores_computed`` is group-quantized block billing,
+    ``scores_possible`` is real documents x T.
+    """
+
+    verdicts: np.ndarray  # (G, k) int32
+    exit_stage: np.ndarray  # (G,) int64
+    margin: np.ndarray  # (G,) float32
+    chunk_stats: list[ChunkStat]
+    scores_computed: int
+    scores_possible: int
+
+
+def group_topk_rows(g, valid, rows, k: int) -> torch.Tensor:
+    """Per-group top-k GLOBAL document ids over a (G, B) bucket layout.
+
+    The reference takes k segment-max passes, each consuming its first
+    (lowest-lane) hit; its picks are a group's valid lanes in the order
+    (score descending, lane ascending).  Here that order comes from one
+    stable descending sort of an exact int64 key per lane: the score's f32
+    bits mapped to an order-preserving integer (-0.0 taken as +0.0, as
+    ``==`` takes them), times two, plus the valid bit, so a valid lane
+    precedes an invalid one of equal score (-inf) and equal keys keep lane
+    order.  Returns (G, k) int32 ids, -1 past the group's size.
+    """
+    G, B = g.shape
+    dev = g.device
+    ok = valid != 0
+    w = torch.where(ok, g, float("-inf"))
+    w = torch.where(w == 0, 0.0, w)
+    bits = w.view(torch.int32).long()
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * 2 + ok.long()
+    lanes = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    picked = torch.gather(rows, 1, lanes).to(torch.int32)
+    pos = torch.arange(lanes.shape[1], device=dev)
+    picked = torch.where(pos[None, :] < ok.sum(dim=1, keepdim=True), picked, -1)
+    if lanes.shape[1] < k:  # k > B: the tail is always past the group's size
+        picked = torch.nn.functional.pad(picked, (0, k - lanes.shape[1]), value=-1)
+    return picked
 
 
 class DeviceExecutor:
@@ -719,4 +789,175 @@ class DeviceExecutor:
             scores_possible=n * T,
             steps_enqueued=enqueued,
             syncs=syncs + 1,
+        )
+
+    # -- grouped (ranking) decide: one verdict per query group ----------
+
+    def _cap_groups(self, n_groups: int, capacity_groups: int | None) -> int:
+        bg = DEFAULT_BLOCK_G
+        n = max(n_groups, capacity_groups or 0, 1)
+        return -(-n // bg) * bg
+
+    def _grouped_program(self, k: int, x, gids, rows2d, valid2d, n0: int, eps_g):
+        """The grouped stage loop (see the module docstring).  ``gids``
+        (cap_g,) are the slots' group ids (trash ``cap_g`` past the
+        groups), ``rows2d``/``valid2d`` (cap_g, B) their documents' rows
+        into ``x`` and real-lane masks.  Returns device tensors; nothing
+        here syncs with the host."""
+        dp, dev = self.dplan, self.device
+        S, W = dp.S, dp.W
+        cap_g, B = rows2d.shape
+        L = cap_g * B
+        i32 = torch.int32
+        grp = torch.arange(cap_g, device=dev)
+        n_active = torch.full((), n0, dtype=i32, device=dev)
+        g2d = torch.zeros(cap_g, B, dtype=torch.float32, device=dev)
+        verd = torch.full((cap_g + 1, k), -1, dtype=i32, device=dev)
+        exst = torch.full((cap_g + 1,), S, dtype=i32, device=dev)
+        marg = torch.full((cap_g + 1,), float("inf"), dtype=torch.float32, device=dev)
+        n_in_log = torch.zeros(S, dtype=i32, device=dev)
+        # the stage's scalar threshold for every group slot, one row a stage
+        eps_b = eps_g[:, None].expand(S, cap_g).contiguous()
+
+        def repack(buf, pack, fill):
+            out = torch.full((cap_g + 1, *buf.shape[1:]), fill, dtype=buf.dtype, device=dev)
+            return out.index_copy_(0, pack, buf)[:cap_g]
+
+        for s in range(S):
+            n_in_log[s] = n_active
+            t0 = int(dp.stage_t0[s])
+            # live groups are front-packed, so live lanes are the first
+            # n_active * B: a blocked scorer skips the rest
+            scores = self.scorer.fn(x, rows2d.reshape(L), t0, n_active * B)
+            scores = torch.where(self._col_valid[s][None, :], scores, 0.0)
+            scores = torch.where(valid2d.reshape(L, 1) != 0, scores, 0.0)
+            # per-column sequential accumulate: the host oracle's f32 adds
+            g_flat = g2d.reshape(L)
+            for j in range(W):
+                g_flat = g_flat + scores[:, j]
+            g_new = g_flat.reshape(cap_g, B)
+            margin, exit_g = cascade_group_kernel(g_new, valid2d, eps_b[s], k, n_live=n_active)
+            exit_b = exit_g.bool()  # live-gated inside B8
+            verdict = group_topk_rows(g_new, valid2d, rows2d, k)
+            scat = torch.where(exit_b, gids, cap_g)
+            verd[scat] = verdict
+            exst[scat] = s + 1
+            marg[scat] = margin
+            # whole-group compaction: survivors keep their B-lane rectangle
+            keep = (grp < n_active) & ~exit_b
+            pack = torch.where(keep, torch.cumsum(keep, dim=0) - 1, cap_g)
+            gids = repack(gids, pack, cap_g)
+            rows2d = repack(rows2d, pack, 0)
+            valid2d = repack(valid2d, pack, 0)
+            g2d = repack(g_new, pack, 0.0)
+            n_active = keep.sum(dtype=i32)
+        # ran-out groups carry the full cascade's ranking; B8 at eps = +inf
+        # gives their margins
+        inf = torch.full((cap_g,), float("inf"), dtype=torch.float32, device=dev)
+        margin_f, _ = cascade_group_kernel(g2d, valid2d, inf, k, n_live=n_active)
+        verdict_f = group_topk_rows(g2d, valid2d, rows2d, k)
+        scat = torch.where(grp < n_active, gids, cap_g)
+        verd[scat] = verdict_f
+        exst[scat] = S
+        marg[scat] = margin_f
+        return verd[:cap_g], exst[:cap_g], marg[:cap_g], n_active, n_in_log
+
+    def run_grouped(
+        self,
+        batch,
+        group_rows,
+        group_valid,
+        n_groups: int,
+        eps_g,
+        k: int,
+        capacity_groups: int | None = None,
+        prepared: bool = False,
+    ) -> GroupedResult:
+        """Execute the grouped cascade for ``n_groups`` bucket-laid-out
+        query groups on the device.
+
+        ``group_rows`` (G, B) holds each group's flat GLOBAL document rows
+        into ``batch`` (padding lanes in range but masked), ``group_valid``
+        (G, B) the real-lane mask, ``eps_g`` (S,) the per-stage margin
+        thresholds, ``k`` the ranking depth.  One bucket width B per call:
+        ragged widths go through the bucketing layer, one run per bucket
+        shape.  ``capacity_groups`` pins the group-slot capacity across
+        flushes.  ``batch`` is what the scorer's ``prepare`` consumes (for
+        the matrix scorer, the cascade-ordered score matrix), or with
+        ``prepared=True`` its output already.
+        """
+        T = self.dplan.plan.T
+        S = self.dplan.S
+        group_rows = np.asarray(group_rows, dtype=np.int64)
+        group_valid = np.asarray(group_valid)
+        if group_rows.ndim != 2 or group_rows.shape != group_valid.shape:
+            raise ValueError(
+                f"group_rows/group_valid must be matching (G, B) arrays, "
+                f"got {group_rows.shape} / {group_valid.shape}"
+            )
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        eps_g = np.asarray(eps_g, dtype=np.float32)
+        if eps_g.shape != (S,):
+            raise ValueError(f"eps_g has shape {eps_g.shape}, expected ({S},)")
+        if n_groups == 0:
+            return GroupedResult(
+                verdicts=np.zeros((0, k), dtype=np.int32),
+                exit_stage=np.zeros(0, dtype=np.int64),
+                margin=np.zeros(0, dtype=np.float32),
+                chunk_stats=[],
+                scores_computed=0,
+                scores_possible=0,
+            )
+        n_docs = int((group_valid[:n_groups] != 0).sum())
+        B = group_rows.shape[1]
+        cap_g = self._cap_groups(n_groups, capacity_groups)
+        x = batch if prepared else self.scorer.prepare(batch)
+        if x.device != self.device:
+            raise ValueError(f"operand on {x.device}, executor on {self.device}")
+        # slots past the groups: trash id, row 0 (in range), no valid lane
+        gids = np.full(cap_g, cap_g, dtype=np.int64)
+        gids[:n_groups] = np.arange(n_groups)
+        rows_init = np.zeros((cap_g, B), dtype=np.int64)
+        rows_init[:n_groups] = group_rows[:n_groups]
+        valid_init = np.zeros((cap_g, B), dtype=np.int32)
+        valid_init[:n_groups] = group_valid[:n_groups] != 0
+        dev = self.device
+        verd, exst, marg, n_f, n_in_log = self._grouped_program(
+            int(k), x, torch.from_numpy(gids).to(dev), torch.from_numpy(rows_init).to(dev),
+            torch.from_numpy(valid_init).to(dev), n_groups, torch.from_numpy(eps_g).to(dev),
+        )
+        # the one transfer back to the host, after the loop
+        G = n_groups
+        words = torch.cat(
+            [verd[:G].reshape(-1), exst[:G], marg[:G].view(torch.int32), n_f[None], n_in_log]
+        ).cpu().numpy()
+        verd = words[: G * k].reshape(G, k)
+        exst, marg = words[G * k : G * k + G], words[G * k + G : G * k + 2 * G]
+        n_f, n_in_log = int(words[G * k + 2 * G]), words[G * k + 2 * G + 1 :]
+        s_f = int((n_in_log > 0).sum())
+        stages = self.dplan.plan.stages
+        bn, W = self._bn_bill(), self.dplan.W
+        chunk_stats = []
+        for s in range(s_f):
+            n_in = int(n_in_log[s])
+            n_next = int(n_in_log[s + 1]) if s + 1 < s_f else n_f
+            # group-quantized block billing: a stage scores the full B-lane
+            # rectangle of every live group, block-guarded
+            chunk_stats.append(
+                ChunkStat(
+                    t0=stages[s][0],
+                    t1=stages[s][1],
+                    n_in=n_in,
+                    n_exited=n_in - n_next,
+                    scores_computed=-(-(n_in * B) // bn) * bn * W,
+                )
+            )
+        return GroupedResult(
+            verdicts=verd.astype(np.int32),
+            exit_stage=exst.astype(np.int64),
+            margin=marg.view(np.float32),
+            chunk_stats=chunk_stats,
+            scores_computed=sum(c.scores_computed for c in chunk_stats),
+            scores_possible=n_docs * T,
         )

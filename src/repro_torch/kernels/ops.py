@@ -13,13 +13,18 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
-from repro_torch.kernels.cascade_kernel import cascade_chunk_kernel, cascade_kernel
+from repro_torch.kernels.cascade_kernel import (
+    cascade_chunk_kernel,
+    cascade_group_kernel,
+    cascade_kernel,
+)
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
 __all__ = [
     "cascade_decide",
     "cascade_chunk",
+    "cascade_group",
     "kernel_decide_fn",
     "lattice_scores",
     "gbt_scores",
@@ -40,6 +45,11 @@ def cascade_decide(
 def cascade_chunk(g0, chunk_scores, eps_pos, eps_neg, t0, **kw):
     """One-stage threshold tests -> (g, active, decided_pos, exit_step)."""
     return cascade_chunk_kernel(g0, chunk_scores, eps_pos, eps_neg, t0, **kw)
+
+
+def cascade_group(g, valid, eps, k, n_live=None):
+    """Group decide over a (G, B) bucket layout (B8) -> (margin, exit)."""
+    return cascade_group_kernel(g, valid, eps, k, n_live=n_live)
 
 
 def kernel_decide_fn(block_n: int = 256, device="cuda"):

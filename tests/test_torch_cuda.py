@@ -368,3 +368,97 @@ def test_streaming_cli_serves_on_card(dev, capsys):
     out = capsys.readouterr().out
     assert "[serve] streaming: 200 admitted" in out
     assert "(device backend, streaming, lazy)" in out
+
+
+# -- ranking: B8 and the grouped stage loop ---------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("B", [4, 32, 64, 256])
+@pytest.mark.parametrize("n_live", [None, 0, 5, 23])
+def test_cascade_group_kernel_equals_plain(dev, B, k, n_live):
+    """Ties (integer scores), groups of at most k documents, eps +inf and 0
+    beside drawn thresholds, n_live 0 and below G: margin and exit equal."""
+    from repro_torch.kernels.cascade_kernel import cascade_group_kernel, cascade_group_plain
+
+    rng = np.random.default_rng(B + k)
+    G = 23
+    g = rng.integers(-3, 4, size=(G, B)).astype(np.float32)
+    g[::2] += rng.normal(scale=0.3, size=(G, B))[::2].astype(np.float32)
+    sizes = rng.integers(1, B + 1, size=G)
+    sizes[:3] = [1, min(k, B), min(k + 1, B)]
+    valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+    eps = rng.uniform(0.0, 2.0, size=G).astype(np.float32)
+    eps[3], eps[4] = np.inf, 0.0
+    nl = None if n_live is None else torch.tensor(n_live, dtype=torch.int32, device=dev)
+    args = [_t(g, dev), _t(valid, dev), _t(eps, dev), k]
+    before = _build.LAUNCHES["cascade_group"]
+    got = cascade_group_kernel(*args, n_live=nl)
+    want = cascade_group_plain(*args, n_live=nl)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["cascade_group"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_run_grouped_on_card_equals_cpu(dev):
+    from repro_torch.ranking import bucketing, fit_grouped, full_cascade_topk
+
+    rng = np.random.default_rng(8)
+    sizes = rng.integers(1, 40, size=37).astype(np.int64)
+    quality = rng.exponential(1.0, size=int(sizes.sum()))
+    F = rng.normal(size=(int(sizes.sum()), 48)) * 0.15 + quality[:, None]
+    gp = fit_grouped(F, sizes, 5, alpha=0.05, chunk_t=8)
+    ordered = F.astype(np.float32)[:, gp.plan.order]
+    off = bucketing.group_offsets(sizes)
+    full = full_cascade_topk(F, sizes, gp.k, order=gp.plan.order)
+    dplan = DevicePlan.from_plan(gp.plan)
+    for eps in (gp.eps_g, np.full(gp.S, np.inf, np.float32)):
+        for b, gidx in bucketing.pack_by_bucket(sizes, gp.buckets).items():
+            rows, valid = bucketing.bucket_layout(sizes[gidx], b, offsets=off[gidx])
+            res = [
+                DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=d), device=d)
+                .run_grouped(ordered, rows, valid, len(gidx), eps, gp.k, capacity_groups=40)
+                for d in (dev, "cpu")
+            ]
+            np.testing.assert_array_equal(res[0].verdicts, res[1].verdicts)
+            np.testing.assert_array_equal(res[0].exit_stage, res[1].exit_stage)
+            np.testing.assert_array_equal(res[0].margin.view(np.int32), res[1].margin.view(np.int32))
+            assert res[0].chunk_stats == res[1].chunk_stats
+            if np.isinf(eps).all():
+                np.testing.assert_array_equal(res[0].verdicts, full[gidx])
+
+
+def test_grouped_server_on_card_equals_cpu(dev, small_gbt):
+    """The ranking front door on the card: api.fit(groups=) -> compile ->
+    serve with B3 as score_fn, against the same on the CPU and the host."""
+    from repro_torch import api
+    from repro_torch.launch.serve import _ragged_sizes
+    from repro_torch.ranking import group_offsets
+
+    ds, g, _ = small_gbt
+    F = apply_gbt_scores(g.stacked(), torch.from_numpy(ds.x_train)).numpy()
+    rng = np.random.default_rng(2031)
+    sizes_tr = _ragged_sizes(len(ds.y_train), 8, rng)
+    sizes_te = _ragged_sizes(len(ds.y_test), 8, rng)
+    fitted = api.fit(F, groups=sizes_tr, topk=5, alpha=0.05, beta=-g.base_score)
+    off = group_offsets(sizes_te)
+    out = []
+    for backend, d in (("device", dev), ("device", "cpu"), ("host", "cpu")):
+        params = {k: v.to(d) for k, v in g.stacked().items()}
+        srv = fitted.compile(backend, device=d).serve(
+            score_fn=lambda x, p=params: apply_gbt_scores(p, x), batch_size=16
+        )
+        for i in range(sizes_te.size):
+            srv.submit(ds.x_test[off[i] : off[i + 1]])
+        out.append(srv.drain())
+    assert out[0] == out[1]
+    assert [r["ranking"] for r in out[0]] == [r["ranking"] for r in out[2]]
+    assert [r["exit_stage"] for r in out[0]] == [r["exit_stage"] for r in out[2]]
+
+
+def test_ranking_cli_serves_on_card(dev, capsys):
+    serve.main(["--T", "40", "--scale", "0.1", "--alpha", "0.05", "--groups", "8",
+                "--topk", "5"])
+    out = capsys.readouterr().out
+    assert "(device backend, batch)" in out and "NDCG@5 " in out

@@ -216,3 +216,75 @@ def test_quantized_slabs_name_the_roadmap_item():
             dplan, np.zeros((6, 4), np.float32), np.zeros((6, 2), np.int32),
             quant="bf16", device="cpu",
         )
+
+
+def test_group_decide_wrapper_dispatches_on_tensor_device():
+    """B8's wrapper: a CPU tensor takes the plain version and launches
+    nothing; a tensor on another non-CUDA device raises."""
+    from repro_torch.kernels.cascade_kernel import cascade_group_kernel, cascade_group_plain
+
+    _build.LAUNCHES.clear()
+    g = torch.tensor([[3.0, 1.0, 2.0, 0.0], [1.0, 1.0, 0.0, 0.0]])
+    valid = torch.tensor([[1, 1, 1, 1], [1, 1, 0, 0]], dtype=torch.int32)
+    eps = torch.zeros(2)
+    got = cascade_group_kernel(g, valid, eps, 1, n_live=torch.tensor(1, dtype=torch.int32))
+    want = cascade_group_plain(g, valid, eps, 1, n_live=1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].tolist() == [1.0, 0.0] and got[1].tolist() == [1, 0]
+    assert sum(_build.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        cascade_group_kernel(g.to("meta"), valid.to("meta"), eps.to("meta"), 1)
+    assert "cascade_group" in _build.SOURCES
+
+
+def _grouped_fit():
+    from repro_torch import api
+
+    rng = np.random.default_rng(0)
+    sizes = np.array([3, 5, 1, 4])
+    F = rng.normal(size=(int(sizes.sum()), 6))
+    return api.fit(F, groups=sizes, topk=2, chunk_t=3), F, sizes
+
+
+def test_ranking_entry_points_raise_without_cuda(no_cuda):
+    """``compile()``, its ``rank()`` and ``serve --groups`` default to the
+    card and raise without one; naming the CPU runs them."""
+    from repro_torch.ranking import GroupedRankServer
+
+    fitted, F, sizes = _grouped_fit()
+    for backend in ("auto", "device", "host"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fitted.compile(backend)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GroupedRankServer(fitted.grouped)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--T", "4", "--scale", "0.01", "--groups", "4"])
+    for backend in ("auto", "device", "host"):
+        res = fitted.compile(backend, device="cpu").rank(scores=F, groups=sizes)
+        assert [len(r["ranking"]) for r in res] == [2, 2, 1, 2]
+
+
+def test_auto_compile_never_lands_on_host(no_cuda):
+    fitted, _, _ = _grouped_fit()
+    c = fitted.compile("auto", device="cpu")
+    assert c.backend_name == "device" and c._executor is not None
+    assert fitted.compile(device="cpu").backend_name == "device"
+    assert fitted.compile("host", device="cpu").backend_name == "host"
+    assert backends.DeviceBackend.capabilities.grouped
+    assert backends.HostBackend.capabilities.grouped
+
+
+def test_grouped_streaming_raises_naming_its_roadmap_item():
+    from repro_torch.ranking import GroupedRankServer
+
+    fitted, _, _ = _grouped_fit()
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
+        GroupedRankServer(fitted.grouped, streaming=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
+        fitted.compile("device", device="cpu").serve(streaming=True)
+    # an admission policy is the grouped streaming ring's: no batch no-op
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
+        fitted.compile("device", device="cpu").serve(policy="kernel")
+    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
+        serve.main(["--device", "cpu", "--T", "4", "--scale", "0.01", "--groups", "4",
+                    "--streaming"])
