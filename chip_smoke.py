@@ -18,7 +18,10 @@ Phases, each of which stops the run on failure:
    inputs at the cube's corners, rows that never exit, the ±inf "full
    evaluation" thresholds; for B6 and B7 lanes at every stage in one
    block and last-stage lanes; for B8 tied scores, groups of at most k
-   documents, n_live 0): every output ``torch.equal``.
+   documents, n_live 0): every output ``torch.equal``.  Then B4 and B7
+   at quantised slabs (tree and lattice at bf16 and int8, matrix at bf16:
+   ten variants) on the same plans and buffers, with raw payloads off the
+   grid: every output ``torch.equal`` to the plain version.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -51,7 +54,17 @@ Phases, each of which stops the run on failure:
    (B3 + B8 per stage), with device="cpu", on the host rung and by
    ``run_grouped_host``: verdicts, exit stages and margins equal bit for
    bit; the margin-inf run equals ``full_cascade_topk``.
-   In phases 4-4d the launch counts are set to 0 just before each path and
+4e. Quantised parameter slabs: phase 4's and 4b's ensembles and fits (no
+   new fit) at bf16 and int8 slabs, the test rows served by ``QWYCServer``
+   (batch 256, policy ``kernel``, ``megakernel=True``: B4 at the slabs'
+   storage) and ``StreamingServer`` (256 requests/step, capacity 256,
+   window 1024: B7), and exp1's test score matrix at bf16 through
+   ``DeviceExecutor`` (B4 and B7 matrix): card == CPU bit for bit
+   (verdicts, exits, g_final, billing), batch == streaming, and on the
+   weights rounded onto the grid quantised serving == f32 serving exactly;
+   on the raw weights g within ``tolerance_bound`` of f32 serving wherever
+   the exit did not move (moved verdicts and exits are reported).
+   In phases 4-4e the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
@@ -63,9 +76,10 @@ Phases, each of which stops the run on failure:
    (requests/s, wave and step wall times, steps and syncs per wave,
    PyTorch operator calls per step, one wave's busy share); the ranking
    server's drains of the test queries (median and p90 wall, PyTorch calls
-   per grouped stage, one drain's busy share); and each kernel's device
-   time per launch (profiler) at its main-path shape beside its plain
-   version's and its bound.
+   per grouped stage, one drain's busy share); exp1's trees served fused at
+   f32 and at bf16 slabs (a batch-256 flush, a streaming wave); and each
+   kernel's device time per launch (profiler) at its main-path shape beside
+   its plain version's and its bound.
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -91,6 +105,8 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # flush-latency samples per (batch, path), after N_WARM unrecorded flushes
 N_WARM, N_FLUSH = 5, 100
+# profiled calls of a kernel's plain version (a kernel's own: 50)
+N_PLAIN_REPS = 10
 # phase 4c's streaming servers: lane capacity, admission ring, arrival rates
 # (requests per stage step: the streaming benchmark's heavy traffic at the
 # capacity, and the CLI's default), the protocol's trace seed; phase 5
@@ -107,6 +123,10 @@ N_RANK_DRAINS = 20
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
 GBT_MODES = ("both",)
+# quantised slab storages (phases 3, 4e, 5): trees and lattices at both,
+# the matrix variant at bf16 only
+QUANTS = ("bf16", "int8")
+QUANT_VARIANTS = [(v, q) for v in ("tree", "lattice") for q in QUANTS] + [("matrix", "bf16")]
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, the served path whose launches
@@ -139,6 +159,15 @@ KERNELS = {
     "cascade_group": ("src/repro_torch/csrc/cascade_group.cu",
                       "src/repro/kernels/cascade_kernel.py:474", "rank/both"),
 }
+# B4 and B7 at quantised slabs: phase 4e's batch and streaming paths
+for _v, _q in QUANT_VARIANTS:
+    _cell = "exp4" if _v == "lattice" else "exp1"
+    KERNELS[f"mega_stage_{_v}_{_q}"] = ("src/repro_torch/csrc/mega_stage.cu",
+                                        "src/repro/kernels/megakernel.py:556",
+                                        f"q_batch_{_v}_{_q}/{_cell}")
+    KERNELS[f"mega_lane_{_v}_{_q}"] = ("src/repro_torch/csrc/mega_stage.cu",
+                                       "src/repro/kernels/megakernel.py:724",
+                                       f"q_stream_{_v}_{_q}/{_cell}/r256")
 # the kernels each path of phase 4 must launch; no other kernel may
 PATH_KERNELS = {
     "calibration": {"gbt_scores"},  # the (N, 500) score matrices
@@ -163,7 +192,15 @@ PATH_KERNELS = {
     # per wave's epilogue; rank(margin_inf=True) over precomputed scores
     "rank": {"gbt_scores", "cascade_group"},
     "rank_inf": {"cascade_group"},
+    # phase 4e, quantised slabs: each path its own kernel at its own storage
+    # (grid: the same servers on weights rounded onto the grid, f32 and quantised)
+    "q_cpu": set(),
 }
+for _v, _q in QUANT_VARIANTS:
+    PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
+    PATH_KERNELS[f"q_stream_{_v}_{_q}"] = {f"mega_lane_{_v}_{_q}"}
+    PATH_KERNELS[f"q_grid_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
+    PATH_KERNELS[f"q_grid_f32_{_v}"] = {f"mega_stage_{_v}"}
 
 
 def log(msg: str) -> None:
@@ -512,6 +549,7 @@ def phase_kernels(check: Check) -> dict:
     # n_valid, the ragged last stage; tree and matrix on exp1's geometry,
     # lattice on exp4's
     stop = stage >= S - 1
+    stage_l = stage
     n_cases, mid_block = 0, 0
     for variant, slabs, xop, (ep_t, en_t) in (
         ("tree", tree.slabs, x_buf, (eps_pos, eps_neg)),
@@ -534,6 +572,52 @@ def phase_kernels(check: Check) -> dict:
         raise AssertionError(f"B7 check: only {mid_block} cases retired rows mid-block")
     log(f"[phase 3] B7 mega_lane tree + matrix + lattice == plain ({n_cases} cases, "
         f"{mid_block} retiring rows mid-block)")
+
+    # B4 and B7 at quantised slabs: the same plans, ensembles (raw normal
+    # leaves and vertex values, off every grid) and buffers as above
+    quant = {}
+    for q in QUANTS:
+        quant[("tree", q)] = tree_stage_scorer(dplan, fo, to, lo, block_n=64, quant=q, device=dev)
+        quant[("lattice", q)] = lattice_stage_scorer(
+            lplan, theta8.cpu().numpy(), lfeats8.cpu().numpy(), block_n=64, quant=q, device=dev
+        )
+    quant[("matrix", "bf16")] = matrix_stage_scorer(dplan, quant="bf16", device=dev)
+    F_bf16 = F.to(torch.bfloat16)
+    operands = {"tree": (x_buf, (eps_pos, eps_neg)), "matrix": (F_bf16, (eps_pos, eps_neg)),
+                "lattice": (xl_buf, leps)}
+    n_cases, mid_block, off_grid = 0, 0, 0
+    for (variant, q), scorer in quant.items():
+        name, slabs = f"{variant}_{q}", scorer.slabs
+        payload = slabs.data.get("payload")
+        if payload is not None:  # the payload really is off the grid
+            off_grid += int(slabs.eps_position.max() > 0)
+        xop, (ep_t, en_t) = operands[variant]
+        xr_q = xop[rows].contiguous()
+        plan_q = lplan if variant == "lattice" else dplan
+        for stage in (0, 5, 63):
+            for n_valid in (nv(256), nv(0), nv(100), nv(200)):
+                args = (slabs, xr_q, g_buf, stage, int(plan_q.stage_t0[stage]), n_valid, ep_t, en_t)
+                got = mega_stage_kernel(*args, block_n=64)
+                want = mega_stage_plain(*args, block_n=64)
+                for k, (a, b) in enumerate(zip(got, want)):
+                    check.equal(f"mega_stage_{name}", f"stage {stage} output {k}", a, b)
+                n_cases += 1
+        for n_valid in (nv(256), nv(0), nv(100), nv(200), 64):
+            args = (slabs, xop, rows, g_buf, stage_l, stop, n_valid, ep_t, en_t)
+            got = mega_lane_kernel(*args, block_n=64)
+            want = mega_lane_plain(*args, block_n=64)
+            for k, (a, b) in enumerate(zip(got, want)):
+                check.equal(f"mega_lane_{name}", f"nv {int(n_valid)} output {k}", a, b)
+            live = got[3][: int(n_valid)]
+            mid_block += int(bool((live > 0).any() and (live == 0).any()))
+            n_cases += 1
+        if not bool(((got[1] == 1) & stop[:256]).any()):
+            raise AssertionError(f"B7 {name} check: no last-stage lane ran out active")
+    if off_grid != 4 or mid_block < 10:
+        raise AssertionError(f"quantised checks: {off_grid} payloads off the grid, "
+                             f"{mid_block} cases retiring rows mid-block")
+    log(f"[phase 3] B4 + B7 at bf16/int8 (tree, lattice; matrix bf16) == plain "
+        f"({n_cases} cases, {mid_block} B7 cases retiring rows mid-block)")
 
     # B8 over (G 37, B) bucket layouts: integer scores (ties), groups of at
     # most k documents, eps +inf and 0 beside drawn thresholds, n_live 0,
@@ -566,7 +650,8 @@ def phase_kernels(check: Check) -> dict:
         x_buf=x_buf, rows=rows, dplan=dplan, tree=tree, matrix=matrix, F=F,
         eps=(eps_pos, eps_neg), g_buf=g_buf, lat=(theta8, lfeats8), xl_cal=xl_cal,
         xl_buf=xl_buf, lplan=lplan, lattice=lattice, leps=leps,
-        lanes=dict(stage=stage, stop=stop, scores=lane_scores, eps=(lep, len_)),
+        lanes=dict(stage=stage_l, stop=stop, scores=lane_scores, eps=(lep, len_)),
+        quant=quant, F_bf16=F_bf16,
     )
 
 
@@ -1092,6 +1177,245 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
     )
 
 
+def grid_payload(payload, order, stages, quant: str):
+    """``payload`` (T, L) in original model order, rounded onto ``quant``'s
+    grid for the plan's ``stages``: bf16 rounding, or (int8) per stage a
+    power-of-two step ``sc`` with the stage's largest value pinned to
+    127 sc, as ``tests/test_megakernel.py::_representable`` builds it, so
+    the stage's computed scale is exactly ``sc`` and every stored value
+    dequantises to itself."""
+    import numpy as np
+    import torch
+
+    v = np.array(payload, dtype=np.float32)
+    if quant == "bf16":
+        return torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+    for t0, t1 in stages:
+        ids = np.asarray(order[t0:t1])
+        sv = v[ids]
+        m = float(np.abs(sv).max())
+        if m == 0.0:
+            continue
+        sc = 2.0 ** math.ceil(math.log2(m / 127.0))
+        k = np.clip(np.round(sv / sc), -127, 127)
+        top = np.unravel_index(np.argmax(np.abs(sv)), sv.shape)
+        k[top] = 127.0 * np.sign(sv[top])
+        v[ids] = (k * sc).astype(np.float32)
+    return v
+
+
+def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
+    """Phase 4e: quantised parameter slabs served at full width, with phase
+    4's exp1_adult fit and phase 4b's exp4_rw2_joint fit (no new fit).
+    For trees and lattices at bf16 and int8: the test rows through
+    ``QWYCServer`` (batch 256, policy ``kernel``, ``megakernel=True``: B4 at
+    the slabs' storage) and ``StreamingServer`` (256 requests/step,
+    capacity 256, window 1024: B7), on the card and on the CPU; for exp1's
+    test score matrix at bf16 the same through ``DeviceExecutor``.  Hard
+    checks: card == CPU bit for bit (verdicts, exits, g_final, billing);
+    batch == streaming; on weights rounded onto the grid, quantised serving
+    == f32 serving exactly; on the raw weights, |g_q - g_f32| within
+    ``tolerance_bound`` on every row whose exit did not move.  Reported:
+    verdicts and exits that moved against f32 serving, the diff rate
+    against the full ensemble, mean models."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api.scorers import LatticeScorer, TreeScorer
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.core.executor import CascadePlan
+    from repro_torch.kernels import megakernel as mk
+    from repro_torch.kernels.device_executor import DeviceExecutor, DevicePlan, matrix_stage_scorer
+    from repro_torch.serving.engine import QWYCServer, StreamingServer
+
+    gbt = main["gbt"]
+    cells = {
+        "tree": dict(cell="exp1", fit=main["fits"]["both"], x=main["ds"].x_test,
+                     F=main["F_test"], g_f32=main["batch_g"]["both"], make=TreeScorer, pay=2,
+                     params=[a.cpu().numpy() for a in (gbt.feats, gbt.thrs, gbt.leaves)]),
+        "lattice": dict(cell="exp4", fit=lmain["fit"], x=lmain["ds"].x_test, F=lmain["F_test"],
+                        g_f32=lmain["batch_g"], make=LatticeScorer, pay=0,
+                        params=[a.cpu().numpy() for a in (lmain["theta"], lmain["feats"])]),
+    }
+
+    def batch_server(c, params, quant, device):
+        return QWYCServer(
+            c["fit"], scorer=c["make"](*params, quant=quant), exec_backend="device",
+            device=device, backend="kernel", batch_size=256, chunk_t=8,
+            backend_opts={"megakernel": True},
+        )
+
+    def stream_server(c, params, quant, device):
+        return StreamingServer(
+            c["fit"], scorer=c["make"](*params, quant=quant), exec_backend="device",
+            device=device, batch_size=STREAM_CAP, window=STREAM_WINDOW, chunk_t=8, block_n=64,
+            backend_opts={"megakernel": True},
+        )
+
+    def rows_of(results):  # per-row (decisions, exits, g bits) of flushes or waves
+        return tuple(np.concatenate([np.asarray(getattr(r, k)) for r in results])
+                     for k in ("decisions", "exit_step", "g_final"))
+
+    def same(a, b):
+        return all(np.array_equal(np.asarray(u).view(np.int32) if u.dtype == np.float32 else u,
+                                  np.asarray(v).view(np.int32) if v.dtype == np.float32 else v)
+                   for u, v in zip(a, b))
+
+    def against_f32(name, dec, ex, g, ev, g_f32, eps, g_scale):
+        """The raw weights: g within the oracle's bound where the exit did
+        not move; moves reported."""
+        kept = ex == ev["exit_step"]
+        bound = mk.tolerance_bound(eps, ev["exit_step"], g_scale)
+        err = np.abs(g.astype(np.float64) - g_f32.astype(np.float64))
+        if not (err[kept] <= bound[kept]).all():
+            bad = np.flatnonzero(kept & (err > bound))[:8]
+            raise AssertionError(f"{name}: |g_q - g_f32| above tolerance_bound on rows {bad.tolist()}")
+        return dict(
+            verdicts_moved=int((dec != ev["decisions"]).sum()),
+            exits_moved=int((~kept).sum()),
+            diff_vs_full=float((dec != ev["full_decisions"]).mean()),
+            mean_models=float(ex.mean()), max_err=float(err[kept].max(initial=0.0)),
+            max_bound=float(bound[kept].max(initial=0.0)),
+        )
+
+    out = {}
+    for variant, c in cells.items():
+        x, fit, cell = c["x"], c["fit"], c["cell"]
+        ev = evaluate_cascade(fit, c["F"])
+        plan = CascadePlan.from_qwyc(fit, chunk_t=8)
+        arrivals = poisson_arrivals(x.shape[0], STREAM_RATES[0])
+        for quant in QUANTS:
+            t = time.perf_counter()
+            name = f"{variant}_{quant}"
+            runs = {}
+            for kind, make, path, serve_fn in (
+                ("batch", batch_server, f"q_batch_{name}/{cell}", lambda s: serve(s, x)),
+                ("stream", stream_server, f"q_stream_{name}/{cell}/r256",
+                 lambda s: stream_serve(s, x, arrivals)),
+            ):
+                for device, key in (("cuda", path), ("cpu", f"q_cpu/{cell}/{kind}/{name}")):
+                    srv = make(c, c["params"], quant, device)
+                    res = counted(launches, key, lambda: serve_fn(srv))
+                    waves = srv.flush_results if kind == "batch" else srv.stream_results
+                    runs[kind, device] = (res, srv, rows_of(waves))
+                card = runs[kind, "cuda"][1]
+                if kind == "batch":
+                    n_launch = card.stats.n_batches * card._dev[0].dplan.S
+                else:
+                    n_launch = sum(w.steps_enqueued for w in card.stream_results)
+                kernel = f"mega_{'stage' if kind == 'batch' else 'lane'}_{name}"
+                if launches[path] != {kernel: n_launch}:
+                    raise AssertionError(f"{path}: launched {launches[path]}, expected {n_launch}")
+                (rc, sc, wc), (rp, sp, wp) = runs[kind, "cuda"], runs[kind, "cpu"]
+                if rc != rp or not same(wc, wp):
+                    raise AssertionError(f"{name} {kind}: card != CPU (results, exits or g bits)")
+                for k in ("scores_computed", "models_evaluated", "chunk_survivors",
+                          "latency_steps", "stream_steps"):
+                    if getattr(sc.stats, k) != getattr(sp.stats, k):
+                        raise AssertionError(f"{name} {kind}: {k} card != CPU")
+            if not same(runs["batch", "cuda"][2], runs["stream", "cuda"][2]):
+                raise AssertionError(f"{name}: batch != streaming (verdicts, exits or g)")
+            dec, ex, g = runs["batch", "cuda"][2]
+            slabs = runs["batch", "cuda"][1]._dev[1].slabs
+            payload = c["params"][c["pay"]]
+            # f32 serving of the raw weights (phases 4 and 4b; its exits are
+            # evaluate_cascade's) is what each quantised run is held to
+            raw = against_f32(name, dec, ex, g, ev, c["g_f32"], slabs.eps_position,
+                              float(np.abs(payload).max()) * fit.T)
+            # the same weights on the grid: quantised == f32 serving exactly
+            gp = list(c["params"])
+            gp[c["pay"]] = grid_payload(payload, fit.order, plan.stages, quant)
+            grid = {}
+            for q, key in ((quant, f"q_grid_{name}/{cell}"), (None, f"q_grid_f32_{variant}/{cell}")):
+                srv = batch_server(c, gp, q, "cuda")
+                res = counted(launches, key, lambda: serve(srv, x))
+                grid[q] = (res, rows_of(srv.flush_results), srv)
+            if grid[quant][2]._dev[1].slabs.eps_position.max() != 0.0:
+                raise AssertionError(f"{name}: grid payload not representable")
+            if grid[quant][0] != grid[None][0] or not same(grid[quant][1], grid[None][1]):
+                raise AssertionError(f"{name}: grid weights, quantised != f32 serving")
+            st = runs["batch", "cuda"][1].stats
+            out[f"{cell}/{name}"] = dict(
+                raw, scores_computed=st.scores_computed, n_batches=st.n_batches,
+                stream_steps=runs["stream", "cuda"][1].stats.stream_steps,
+                launches_batch=launches[f"q_batch_{name}/{cell}"],
+                launches_stream=launches[f"q_stream_{name}/{cell}/r256"],
+                wall_s=time.perf_counter() - t,
+            )
+            log(f"[phase 4e] {cell} {name}: card == CPU, batch == streaming, grid == f32; raw "
+                f"weights vs f32: {raw['verdicts_moved']} verdicts / {raw['exits_moved']} exits "
+                f"moved of {x.shape[0]}, diff vs full {raw['diff_vs_full']:.4f}, mean models "
+                f"{raw['mean_models']:.3f}/{fit.T}, max |g err| {raw['max_err']:.3g} (bound "
+                f"{raw['max_bound']:.3g}); launches {out[f'{cell}/{name}']['launches_batch']} "
+                f"{out[f'{cell}/{name}']['launches_stream']} in {time.perf_counter() - t:.1f}s")
+
+    # exp1's test score matrix at bf16 through DeviceExecutor
+    t = time.perf_counter()
+    fit, x = main["fits"]["both"], main["ds"].x_test
+    F = main["F_test"]
+    Fo = np.ascontiguousarray(F[:, fit.order].astype(np.float32))
+    plan = CascadePlan.from_qwyc(fit, chunk_t=8)
+    n = Fo.shape[0]
+    steps = np.floor(poisson_arrivals(n, STREAM_RATES[0])).astype(np.int64)
+    ev = evaluate_cascade(fit, F)
+
+    def executor(quant, device):
+        dplan = DevicePlan.from_plan(plan, quant=quant)
+        return DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=device), block_n=64,
+                              megakernel=True, device=device)
+
+    def batches(ex, op):
+        return [ex.run(op[b0 : b0 + 256], min(256, n - b0), capacity=256)
+                for b0 in range(0, n, 256)]
+
+    runs = {}
+    for device, kb, ks in (("cuda", "q_batch_matrix_bf16/exp1", "q_stream_matrix_bf16/exp1/r256"),
+                           ("cpu", "q_cpu/exp1/batch/matrix_bf16", "q_cpu/exp1/stream/matrix_bf16")):
+        ex = executor("bf16", device)
+        b = counted(launches, kb, lambda: batches(ex, Fo))
+        s = counted(launches, ks, lambda: [ex.run_stream(Fo, n, arrivals=steps, capacity=256)])
+        runs[device] = (b, s)
+    S = DevicePlan.from_plan(plan).S
+    want = {"q_batch_matrix_bf16/exp1": {"mega_stage_matrix_bf16": len(runs["cuda"][0]) * S},
+            "q_stream_matrix_bf16/exp1/r256": {
+                "mega_lane_matrix_bf16": runs["cuda"][1][0].steps_enqueued}}
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{k}: launched {launches[k]}, expected {v}")
+    (bc, sc), (bp, sp) = runs["cuda"], runs["cpu"]
+    if not (same(rows_of(bc), rows_of(bp)) and same(rows_of(sc), rows_of(sp))):
+        raise AssertionError("matrix bf16: card != CPU")
+    if [r.scores_computed for r in bc] != [r.scores_computed for r in bp] or \
+            sc[0].scores_computed != sp[0].scores_computed:
+        raise AssertionError("matrix bf16: billing card != CPU")
+    if not same(rows_of(bc), rows_of(sc)):
+        raise AssertionError("matrix bf16: batch != streaming")
+    dec, ex_, g = rows_of(bc)
+    g_f32 = np.take_along_axis(np.cumsum(Fo, axis=1, dtype=np.float32),
+                               ev["exit_step"][:, None] - 1, axis=1)[:, 0]
+    raw = against_f32("matrix_bf16", dec, ex_, g, ev, g_f32, mk.matrix_eps_position(Fo, "bf16"),
+                      float(np.abs(Fo).max()) * fit.T)
+    Fg = torch.from_numpy(Fo).to(torch.bfloat16).float().numpy()
+    grid = {}
+    for q, key in (("bf16", "q_grid_matrix_bf16/exp1"), ("f32", "q_grid_f32_matrix/exp1")):
+        ex = executor(q, "cuda")
+        grid[q] = rows_of(counted(launches, key, lambda: batches(ex, Fg)))
+    if not same(grid["bf16"], grid["f32"]):
+        raise AssertionError("matrix bf16: grid operand, bf16 != f32 serving")
+    out["exp1/matrix_bf16"] = dict(
+        raw, scores_computed=sum(r.scores_computed for r in bc),
+        stream_steps=sc[0].steps_run, launches_batch=launches["q_batch_matrix_bf16/exp1"],
+        launches_stream=launches["q_stream_matrix_bf16/exp1/r256"],
+        wall_s=time.perf_counter() - t,
+    )
+    log(f"[phase 4e] exp1 matrix_bf16: card == CPU, batch == streaming, grid == f32; raw vs "
+        f"f32: {raw['verdicts_moved']} verdicts / {raw['exits_moved']} exits moved, diff vs full "
+        f"{raw['diff_vs_full']:.4f}, mean models {raw['mean_models']:.3f}/{fit.T}; launches "
+        f"{want} in {time.perf_counter() - t:.1f}s")
+    report["quant"] = out
+    return dict(batch_server=batch_server, stream_server=stream_server, cells=cells)
+
+
 def flush_latency(make_server, x, label: str) -> dict:
     """Median and p90 flush latency at batch 128 / 256 / 1024, fused
     (megakernel on, the default) and unfused, for the servers
@@ -1299,7 +1623,39 @@ def rank_timing(rmain: dict) -> dict:
     return out
 
 
-def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict,
+def quant_timing(qmain: dict) -> dict:
+    """exp1's trees served by phase 4e's fused servers at f32 and at bf16
+    slabs, in turns: one batch-256 flush (host clock, median and p90 of
+    ``N_FLUSH`` flushes after ``N_WARM``; one flush's device busy time) and
+    one streaming wave at 256 requests/step (``stream_timing``)."""
+    c = qmain["cells"]["tree"]
+    x = c["x"]
+    out = {}
+    for quant in (None, "bf16"):
+        label = f"exp1 tree {quant or 'f32'}"
+        srv = qmain["batch_server"](c, c["params"], quant, "cuda")
+        times = []
+        for k in range(N_WARM + N_FLUSH):
+            start = (k * 256) % (x.shape[0] - 256)
+            for row in x[start : start + 255]:
+                srv.submit(row)
+            t = time.perf_counter()
+            srv.submit(x[start + 255])  # the 256th row: one flush
+            times.append((time.perf_counter() - t) * 1e3)
+        times = times[N_WARM:]
+        med = statistics.median(times)
+        r = dict(flush_median_ms=med, flush_p90_ms=statistics.quantiles(times, n=10)[-1])
+        log(f"[phase 5] {label} flush (batch 256, kernel policy, fused): median {med:.3f} ms, "
+            f"p90 {r['flush_p90_ms']:.3f} ms over {len(times)} flushes")
+        r["profile_flush256"] = busy_share(
+            qmain["batch_server"](c, c["params"], quant, "cuda"), x, med, label)
+        r["stream"] = stream_timing(
+            lambda: qmain["stream_server"](c, c["params"], quant, "cuda"), x, label)
+        out[quant or "f32"] = r
+    return out
+
+
+def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qmain: dict,
                 launches: dict, check: Check, report: dict) -> list:
     """Phase 5: flush latency, streaming wave times, the ranking drain and
     per-kernel device times."""
@@ -1354,8 +1710,10 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict,
     kernels = []
 
     def entry(name, fn, plain, nbytes, ops, shape, extra=None):
-        # device time per launch, the plain version's per call
-        ms, plain_ms = device_time_ms(fn), device_time_ms(plain)
+        # device time per launch, the plain version's per call (fewer reps:
+        # its hundreds of small launches a call make a profile slow to read)
+        t = time.perf_counter()
+        ms, plain_ms = device_time_ms(fn), device_time_ms(plain, reps=N_PLAIN_REPS)
         b, by = bound(nbytes, ops)
         src, replaces, path = KERNELS[name]
         e = dict(
@@ -1368,7 +1726,7 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict,
         )
         kernels.append(e)
         log(f"[phase 5] {name} {shape}: device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), "
-            f"bound {b * 1e3:.4f} us ({by})")
+            f"bound {b * 1e3:.4f} us ({by}); timed in {time.perf_counter() - t:.1f}s")
 
     def calibration(name, fn, plain, nbytes, ops, shape):
         # the one-off calibration shape, beside the serving shape's entry
@@ -1497,6 +1855,50 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict,
         ops=256 * W * (flops + 3), shape=f"cap=256 W={W} d={Dl} S={S}, {n_st} stages",
     )
 
+    # B4 and B7 at quantised slabs, on phase 3's main-path-shaped inputs
+    # (raw payloads; B4 at stage 5 as above, B7 on the mixed-stage buffer);
+    # the payload counts 2 B (bf16) or 1 B (int8) a value, the matrix
+    # operand 2 B, each stage's f32 scale 4 B
+    for (variant, q), scorer in ctx["quant"].items():
+        pb = {"bf16": 2, "int8": 1}[q]
+        deq = 0 if q == "bf16" else 1  # one multiply per int8 value staged or read
+        slabs, name = scorer.slabs, f"{variant}_{q}"
+        if variant == "tree":
+            xq, (ep_q, en_q) = x_buf, (eps_pos, eps_neg)
+            slab_b, w_ops = W * (8 * depth + pb * L) + 4, W * (depth + 3)
+            row_b, lane_x = 256 * 4 * (d + 1), 256 * 4 * d
+            stage_ops = W * L * deq
+            shape = f"cap=256 W={W} d={d} depth={depth}"
+        elif variant == "lattice":
+            xq, (ep_q, en_q) = xl_buf, (lep, len_)
+            slab_b, w_ops = W * (4 * S + pb * P) + 4, W * (flops + 3)
+            row_b, lane_x = 256 * 4 * (Dl + 1), 256 * 4 * Dl
+            stage_ops = W * P * deq
+            shape = f"cap=256 W={W} d={Dl} S={S}"
+        else:
+            xq, (ep_q, en_q) = ctx["F_bf16"], (eps_pos, eps_neg)
+            slab_b, w_ops, row_b, lane_x, stage_ops = 8, W * 3, 256 * (2 * W + 4), 256 * 2 * W, 0
+            shape = f"cap=256 W={W} T_pad={F.shape[1]}"
+        xr_q = xq[rows_all].contiguous()
+        entry(
+            f"mega_stage_{name}",
+            lambda: mk.mega_stage_kernel(slabs, xr_q, g_buf, 5, t0, nv, ep_q, en_q, block_n=64),
+            lambda: mk.mega_stage_plain(slabs, xr_q, g_buf, 5, t0, nv, ep_q, en_q, block_n=64),
+            nbytes=row_b + slab_b + 8 * W + out_bytes, ops=256 * w_ops + stage_ops,
+            shape=f"{shape}, {q}",
+        )
+        lane_ops = 256 * W * deq * (1 if variant == "tree" else P)
+        entry(
+            f"mega_lane_{name}",
+            lambda: mk.mega_lane_kernel(slabs, xq, rows_all, g_buf, stage, stop, nv, ep_q, en_q,
+                                        block_n=64),
+            lambda: mk.mega_lane_plain(slabs, xq, rows_all, g_buf, stage, stop, nv, ep_q, en_q,
+                                       block_n=64),
+            nbytes=lane_in + lane_x + n_st * slab_b, ops=256 * w_ops + lane_ops,
+            shape=f"{shape}, {q}, {n_st} stages",
+        )
+    report["quant_timing"] = quant_timing(qmain)
+
     # B1 on the eager path's own inputs; a row reads the scores up to its
     # exit, so the bound counts this run's steps
     Fo, (bep, ben), steps = lmain["F_ordered"], lmain["eps"], lmain["steps"]
@@ -1580,10 +1982,11 @@ def main() -> int:
     lattice_ctx = timed("4b", phase_lattice_path, report, launches)
     stream_ctx = timed("4c", phase_streaming, report, launches, main_ctx, lattice_ctx)
     rank_ctx = timed("4d", phase_ranking, report, launches, main_ctx)
+    quant_ctx = timed("4e", phase_quant, report, launches, main_ctx, lattice_ctx)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,
-                    launches, check, report)
+                    quant_ctx, launches, check, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -7,17 +7,20 @@ fields), so this module imports nothing of JAX or of ``repro``.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.executor import CascadePlan
 from repro_torch.core.qwyc import QWYCModel
 from repro_torch.ensembles.gbt import gbt_params_from_numpy
 from repro_torch.ensembles.lattice import lattice_params_from_numpy
+from repro_torch.kernels.megakernel import PAYLOAD_DTYPES, QUANTS, ParamSlabs
 from repro_torch.ranking.plan import GroupedPlan
 
 __all__ = [
     "gbt_params_from_numpy",
     "grouped_plan_from_numpy",
     "lattice_params_from_numpy",
+    "param_slabs_from_numpy",
     "qwyc_model_from_numpy",
 ]
 
@@ -84,4 +87,40 @@ def grouped_plan_from_numpy(
             None if train_exit_stage is None else np.asarray(train_exit_stage, np.int64)
         ),
         train_disagreement=float(train_disagreement),
+    )
+
+
+def param_slabs_from_numpy(
+    variant: str, quant: str, data: dict, scale, eps_position, W: int, S: int,
+    device="cuda",
+) -> ParamSlabs:
+    """Tree or lattice ``ParamSlabs`` of the JAX package -> the port's.
+
+    ``data`` holds the stacked slab arrays as numpy: ``feats`` and
+    ``payload`` (trees also ``thrs``), each (S, W, ...).  A bf16 payload
+    crosses as its f32 view (``np.asarray(p, np.float32)``) and is cast
+    back here, which is exact.  ``scale`` is the (S, 1) per-stage scale,
+    ``eps_position`` the (T,) per-position error.  Matrix slabs carry no
+    parameters: build them from the plan (``build_matrix_slabs``).
+    """
+    if quant not in QUANTS:
+        raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+    names = {"tree": ("feats", "thrs", "payload"), "lattice": ("feats", "payload")}
+    if variant not in names:
+        raise ValueError(f"param_slabs_from_numpy takes tree or lattice slabs, got {variant!r}")
+    if set(data) != set(names[variant]):
+        raise ValueError(f"{variant} slabs hold {names[variant]}, got {sorted(data)}")
+    dtypes = {"feats": torch.int32, "thrs": torch.float32, "payload": PAYLOAD_DTYPES[quant]}
+    out = {}
+    for name in names[variant]:
+        a = np.asarray(data[name])
+        if a.shape[:2] != (S, W):
+            raise ValueError(f"{name} has shape {a.shape}, expected ({S}, {W}, ...)")
+        src = a.astype(np.float32) if dtypes[name] == torch.bfloat16 else a
+        out[name] = torch.from_numpy(np.array(src)).to(dtypes[name]).to(device)
+    scale = np.array(scale, dtype=np.float32).reshape(S, 1)
+    return ParamSlabs(
+        variant=variant, quant=quant, data=out,
+        scale=torch.from_numpy(scale).to(device),
+        eps_position=np.asarray(eps_position, dtype=np.float64), W=int(W), S=int(S),
     )

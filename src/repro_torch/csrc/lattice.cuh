@@ -49,9 +49,12 @@ struct LatticeHalvings<0> {
   }
 };
 
-template <int S>
-__device__ __forceinline__ float lattice_interp(const float* theta,
-                                                const float* xs) {
+// `vertex(c)` gives vertex value c as a float; it is read once per vertex,
+// in the first halving (mega_stage.cu's B7 dequantises a bf16 or int8
+// vertex value there, in place).
+template <int S, typename Vertex>
+__device__ __forceinline__ float lattice_interp_with(Vertex vertex,
+                                                     const float* xs) {
   static_assert(S >= 1 && S <= kMaxLatticeDims, "lattice inputs S");
   constexpr int kHalf = 1 << (S - 1);
   float v[kHalf];
@@ -59,7 +62,13 @@ __device__ __forceinline__ float lattice_interp(const float* theta,
   const float w = 1.0f - x;
 #pragma unroll
   for (int c = 0; c < kHalf; ++c) {
-    v[c] = theta[c] * w + theta[c + kHalf] * x;
+    v[c] = vertex(c) * w + vertex(c + kHalf) * x;
   }
   return LatticeHalvings<kHalf / 2>::run(v, xs + 1);
+}
+
+template <int S>
+__device__ __forceinline__ float lattice_interp(const float* theta,
+                                                const float* xs) {
+  return lattice_interp_with<S>([theta](int c) { return theta[c]; }, xs);
 }

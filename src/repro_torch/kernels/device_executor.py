@@ -26,7 +26,10 @@ only enqueues work on the card:
   (B4, ``megakernel.py``); otherwise (or with ``megakernel=False``) it is
   the scorer's kernel (B3 for trees, B5 for lattices) -> column mask ->
   chunk decide (B2) -> cumsum pack.
-  The two are bit-identical in results and in billing.
+  The two are bit-identical in results and in billing.  Quantised (bf16,
+  int8) slabs run fused only when asked for (``megakernel=True``): their
+  results are held to the f32 multi-kernel path by the tolerance oracle
+  (``megakernel.check_parity``), their billing exactly.
 
 Stages are uniformized to the plan's maximum width ``W``: padded columns
 carry ±inf thresholds and zeroed scores, so they never move a partial sum
@@ -107,7 +110,8 @@ class DevicePlan:
 
     All stages are padded to the maximum stage width ``W``; padded columns
     get ±inf thresholds and a False ``col_valid``.  The thresholds are f64
-    in the plan and f32 here, the dtype every decide runs at.
+    in the plan and f32 here, the dtype every decide runs at.  ``quant``
+    is the storage of the scorers' ``ParamSlabs`` (f32, bf16 or int8).
     """
 
     plan: CascadePlan
@@ -442,7 +446,9 @@ class DeviceExecutor:
     skips row blocks past the live count), the same accounting as the
     reference.  ``megakernel`` selects the fused stage step: ``None``
     (default) turns it on when the scorer carries f32 ``ParamSlabs``;
-    ``False`` forces the multi-kernel path.  ``device`` defaults to the
+    ``True`` also runs quantised slabs fused (their results certified by
+    the tolerance oracle, not bit equality); ``False`` forces the
+    multi-kernel path, which scores from the f32 params.  ``device`` defaults to the
     card; on ``"cpu"`` every kernel wrapper takes its plain version.
     """
 
@@ -478,6 +484,15 @@ class DeviceExecutor:
         """The kernel row-block granularity billing runs at; the megakernel
         runs at the same granularity, so its billing is identical."""
         return self.scorer.block_n or self.block_n
+
+    def _cast_operand(self, x):
+        """Matrix quantised storage: the payload is the prepared operand,
+        so it is cast to the slabs' ``x_dtype`` once per run, when the
+        fused step runs.  Every other configuration leaves it as it is."""
+        sl = self.scorer.slabs
+        if self.megakernel and sl.x_dtype is not None and x.dtype != sl.x_dtype:
+            return x.to(sl.x_dtype)
+        return x
 
     def _cap(self, n: int) -> int:
         b = self.block_n
@@ -559,7 +574,7 @@ class DeviceExecutor:
                 scores_possible=0,
             )
         cap = self._cap(max(n, capacity or 0))
-        x = batch if prepared else self.scorer.prepare(batch)
+        x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
         if x.shape[0] > cap + 1:
@@ -755,7 +770,7 @@ class DeviceExecutor:
             raise ValueError(f"arrivals has shape {arr.shape}, expected ({n},)")
         if (np.diff(arr) < 0).any():
             raise ValueError("arrivals must be nondecreasing")
-        x = batch if prepared else self.scorer.prepare(batch)
+        x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
         # R ring rows, then the trash row R (zeros) that free lanes read
@@ -912,7 +927,7 @@ class DeviceExecutor:
         n_docs = int((group_valid[:n_groups] != 0).sum())
         B = group_rows.shape[1]
         cap_g = self._cap_groups(n_groups, capacity_groups)
-        x = batch if prepared else self.scorer.prepare(batch)
+        x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
         # slots past the groups: trash id, row 0 (in range), no valid lane

@@ -462,3 +462,149 @@ def test_ranking_cli_serves_on_card(dev, capsys):
                 "--topk", "5"])
     out = capsys.readouterr().out
     assert "(device backend, batch)" in out and "NDCG@5 " in out
+
+
+# -- quantised slabs (bf16, int8): B4 and B7 at each storage ------------------
+
+QUANT_CASES = [("tree", "bf16"), ("tree", "int8"), ("lattice", "bf16"), ("lattice", "int8"),
+               ("matrix", "bf16")]
+
+
+def _quant_scorer(rng, variant, quant, dplan, dev, n_rows):
+    """A scorer at ``quant`` with raw payloads (off the grid), and its
+    operand at the slabs' storage dtype."""
+    T, depth, d = 37, 5, 14
+    if variant == "tree":
+        sc = tree_stage_scorer(
+            dplan, rng.integers(0, d, size=(T, depth)), rng.uniform(size=(T, depth)),
+            rng.normal(size=(T, 1 << depth)), quant=quant, device=dev,
+        )
+        return sc, _t(rng.uniform(size=(n_rows, d)).astype(np.float32), dev)
+    if variant == "lattice":
+        d, S = 30, 8
+        sc = lattice_stage_scorer(
+            dplan, rng.normal(size=(T, 1 << S)),
+            np.stack([rng.choice(d, S, replace=False) for _ in range(T)]), quant=quant,
+            device=dev,
+        )
+        return sc, _t(rng.uniform(size=(n_rows, d)).astype(np.float32), dev)
+    sc = matrix_stage_scorer(dplan, quant=quant, device=dev)
+    return sc, sc.prepare(rng.normal(size=(n_rows, T))).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("variant,quant", QUANT_CASES)
+@pytest.mark.parametrize("n_valid", [0, 1, 100, 128])
+def test_mega_stage_kernel_equals_plain_quantized(dev, variant, quant, n_valid):
+    """B4 at bf16/int8 slabs equals its plain version exactly, at every
+    stage (the lead, full ones, the ragged last), and counts its launches
+    under ``mega_stage_{variant}_{quant}``."""
+    rng = np.random.default_rng(31)
+    dplan = DevicePlan.from_plan(_plan(rng), quant=quant)
+    scorer, x = _quant_scorer(rng, variant, quant, dplan, dev, 128)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    g0 = _t(rng.normal(scale=0.5, size=128).astype(np.float32), dev)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    key = f"mega_stage_{variant}_{quant}"
+    before = _build.LAUNCHES[key]
+    for stage in range(dplan.S):
+        t0 = int(dplan.stage_t0[stage])
+        args = (scorer.slabs, x, g0, stage, t0, nv, *eps)
+        for a, b in zip(mega_stage_kernel(*args, block_n=64), mega_stage_plain(*args, block_n=64)):
+            assert torch.equal(a, b)
+    assert _build.LAUNCHES[key] == before + dplan.S
+
+
+@pytest.mark.parametrize("variant,quant", QUANT_CASES)
+@pytest.mark.parametrize("n_valid", [0, 1, 100, 256])
+def test_mega_lane_kernel_equals_plain_quantized(dev, variant, quant, n_valid):
+    """B7 at bf16/int8 slabs equals its plain version exactly: lanes over
+    every stage in one block (each with its own stage's scale), stop
+    lanes, rows retiring mid-block, trash rows."""
+    rng = np.random.default_rng(32)
+    dplan = DevicePlan.from_plan(_plan(rng), quant=quant)
+    scorer, x = _quant_scorer(rng, variant, quant, dplan, dev, 300)
+    cap = 256
+    stage = rng.integers(0, dplan.S, size=cap).astype(np.int32)
+    stage[: dplan.S] = np.arange(dplan.S)
+    rows = rng.permutation(300)[:cap]
+    rows[n_valid:] = 299
+    g0 = _t(rng.normal(scale=0.5, size=cap).astype(np.float32), dev)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    args = (scorer.slabs, x, _t(rows, dev), g0, _t(stage, dev), _t(stage >= dplan.S - 1, dev),
+            nv, _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev))
+    key = f"mega_lane_{variant}_{quant}"
+    before = _build.LAUNCHES[key]
+    got = mega_lane_kernel(*args, block_n=64)
+    assert _build.LAUNCHES[key] == before + 1
+    for a, b in zip(got, mega_lane_plain(*args, block_n=64)):
+        assert torch.equal(a, b)
+
+
+def test_quantized_wrappers_name_a_wrong_dtype(dev):
+    """A payload, scale or operand at the wrong dtype raises naming it."""
+    import dataclasses
+
+    rng = np.random.default_rng(33)
+    dplan = DevicePlan.from_plan(_plan(rng), quant="int8")
+    tree, x = _quant_scorer(rng, "tree", "int8", dplan, dev, 128)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    g0 = torch.zeros(128, device=dev)
+    rows, stage = torch.arange(128, device=dev), torch.zeros(128, dtype=torch.int32, device=dev)
+    stop = torch.zeros(128, dtype=torch.bool, device=dev)
+    bad_leaves = dataclasses.replace(
+        tree.slabs, data={**tree.slabs.data, "payload": tree.slabs.data["payload"].float()})
+    bad_scale = dataclasses.replace(tree.slabs, scale=tree.slabs.scale.double())
+    for slabs, label in ((bad_leaves, "leaves"), (bad_scale, "scale")):
+        with pytest.raises(ValueError, match=f"{label} has dtype"):
+            mega_stage_kernel(slabs, x, g0, 0, 0, 128, *eps, block_n=64)
+        with pytest.raises(ValueError, match=f"{label} has dtype"):
+            mega_lane_kernel(slabs, x, rows, g0, stage, stop, 128, *eps, block_n=64)
+    mplan = DevicePlan.from_plan(_plan(rng), quant="bf16")
+    matrix, xq = _quant_scorer(rng, "matrix", "bf16", mplan, dev, 128)
+    with pytest.raises(ValueError, match="x has dtype"):
+        mega_stage_kernel(matrix.slabs, xq.float(), g0, 0, 0, 128, *eps, block_n=64)
+    with pytest.raises(ValueError, match="x has dtype"):
+        mega_lane_kernel(matrix.slabs, xq.float(), rows, g0, stage, stop, 128, *eps, block_n=64)
+
+
+@pytest.mark.parametrize("quant", ["bf16", "int8"])
+@pytest.mark.parametrize("ensemble", ["gbt", "lattice"])
+@pytest.mark.parametrize("streaming", [False, True])
+def test_quantized_server_on_card_equals_cpu(dev, small_gbt, ensemble, quant, streaming):
+    """A quantised server (``TreeScorer``/``LatticeScorer(quant=)``,
+    ``megakernel=True``) on the card against the same server on the CPU:
+    results, billing and every per-row g bit for bit; the card ran only the
+    quantised kernels of its path."""
+    if ensemble == "gbt":
+        ds, g, m = small_gbt
+        scorer = TreeScorer(g.feats, g.thrs, g.leaves, quant=quant)
+    else:
+        ds = make_dataset("rw2", scale=0.1)
+        lat = init_lattice_ensemble(40, ds.D, 8, seed=0, device="cpu")
+        F = ops.lattice_scores(lat["theta"], lat["feats"], torch.from_numpy(ds.x_train))
+        m = fit_qwyc(F.numpy().astype(np.float64), beta=0.0, alpha=0.01, mode="neg_only")
+        scorer = LatticeScorer(lat["theta"], lat["feats"], quant=quant)
+    arrivals = np.cumsum(np.random.default_rng(2028).exponential(1 / 16.0, size=len(ds.x_test)))
+    variant = "tree" if ensemble == "gbt" else "lattice"
+    out = []
+    for d in (dev, "cpu"):
+        kw = dict(scorer=scorer, exec_backend="device", device=d, batch_size=64,
+                  backend_opts={"megakernel": True})
+        srv = (StreamingServer(m, window=128, **kw) if streaming
+               else QWYCServer(m, backend="kernel", **kw))
+        _build.LAUNCHES.clear()
+        for row, a in zip(ds.x_test, arrivals):
+            srv.submit(row, arrival=a) if streaming else srv.submit(row)
+        res = srv.drain()
+        torch.cuda.synchronize()
+        launched = {k for k, v in _build.LAUNCHES.items() if v}
+        out.append((res, srv))
+        want = set() if d == "cpu" else {f"mega_{'lane' if streaming else 'stage'}_{variant}_{quant}"}
+        assert launched == want
+    (a, sa), (b, sb) = out
+    assert a == b
+    assert sa.stats.scores_computed == sb.stats.scores_computed
+    results = "stream_results" if streaming else "flush_results"
+    for ra, rb in zip(getattr(sa, results), getattr(sb, results)):
+        for k in ("decisions", "exit_step", "g_final"):
+            np.testing.assert_array_equal(getattr(ra, k), getattr(rb, k))

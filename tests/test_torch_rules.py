@@ -206,16 +206,22 @@ def test_wrappers_dispatch_on_tensor_device():
 
 
 def test_quantized_slabs_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        DevicePlan.from_plan(_tiny_plan(), quant="bf16")
+    """bf16 and int8 slabs are accepted; an unknown storage name and int8
+    matrix slabs are refused with ValueError."""
+    for quant in ("bf16", "int8"):
+        dplan = DevicePlan.from_plan(_tiny_plan(), quant=quant)
+        slabs = build_lattice_slabs(
+            dplan, np.ones((6, 4), np.float32), np.zeros((6, 2), np.int32),
+            quant=quant, device="cpu",
+        )
+        assert slabs.quant == quant and slabs.data["payload"].dtype == {
+            "bf16": torch.bfloat16, "int8": torch.int8
+        }[quant]
+    assert build_matrix_slabs(dplan, quant="bf16", device="cpu").x_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="quant must be one of"):
         DevicePlan.from_plan(_tiny_plan(), quant="fp4")
-    dplan = DevicePlan.from_plan(_tiny_plan())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        build_lattice_slabs(
-            dplan, np.zeros((6, 4), np.float32), np.zeros((6, 2), np.int32),
-            quant="bf16", device="cpu",
-        )
+    with pytest.raises(ValueError, match="matrix slabs support f32/bf16 only"):
+        build_matrix_slabs(dplan, quant="int8", device="cpu")
 
 
 def test_group_decide_wrapper_dispatches_on_tensor_device():
