@@ -127,6 +127,9 @@ GBT_MODES = ("both",)
 # the matrix variant at bf16 only
 QUANTS = ("bf16", "int8")
 QUANT_VARIANTS = [(v, q) for v in ("tree", "lattice") for q in QUANTS] + [("matrix", "bf16")]
+# lattice input counts phase 3 holds B4 and B7 lattice to their plain
+# versions at: every team shape of the warp-cooperative interpolation
+LATTICE_DIMS = (1, 2, 4, 5, 6, 8)
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, the served path whose launches
@@ -550,6 +553,8 @@ def phase_kernels(check: Check) -> dict:
     # lattice on exp4's
     stop = stage >= S - 1
     stage_l = stage
+    last_st = torch.full_like(stage, S - 1)  # every lane at the ragged last stage
+    last_stop = torch.arange(256, device=dev) % 2 == 0
     n_cases, mid_block = 0, 0
     for variant, slabs, xop, (ep_t, en_t) in (
         ("tree", tree.slabs, x_buf, (eps_pos, eps_neg)),
@@ -618,6 +623,46 @@ def phase_kernels(check: Check) -> dict:
                              f"{mid_block} cases retiring rows mid-block")
     log(f"[phase 3] B4 + B7 at bf16/int8 (tree, lattice; matrix bf16) == plain "
         f"({n_cases} cases, {mid_block} B7 cases retiring rows mid-block)")
+
+    # B4 and B7 lattice at every team shape of the warp-cooperative
+    # interpolation (S < 5: sub-warp teams; 5: one warp; 6 and 8: values
+    # held in registers), every storage, blocks of 64 and of 50 rows, B7's
+    # lanes over all 64 stages or all at the ragged last one (its own
+    # generator: the checks after it draw what they drew before)
+    geo_rng = np.random.default_rng(18)
+    n_cases, mid_block = 0, 0
+    for dims in LATTICE_DIMS:
+        th = geo_rng.normal(size=(T, 1 << dims)).astype(np.float32)
+        lf = np.stack([geo_rng.choice(D, dims, replace=False) for _ in range(T)]).astype(np.int32)
+        for q in ("f32",) + QUANTS:
+            slabs = lattice_stage_scorer(lplan, th, lf, block_n=64, quant=q, device=dev).slabs
+            name = "lattice" if q == "f32" else f"lattice_{q}"
+            for bn in (64, 50):
+                for n_valid in (nv(0), nv(151), nv(256)):
+                    for st in (0, 5, 63):
+                        args = (slabs, xr, g_buf, st, int(lplan.stage_t0[st]), n_valid, *leps)
+                        got = mega_stage_kernel(*args, block_n=bn)
+                        want = mega_stage_plain(*args, block_n=bn)
+                        for k, (a, b) in enumerate(zip(got, want)):
+                            check.equal(f"mega_stage_{name}", f"S={dims} bn={bn} stage {st} "
+                                        f"output {k}", a, b)
+                        n_cases += 1
+                    for layout, st_l, stop_l in (("all stages", stage_l, stop),
+                                                 ("one stage", last_st, last_stop)):
+                        args = (slabs, xl_buf, rows, g_buf, st_l, stop_l, n_valid, *leps)
+                        got = mega_lane_kernel(*args, block_n=bn)
+                        want = mega_lane_plain(*args, block_n=bn)
+                        for k, (a, b) in enumerate(zip(got, want)):
+                            check.equal(f"mega_lane_{name}", f"S={dims} bn={bn} {layout} "
+                                        f"output {k}", a, b)
+                        live = got[3][: int(n_valid)]
+                        mid_block += int(bool((live > 0).any() and (live == 0).any()))
+                        n_cases += 1
+    if mid_block < len(LATTICE_DIMS) * 3 * 2:
+        raise AssertionError(f"lattice geometry checks: only {mid_block} B7 cases retired "
+                             "rows mid-block")
+    log(f"[phase 3] B4 + B7 lattice at S {LATTICE_DIMS}, f32/bf16/int8, blocks 64 and 50 "
+        f"== plain ({n_cases} cases, {mid_block} B7 cases retiring rows mid-block)")
 
     # B8 over (G 37, B) bucket layouts: integer scores (ties), groups of at
     # most k documents, eps +inf and 0 beside drawn thresholds, n_live 0,

@@ -38,27 +38,55 @@
 // pass.  B7 reads one stage slab per lane (8.4 KB for a lattice stage at
 // f32, half at bf16, a quarter at int8); lanes at one stage read the same
 // one, and the whole stacked slab of a T = 500 ensemble (520 KB for the
-// lattices at f32) stays in the 50 MB L2.
+// lattices at f32) stays in the 50 MB L2.  What a lattice call costs is not
+// bytes but latency: 2048 (row, lattice) interpolations, each a chain of S
+// dependent halvings, behind a few dependent global reads and barriers; a
+// thread that walks its row alone keeps 2 warps on each of 4 SMs.
 //
-// Design: one CTA per row block of `bn` rows, one thread per row.  B4 loads
-// the stage's slab (feature ids, thresholds, leaf tables or lattice vertex
-// values, the two threshold rows) into shared memory once, dequantising the
-// payload while it stages it into the f32 layout, and every row of the
-// block reads it; all threads score the same model at a time, so a
-// lattice's vertex reads are broadcasts, and its partial values stay in
-// registers (lattice_interp, shared with B5).  B7's lanes need different
-// slabs, so it reads them in place through the caches with plain indexed
-// loads and dequantises at each read with the lane's stage scale (the TPU
-// kernel's per-lane one-hot gathers and pre-gathered per-lane slab copies
-// have no counterpart).  The block prefix is a warp scan with shuffles,
-// then a scan of the per-warp totals.
+// Design: tree and matrix: one CTA per row block of `bn` rows, one thread
+// per row.  B4 loads the stage's slab (feature ids, thresholds, leaf tables,
+// the two threshold rows) into shared memory once, dequantising the payload
+// while it stages it, and every row of the block reads it; B7's lanes need
+// different slabs, so it reads them in place through the caches and
+// dequantises at each read with the lane's stage scale (the TPU kernel's
+// per-lane one-hot gathers and pre-gathered per-lane slab copies have no
+// counterpart).  Lattice (B4 and B7, lattice_step_kernel): a row block is
+// split over a thread-block cluster of up to 8 CTAs on 8 SMs, each owning
+// bn / 8 rows and running up to 16 warps (at cap 256 and bn 64: 32 CTAs
+// where one thread per row kept 8 warps on 4 SMs).  A CTA first stages
+// what a chunk needs from global memory in one parallel pass: B4 the
+// stage's feature ids, dequantised vertex values and threshold rows (each
+// CTA of the cluster its own copy); B7 each live row's feature ids and
+// threshold row.  Loads that need no live count (g0, B7's rows and
+// stages, B4's slab) are issued before it is read.  A (row, lattice) pair
+// is then scored by a team of min(32, 2^S) lanes of one warp
+// (lattice_interp_team): lane t holds vertex values t, t + 32, ..., read
+// as 2^S / 32 coalesced loads of 32 consecutive values (B4 from shared
+// memory, conflict-free; B7 from its lane's own stage slab in global memory,
+// 128 B a load at f32, 64 B at bf16, 32 B at int8) and dequantised as they
+// arrive; the halvings that pair values 32 or more apart run in registers,
+// the last five on warp shuffles, each rounded operation on the operands of
+// the one-thread order.  A team takes 4 pairs at once, so a warp has 4
+// independent chains in flight.  The W scores of a row go to shared memory,
+// and one thread per row walks threshold_step over them in model order (an
+// inactive row's later scores are computed and ignored).  Each CTA pushes
+// its survivor count into every rank's shared memory (distributed shared
+// memory) before one cluster barrier; its prefix is its block scan plus the
+// lower ranks' counts, and rank 0 writes the block's count, so
+// `_combine_blocks` and block billing see one count per row block.
+// The block prefix of tree and matrix is a warp scan with shuffles, then a
+// scan of the per-warp totals, as in the lattice CTAs.
 #include <cuda_bf16.h>
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "common.cuh"
 #include "lattice.cuh"
 #include "threshold_step.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -232,91 +260,329 @@ __global__ void mega_stage_matrix_kernel(
                 false);
 }
 
-template <int S, typename P>
-__global__ void mega_stage_lattice_kernel(
-    const float* __restrict__ x, const float* __restrict__ g0, int stage,
-    const int* n_valid_dev, int n_valid_host, int cap, int d, int W, int bn,
-    const int* __restrict__ feats, const P* __restrict__ theta,
-    const float* __restrict__ scales, const float* __restrict__ eps_pos,
-    const float* __restrict__ eps_neg, Outputs out) {
-  constexpr int V = 1 << S;  // vertex values per lattice
-  extern __shared__ unsigned char smem[];
-  int* s_warp = reinterpret_cast<int*>(smem);  // 32 ints
-  int* s_feats = s_warp + 32;                  // W * S
-  float* s_theta = reinterpret_cast<float*>(s_feats + W * S);  // W * V
-  float* s_ep = s_theta + W * V;
-  float* s_en = s_ep + W;
+// ---- B4 and B7 lattice: warp-cooperative interpolation over a cluster -----
 
-  const int block_start = blockIdx.x * bn;
-  const int i = block_start + threadIdx.x;
-  const bool lane_ok = threadIdx.x < bn && i < cap;
-  const int nv = live_limit(n_valid_dev, n_valid_host, cap);
-  if (block_start >= nv) {
-    skip_block(g0, i, lane_ok, out);
+constexpr int kMaxCluster = 8;       // CTAs a row block is split over
+constexpr int kLatticeThreads = 512;  // most threads a CTA runs
+constexpr int kTeamTasks = 4;        // (row, lattice) pairs a team takes at once
+constexpr int kLatticeSmem = 48 * 1024;
+
+// What the lattice variants of B4 and B7 read.  B4 (kLanes false): lane i
+// scores row i of x (cap x d) at stage `stage`.  B7 (kLanes true): lane i
+// scores row rows[i] of x (n_rows x d, clamped into range) at stage
+// stages[i] (clamped into [0, n_stages)), and a lane flagged stop[i] is left
+// out of the prefix and the count.  feats (n_stages, W, S) and theta
+// (n_stages, W, 2^S) are the stage-stacked slabs, scales the (n_stages,)
+// payload scales, eps_pos/eps_neg the (n_stages, W) threshold tables.
+// rpc and wc are the launcher's geometry: rows a CTA of the cluster owns,
+// lattices scored per chunk.
+struct LatticeStep {
+  const float* x;
+  const long long* rows;
+  int n_rows;
+  int stage;
+  const int* stages;
+  const bool* stop;
+  int n_stages;
+  const float* g0;
+  const int* n_valid_dev;
+  int n_valid_host;
+  int cap;
+  int d;
+  int W;
+  int bn;
+  const int* feats;
+  const void* theta;  // P: float, __nv_bfloat16 or int8_t
+  const float* scales;
+  const float* eps_pos;
+  const float* eps_neg;
+  int rpc;
+  int wc;
+};
+
+// The cluster barrier in two halves (PTX barrier.cluster): arrive early,
+// wait where the barrier is needed, and do other work in between.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One CTA per (row block, cluster rank); rank q owns rows [q rpc, (q + 1)
+// rpc) of the block.  Per chunk of wc lattices: stage, score, walk (the
+// header's Design paragraph); then the block prefix across the cluster.
+template <int S, typename P, bool kLanes>
+__global__ void __launch_bounds__(kLatticeThreads, 1)
+    lattice_step_kernel(const LatticeStep a, const Outputs out) {
+  using Team = LatticeTeam<S>;
+  constexpr int V = Team::V;
+  constexpr int L = Team::L;
+  constexpr int K = Team::K;
+  const P* theta = static_cast<const P*>(a.theta);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blk = blockIdx.x / n_ranks;
+  const int block_start = blk * a.bn;
+  const int r0 = block_start + rank * a.rpc;  // this CTA's first lane
+  const int nr = max(0, min(a.rpc, a.bn - rank * a.rpc));
+  const int tid = threadIdx.x;
+  const int i = r0 + tid;
+  const bool lane_ok = tid < nr && i < a.cap;
+
+  extern __shared__ unsigned char smem[];
+  const int n_eps = (kLanes ? a.rpc : 1) * a.wc;  // threshold entries
+  int* s_warp = reinterpret_cast<int*>(smem);     // 32: the block scan
+  int* s_cnt = s_warp + 32;                       // kMaxCluster: counts
+  int* s_st = s_cnt + kMaxCluster;                // B7: rpc stages
+  int* s_row = s_st + (kLanes ? a.rpc : 0);       // B7: rpc rows
+  float* s_score = reinterpret_cast<float*>(s_row + (kLanes ? a.rpc : 0));
+  float* s_ep = s_score + a.rpc * a.wc;
+  float* s_en = s_ep + n_eps;
+  int* s_feats = reinterpret_cast<int*>(s_en + n_eps);  // n_eps x S
+  float* s_theta = reinterpret_cast<float*>(s_feats + n_eps * S);  // B4
+
+  // stage chunk [j0, j0 + wcc) of the slab for the CTA's first n_live rows
+  auto stage_chunk = [&](int j0, int wcc, int n_live) {
+    if (kLanes) {
+      for (int k = tid; k < n_live * wcc; k += blockDim.x) {
+        const int r = k / wcc;
+        const int jj = k - r * wcc;
+        const size_t m = static_cast<size_t>(s_st[r]) * a.W + j0 + jj;
+        s_ep[r * a.wc + jj] = a.eps_pos[m];
+        s_en[r * a.wc + jj] = a.eps_neg[m];
+      }
+      for (int k = tid; k < n_live * wcc * S; k += blockDim.x) {
+        const int rj = k / S;
+        const int r = rj / wcc;
+        const int jj = rj - r * wcc;
+        const size_t m = static_cast<size_t>(s_st[r]) * a.W + j0 + jj;
+        s_feats[(r * a.wc + jj) * S + k - rj * S] = a.feats[m * S + k - rj * S];
+      }
+    } else {
+      const size_t m0 = static_cast<size_t>(a.stage) * a.W + j0;
+      for (int k = tid; k < wcc; k += blockDim.x) {
+        s_ep[k] = a.eps_pos[m0 + k];
+        s_en[k] = a.eps_neg[m0 + k];
+      }
+      for (int k = tid; k < wcc * S; k += blockDim.x) {
+        s_feats[k] = a.feats[m0 * S + k];
+      }
+      const float scale = a.scales[a.stage];
+      for (int k = tid; k < wcc * V; k += blockDim.x) {
+        s_theta[k] = dequant(theta[(m0 << S) + k], scale);
+      }
+    }
+  };
+
+  // loads that need no live count, issued before it is read
+  const float g_in = lane_ok ? a.g0[i] : 0.0f;
+  int st = 0, row = 0;
+  if (kLanes && lane_ok) {
+    st = min(max(a.stages[i], 0), a.n_stages - 1);
+    row = static_cast<int>(
+        min(max(a.rows[i], 0LL), static_cast<long long>(a.n_rows - 1)));
+  }
+  if (!kLanes) stage_chunk(0, min(a.wc, a.W), 0);
+  const int nv = live_limit(a.n_valid_dev, a.n_valid_host, a.cap);
+  if (block_start >= nv) {  // the whole cluster agrees: inert outputs
+    if (lane_ok) {
+      out.g[i] = g_in;
+      out.active[i] = 0;
+      out.dec[i] = 0;
+      out.exit_rel[i] = 0;
+      out.pfx[i] = 0;
+    }
+    if (rank == 0 && tid == 0) out.cnt[blk] = 0;
     return;
   }
-  const size_t so = static_cast<size_t>(stage) * W;
-  for (int k = threadIdx.x; k < W * S; k += blockDim.x) {
-    s_feats[k] = feats[so * S + k];
+  cluster_arrive_relaxed();  // this CTA runs: its shared memory may be written
+  const int n_live = max(0, min(nr, nv - r0));  // live lanes: a prefix
+  if (kLanes) {
+    if (tid < n_live) {
+      s_st[tid] = st;
+      s_row[tid] = row;
+    }
+    __syncthreads();
+    stage_chunk(0, min(a.wc, a.W), n_live);
   }
-  const float scale = scales[stage];
-  for (int k = threadIdx.x; k < W * V; k += blockDim.x) {
-    s_theta[k] = dequant(theta[so * V + k], scale);
-  }
-  for (int k = threadIdx.x; k < W; k += blockDim.x) {
-    s_ep[k] = eps_pos[so + k];
-    s_en[k] = eps_neg[so + k];
-  }
-  __syncthreads();
-  const float* xr = x + static_cast<size_t>(lane_ok ? i : 0) * d;
-  auto score = [&](int j) {
-    float xs[S];
+  float g = g_in;
+  bool active = tid < n_live;
+  bool dec = false;
+  int ex = 0;
+
+  const int lane = tid & 31;
+  const int t = lane & (L - 1);   // lane within its team
+  const int src0 = lane - t;      // the team's first lane
+  const int team = tid / L;
+  const int n_teams = blockDim.x / L;
+  for (int j0 = 0; j0 < a.W; j0 += a.wc) {
+    const int wcc = min(a.wc, a.W - j0);
+    if (j0 > 0) {
+      __syncthreads();  // the last chunk's walk has read its thresholds
+      stage_chunk(j0, wcc, n_live);
+    }
+    __syncthreads();
+    // score the (row, lattice) pairs; every lane runs every round (the
+    // shuffles name the whole warp), a pair past the last only computes
+    const int n_tasks = n_live * wcc;
+    const int per_round = n_teams * kTeamTasks;
+    for (int base = 0; base < n_tasks; base += per_round) {
+      float v[kTeamTasks][K];
+      float xv[kTeamTasks];
+      int slot[kTeamTasks];
 #pragma unroll
-    for (int k = 0; k < S; ++k) xs[k] = xr[s_feats[j * S + k]];
-    return lattice_interp<S>(s_theta + j * V, xs);
-  };
-  walk_and_pack(g0, i, lane_ok, nv, W, s_ep, s_en, s_warp, score, out,
-                false);
-}
-
-template <int S, typename P>
-int launch_lattice(const float* x, const float* g0, int stage,
-                   const int* n_valid_dev, int n_valid_host, int cap, int d,
-                   int W, int bn, const int* feats, const void* theta,
-                   const float* scales, const float* eps_pos,
-                   const float* eps_neg, const Outputs& out,
-                   cudaStream_t stream) {
-  const int threads = ((bn + 31) / 32) * 32;  // whole warps for the scan
-  const int blocks = (cap + bn - 1) / bn;
-  const size_t smem = static_cast<size_t>(32 + W * (S + (1 << S)) + 2 * W) * 4;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(mega_stage_lattice_kernel<S, P>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+      for (int u = 0; u < kTeamTasks; ++u) {
+        const int task = base + u * n_teams + team;
+        const bool ok = task < n_tasks;
+        const int r = ok ? task / wcc : 0;
+        const int jj = task - r * wcc;
+        slot[u] = ok ? r * a.wc + jj : -1;
+        xv[u] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[u][k] = 0.0f;
+        if (!ok) continue;
+        if (kLanes) {
+          const int rs = s_st[r];
+          const size_t m = static_cast<size_t>(rs) * a.W + j0 + jj;
+          const float* xr = a.x + static_cast<size_t>(s_row[r]) * a.d;
+          if (t < S) xv[u] = xr[s_feats[slot[u] * S + t]];
+          const P* th = theta + (m << S) + t;
+          const float scale = a.scales[rs];
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[u][k] = dequant(th[k * L], scale);
+        } else {
+          const float* xr = a.x + static_cast<size_t>(r0 + r) * a.d;
+          if (t < S) xv[u] = xr[s_feats[jj * S + t]];
+          const float* th = s_theta + jj * V + t;
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[u][k] = th[k * L];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTeamTasks; ++u) {
+        float xs[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          xs[k] = __shfl_sync(0xffffffffu, xv[u], src0 + k);
+        }
+        const float f = lattice_interp_team<S>(v[u], xs);
+        if (t == 0 && slot[u] >= 0) s_score[slot[u]] = f;
+      }
+    }
+    __syncthreads();
+    if (lane_ok) {
+      for (int jj = 0; jj < wcc; ++jj) {
+        const int e = kLanes ? tid * a.wc + jj : jj;
+        const float f = active ? s_score[tid * a.wc + jj] : 0.0f;
+        threshold_step(g, active, dec, ex, f, active ? s_ep[e] : 0.0f,
+                       active ? s_en[e] : 0.0f, j0 + jj + 1);
+      }
+    }
   }
-  mega_stage_lattice_kernel<S, P><<<blocks, threads, smem, stream>>>(
-      x, g0, stage, n_valid_dev, n_valid_host, cap, d, W, bn, feats,
-      static_cast<const P*>(theta), scales, eps_pos, eps_neg, out);
-  return static_cast<int>(cudaGetLastError());
+
+  const bool keep = active && !(kLanes && a.stop[i]);
+  int total;
+  const int incl = block_inclusive_scan(keep ? 1 : 0, s_warp, &total);
+  cluster_wait();  // every CTA of the cluster runs
+  if (tid < n_ranks) *cluster.map_shared_rank(s_cnt + rank, tid) = total;
+  cluster.sync();  // the counts are in; no CTA reads another's memory after
+  int off = 0, all = 0;
+  for (int q = 0; q < n_ranks; ++q) {
+    off += q < rank ? s_cnt[q] : 0;
+    all += s_cnt[q];
+  }
+  if (lane_ok) {
+    out.g[i] = g;
+    out.active[i] = active ? 1 : 0;
+    out.dec[i] = dec ? 1 : 0;
+    out.exit_rel[i] = ex;
+    out.pfx[i] = off + incl - 1;
+  }
+  if (rank == 0 && tid == 0) out.cnt[blk] = all;
 }
 
+// The cluster size, rows per CTA, lattices per chunk, threads and shared
+// memory of one launch: a row block of bn rows over min(8, bn) CTAs, each
+// chunk's staged slab and scores within 48 KB, and threads enough to take
+// a chunk's pairs in one round (at most 512), but at least one per row.
 template <int S>
-int launch_lattice_quant(int quant, const float* x, const float* g0,
-                         int stage, const int* n_valid_dev, int n_valid_host,
-                         int cap, int d, int W, int bn, const int* feats,
-                         const void* theta, const float* scales,
-                         const float* eps_pos, const float* eps_neg,
-                         const Outputs& out, cudaStream_t stream) {
+struct LatticeGeometry {
+  int ranks, rpc, wc, threads;
+  size_t smem;
+  LatticeGeometry(int bn, int W, bool lanes) {
+    using Team = LatticeTeam<S>;
+    ranks = min(kMaxCluster, bn);
+    rpc = (bn + ranks - 1) / ranks;
+    ranks = (bn + rpc - 1) / rpc;  // no CTA without rows
+    const int fixed = 4 * (32 + kMaxCluster + (lanes ? 2 * rpc : 0));
+    const int per_lattice =
+        4 * (rpc + (lanes ? rpc * (2 + S) : 2 + S + Team::V));
+    wc = min(W, (kLatticeSmem - fixed) / per_lattice);
+    const int teams = (rpc * wc + kTeamTasks - 1) / kTeamTasks;
+    threads = ((teams * Team::L + 31) / 32) * 32;
+    threads = min(max(threads, ((rpc + 31) / 32) * 32), kLatticeThreads);
+    smem = static_cast<size_t>(fixed + wc * per_lattice);
+  }
+};
+
+template <int S, typename P, bool kLanes>
+int launch_lattice_step(LatticeStep a, const Outputs& out,
+                        cudaStream_t stream) {
+  const LatticeGeometry<S> geo(a.bn, a.W, kLanes);
+  a.rpc = geo.rpc;
+  a.wc = geo.wc;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((a.cap + a.bn - 1) / a.bn) * geo.ranks);
+  cfg.blockDim = dim3(geo.threads);
+  cfg.dynamicSmemBytes = geo.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, lattice_step_kernel<S, P, kLanes>, a, out);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int S, bool kLanes>
+int launch_lattice_quant(int quant, const LatticeStep& a, const Outputs& out,
+                         cudaStream_t stream) {
   switch (quant) {
-#define LATTICE_QUANT_CASE(Q, T)                                            \
-  case Q:                                                                   \
-    return launch_lattice<S, T>(x, g0, stage, n_valid_dev, n_valid_host,   \
-                                cap, d, W, bn, feats, theta, scales,       \
-                                eps_pos, eps_neg, out, stream);
-    LATTICE_QUANT_CASE(0, float)
-    LATTICE_QUANT_CASE(1, __nv_bfloat16)
-    LATTICE_QUANT_CASE(2, int8_t)
-#undef LATTICE_QUANT_CASE
+    case 0:
+      return launch_lattice_step<S, float, kLanes>(a, out, stream);
+    case 1:
+      return launch_lattice_step<S, __nv_bfloat16, kLanes>(a, out, stream);
+    case 2:
+      return launch_lattice_step<S, int8_t, kLanes>(a, out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dispatch on S (1..kMaxLatticeDims) and the payload code; returns
+// cudaErrorInvalidValue for anything else.
+template <bool kLanes>
+int launch_lattice(int s, int quant, const LatticeStep& a, const Outputs& out,
+                   cudaStream_t stream) {
+  switch (s) {
+#define LATTICE_CASE(S) \
+  case S:               \
+    return launch_lattice_quant<S, kLanes>(quant, a, out, stream);
+    LATTICE_CASE(1)
+    LATTICE_CASE(2)
+    LATTICE_CASE(3)
+    LATTICE_CASE(4)
+    LATTICE_CASE(5)
+    LATTICE_CASE(6)
+    LATTICE_CASE(7)
+    LATTICE_CASE(8)
+#undef LATTICE_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,24 +639,6 @@ struct MatrixLane {
   const int* widths;  // (n_stages,) true stage widths
   __device__ float score(const X* xr, int st, int j) const {
     return j < widths[st] ? dequant(xr[t0s[st] + j], 1.0f) : 0.0f;
-  }
-};
-
-template <int S, typename P>
-struct LatticeLane {
-  const int* feats;     // (n_stages, W, S)
-  const P* theta;       // (n_stages, W, 2^S)
-  const float* scales;  // (n_stages,)
-  int W;
-  __device__ float score(const float* xr, int st, int j) const {
-    const size_t m = static_cast<size_t>(st) * W + j;
-    float xs[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) xs[k] = xr[feats[m * S + k]];
-    const P* th = theta + (m << S);
-    const float scale = scales[st];
-    return lattice_interp_with<S>(
-        [th, scale](int c) { return dequant(th[c], scale); }, xs);
   }
 };
 
@@ -526,26 +774,13 @@ extern "C" int mega_stage_lattice_launch(
     const float* eps_pos, const float* eps_neg, float* g_out, int* act_out,
     int* dec_out, int* ex_out, int* pfx_out, int* cnt_out,
     cudaStream_t stream) {
+  // lane i reads row i at `stage`: no rows, stages or stop flags
+  const LatticeStep a{x,   nullptr, cap,   stage,       nullptr,      nullptr,
+                      0,   g0,      n_valid_dev,        n_valid_host, cap,
+                      d,   W,       bn,    feats,       theta,        scales,
+                      eps_pos,      eps_neg,            0,            0};
   const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-  switch (s) {
-#define LATTICE_CASE(S)                                                     \
-  case S:                                                                   \
-    return launch_lattice_quant<S>(quant, x, g0, stage, n_valid_dev,       \
-                                   n_valid_host, cap, d, W, bn, feats,     \
-                                   theta, scales, eps_pos, eps_neg, out,   \
-                                   stream);
-    LATTICE_CASE(1)
-    LATTICE_CASE(2)
-    LATTICE_CASE(3)
-    LATTICE_CASE(4)
-    LATTICE_CASE(5)
-    LATTICE_CASE(6)
-    LATTICE_CASE(7)
-    LATTICE_CASE(8)
-#undef LATTICE_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_lattice<false>(s, quant, a, out, stream);
 }
 
 // B7 entry points, one argument layout for the three variants: `aux` is the
@@ -593,30 +828,6 @@ int lane_matrix(LANE_ARGS) {
   return launch_lane(a, v, out, stream);
 }
 
-template <int S, typename P>
-int lane_lattice(LANE_ARGS) {
-  LANE_PACK(float)
-  (void)p2;
-  const LatticeLane<S, P> v{static_cast<const int*>(p0),
-                            static_cast<const P*>(p1), scales, W};
-  return launch_lane(a, v, out, stream);
-}
-
-template <int S>
-int lane_lattice_quant(LANE_ARGS) {
-  switch (quant) {
-#define LANE_LATTICE_QUANT_CASE(Q, T)                                        \
-  case Q:                                                                    \
-    return lane_lattice<S, T> LANE_CALL;
-    LANE_LATTICE_QUANT_CASE(0, float)
-    LANE_LATTICE_QUANT_CASE(1, __nv_bfloat16)
-    LANE_LATTICE_QUANT_CASE(2, int8_t)
-#undef LANE_LATTICE_QUANT_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 }  // namespace
 
 extern "C" int mega_lane_tree_launch(LANE_ARGS) {
@@ -644,22 +855,14 @@ extern "C" int mega_lane_matrix_launch(LANE_ARGS) {
 }
 
 extern "C" int mega_lane_lattice_launch(LANE_ARGS) {
-  switch (aux) {
-#define LANE_LATTICE_CASE(S) \
-  case S:                    \
-    return lane_lattice_quant<S> LANE_CALL;
-    LANE_LATTICE_CASE(1)
-    LANE_LATTICE_CASE(2)
-    LANE_LATTICE_CASE(3)
-    LANE_LATTICE_CASE(4)
-    LANE_LATTICE_CASE(5)
-    LANE_LATTICE_CASE(6)
-    LANE_LATTICE_CASE(7)
-    LANE_LATTICE_CASE(8)
-#undef LANE_LATTICE_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  (void)p2;
+  const LatticeStep a{static_cast<const float*>(x),
+                      rows,         n_rows,  0,  stage,   stop,    n_stages,
+                      g0,           n_valid_dev, n_valid_host,     cap,
+                      d,            W,       bn, static_cast<const int*>(p0),
+                      p1,           scales,  eps_pos, eps_neg, 0,   0};
+  const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
+  return launch_lattice<true>(aux, quant, a, out, stream);
 }
 #undef LANE_CALL
 #undef LANE_PACK

@@ -608,3 +608,103 @@ def test_quantized_server_on_card_equals_cpu(dev, small_gbt, ensemble, quant, st
     for ra, rb in zip(getattr(sa, results), getattr(sb, results)):
         for k in ("decisions", "exit_step", "g_final"):
             np.testing.assert_array_equal(getattr(ra, k), getattr(rb, k))
+
+
+# -- B4 and B7 lattice over every team shape, storage and block geometry ------
+
+LATTICE_DIMS = [1, 2, 4, 5, 6, 8]  # sub-warp teams (S < 5), one warp, 2-8 values a lane
+
+
+def _bits_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _lattice_case(seed, S, quant, n_rows, dev):
+    """A lattice scorer over 37 lattices of S of 30 features at ``quant``
+    (raw normal vertex values, off every grid), stages of 8 with a ragged
+    last one and thresholds that retire rows mid-block, and ``n_rows``
+    feature rows (the first 10 at the cube's corners), all on ``dev``."""
+    rng = np.random.default_rng(seed)
+    T, d = 37, 30
+    dplan = DevicePlan.from_plan(
+        CascadePlan(order=np.arange(T), eps_pos=rng.uniform(0.3, 1.5, size=T),
+                    eps_neg=-rng.uniform(0.3, 1.5, size=T), beta=0.0, costs=np.ones(T),
+                    chunk_t=8, lead_t=1),
+        quant=quant,
+    )
+    scorer = lattice_stage_scorer(
+        dplan, rng.normal(size=(T, 1 << S)),
+        np.stack([rng.choice(d, S, replace=False) for _ in range(T)]), quant=quant, device=dev,
+    )
+    x = rng.uniform(size=(n_rows, d)).astype(np.float32)
+    x[:10] = np.round(x[:10])
+    return rng, dplan, scorer.slabs, _t(x, dev)
+
+
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S", LATTICE_DIMS)
+def test_mega_stage_lattice_equals_plain_every_geometry(dev, S, quant):
+    """B4 lattice equals its plain version bit for bit at every stage (the
+    lead, full ones, the ragged last), n_valid 0 / partial / all, and
+    blocks of 64 and of 50 rows (not a multiple of a warp) over a buffer
+    whose last block is ragged; some rows retire mid-block."""
+    rng, dplan, slabs, xr = _lattice_case(40 + S, S, quant, 200, dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    g0 = _t(rng.normal(scale=0.5, size=200).astype(np.float32), dev)
+    key = "mega_stage_lattice" + ("" if quant == "f32" else f"_{quant}")
+    mid_block, calls = 0, 0
+    before = _build.LAUNCHES[key]
+    for bn in (64, 50):
+        for n_valid in (0, 117, 200):
+            nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+            for stage in range(dplan.S):
+                args = (slabs, xr, g0, stage, int(dplan.stage_t0[stage]), nv, *eps)
+                got = mega_stage_kernel(*args, block_n=bn)
+                _bits_equal(got, mega_stage_plain(*args, block_n=bn))
+                live = got[3][:n_valid]
+                mid_block += int(bool((live > 0).any() and (live == 0).any()))
+                calls += 1
+    assert _build.LAUNCHES[key] == before + calls
+    assert mid_block > 0
+
+
+@pytest.mark.parametrize("spread", [True, False], ids=["all-stages", "one-stage"])
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("S", LATTICE_DIMS)
+def test_mega_lane_lattice_equals_plain_every_geometry(dev, S, quant, spread):
+    """B7 lattice equals its plain version bit for bit with lanes spread
+    over every stage (block 0 holds them all) or all at the ragged last
+    stage, stop lanes, trash rows past n_valid, n_valid 0 / partial / all,
+    and blocks of 64 and of 50 rows; some rows retire mid-block."""
+    cap = 256
+    rng, dplan, slabs, xt = _lattice_case(60 + S, S, quant, 300, dev)
+    if spread:
+        stage = rng.integers(0, dplan.S, size=cap).astype(np.int32)
+        stage[: dplan.S] = np.arange(dplan.S)
+        stop = stage >= dplan.S - 1
+    else:
+        stage = np.full(cap, dplan.S - 1, dtype=np.int32)
+        stop = rng.uniform(size=cap) < 0.5
+    key = "mega_lane_lattice" + ("" if quant == "f32" else f"_{quant}")
+    g0 = _t(rng.normal(scale=0.5, size=cap).astype(np.float32), dev)
+    stage_t, stop_t = _t(stage, dev), _t(stop, dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    mid_block, calls = 0, 0
+    before = _build.LAUNCHES[key]
+    for bn in (64, 50):
+        for n_valid in (0, 151, cap):
+            rows = rng.permutation(300)[:cap]
+            rows[n_valid:] = 299
+            nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+            args = (slabs, xt, _t(rows, dev), g0, stage_t, stop_t, nv, *eps)
+            got = mega_lane_kernel(*args, block_n=bn)
+            _bits_equal(got, mega_lane_plain(*args, block_n=bn))
+            live = got[3][:n_valid]
+            mid_block += int(bool((live > 0).any() and (live == 0).any()))
+            calls += 1
+    assert _build.LAUNCHES[key] == before + calls
+    assert mid_block > 0

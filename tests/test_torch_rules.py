@@ -51,7 +51,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "benchmarks" / "torch").glob("*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
