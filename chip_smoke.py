@@ -8,7 +8,9 @@ Phases, each of which stops the run on failure:
 1. Environment: Python, torch and CUDA versions, the card and its power
    limit (``nvidia-smi``).
 2. Build: ``nvcc`` compiles every kernel source of ``src/repro_torch/csrc``
-   (one process per source, all at once) into ``build/repro_torch_kernels``.
+   (one process per source, all at once) into ``build/repro_torch_kernels``,
+   and fails unless every tree and lattice instantiation of
+   ``mega_stage.cu``'s step kernel holds 0 bytes of stack and spills none.
 3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
    tree, matrix and lattice, B5 lattice_scores, B6 cascade_lane, B7
    mega_lane tree, matrix and lattice, B8 cascade_group) against its plain
@@ -21,7 +23,10 @@ Phases, each of which stops the run on failure:
    documents, n_live 0): every output ``torch.equal``.  Then B4 and B7
    at quantised slabs (tree and lattice at bf16 and int8, matrix at bf16:
    ten variants) on the same plans and buffers, with raw payloads off the
-   grid: every output ``torch.equal`` to the plain version.
+   grid: every output ``torch.equal`` to the plain version.  Then B4 and
+   B7 lattice at S 1-8 and tree at depths 1-12 (``LATTICE_DIMS``,
+   ``TREE_DEPTHS``), every storage, blocks of 64 and of 50 rows, B7's lanes
+   over every stage or all at the ragged last one.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -130,6 +135,11 @@ QUANT_VARIANTS = [(v, q) for v in ("tree", "lattice") for q in QUANTS] + [("matr
 # lattice input counts phase 3 holds B4 and B7 lattice to their plain
 # versions at: every team shape of the warp-cooperative interpolation
 LATTICE_DIMS = (1, 2, 4, 5, 6, 8)
+# tree depths phase 3 holds B4 and B7 tree to their plain versions at: the
+# ends of B3's range (1, 10), exp1's and exp2_nomao's depths (5, 9), either
+# side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
+# streaming only, and is where a B4 chunk holds fewer than W trees)
+TREE_DEPTHS = (1, 2, 3, 5, 8, 9, 10, 12)
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, the served path whose launches
@@ -354,12 +364,33 @@ def phase_kernels(check: Check) -> dict:
     )
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
     from repro_torch.kernels.megakernel import (
+        build_tree_slabs,
         mega_lane_kernel,
         mega_lane_plain,
         mega_stage_kernel,
         mega_stage_plain,
     )
     from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
+
+    def synced(kernel):
+        """``kernel`` followed by a device sync: a fault it makes is raised
+        at its own call, not at the plain version's or a later kernel's."""
+
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            torch.cuda.synchronize()
+            return out
+
+        return call
+
+    cascade_chunk_kernel = synced(cascade_chunk_kernel)
+    cascade_group_kernel = synced(cascade_group_kernel)
+    cascade_kernel = synced(cascade_kernel)
+    cascade_lane_kernel = synced(cascade_lane_kernel)
+    gbt_scores_kernel = synced(gbt_scores_kernel)
+    lattice_scores_kernel = synced(lattice_scores_kernel)
+    mega_lane_kernel = synced(mega_lane_kernel)
+    mega_stage_kernel = synced(mega_stage_kernel)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -663,6 +694,52 @@ def phase_kernels(check: Check) -> dict:
                              "rows mid-block")
     log(f"[phase 3] B4 + B7 lattice at S {LATTICE_DIMS}, f32/bf16/int8, blocks 64 and 50 "
         f"== plain ({n_cases} cases, {mid_block} B7 cases retiring rows mid-block)")
+
+    # B4 and B7 tree at every depth of TREE_DEPTHS (the scorer's group of
+    # 10 levels, a predicated remainder, a second group), every storage,
+    # blocks of 64 and of 50 rows, B7's lanes over all 64 stages or all at
+    # the ragged last one, on exp1's features and exp4's thresholds (leaves
+    # small enough that stop lanes run out active, large enough that rows
+    # retire mid-block); its own generator, as above
+    tree_rng = np.random.default_rng(19)
+    xr_tree = x_buf[rows].contiguous()
+    n_cases, mid_block, ran_out = 0, 0, set()
+    for depth in TREE_DEPTHS:
+        tf = tree_rng.integers(0, d, size=(T, depth)).astype(np.int32)
+        tt = tree_rng.uniform(size=(T, depth)).astype(np.float32)
+        tl = tree_rng.normal(scale=0.3, size=(T, 1 << depth)).astype(np.float32)
+        for q in ("f32",) + QUANTS:
+            slabs = build_tree_slabs(lplan, tf, tt, tl, quant=q, device=dev)
+            name = "tree" if q == "f32" else f"tree_{q}"
+            for bn in (64, 50):
+                for n_valid in (nv(0), nv(151), nv(256)):
+                    for st in (0, 5, 63):
+                        args = (slabs, xr_tree, g_buf, st, int(lplan.stage_t0[st]), n_valid, *leps)
+                        got = mega_stage_kernel(*args, block_n=bn)
+                        want = mega_stage_plain(*args, block_n=bn)
+                        for k, (a, b) in enumerate(zip(got, want)):
+                            check.equal(f"mega_stage_{name}", f"depth {depth} bn={bn} stage {st} "
+                                        f"output {k}", a, b)
+                        n_cases += 1
+                    for layout, st_l, stop_l in (("all stages", stage_l, stop),
+                                                 ("one stage", last_st, last_stop)):
+                        args = (slabs, x_buf, rows, g_buf, st_l, stop_l, n_valid, *leps)
+                        got = mega_lane_kernel(*args, block_n=bn)
+                        want = mega_lane_plain(*args, block_n=bn)
+                        for k, (a, b) in enumerate(zip(got, want)):
+                            check.equal(f"mega_lane_{name}", f"depth {depth} bn={bn} {layout} "
+                                        f"output {k}", a, b)
+                        live = got[3][: int(n_valid)]
+                        mid_block += int(bool((live > 0).any() and (live == 0).any()))
+                        if bool(((got[1] == 1) & stop_l).any()):
+                            ran_out.add(depth)
+                        n_cases += 1
+    if mid_block < len(TREE_DEPTHS) * 3 * 2 or ran_out != set(TREE_DEPTHS):
+        raise AssertionError(f"tree depth checks: {mid_block} B7 cases retired rows mid-block, "
+                             f"a stop lane ran out active at depths {sorted(ran_out)} only")
+    log(f"[phase 3] B4 + B7 tree at depth {TREE_DEPTHS}, f32/bf16/int8, blocks 64 and 50 "
+        f"== plain ({n_cases} cases, {mid_block} B7 cases retiring rows mid-block, a stop "
+        "lane running out active at every depth)")
 
     # B8 over (G 37, B) bucket layouts: integer scores (ties), groups of at
     # most k documents, eps +inf and 0 beside drawn thresholds, n_live 0,
@@ -1991,8 +2068,12 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
     log(f"[phase 1] python {sys.version.split()[0]}  torch {torch.__version__}  "
-        f"cuda {torch.version.cuda}  devices {torch.cuda.device_count()}")
+        f"cuda {torch.version.cuda}  driver {driver}  devices {torch.cuda.device_count()}")
     report["card"] = smi[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2007,6 +2088,20 @@ def main() -> int:
             if "Used" in line or "spill" in line or "stack frame" in line:
                 log(f"[phase 2]   {name}: {line.strip()}")
     report["build_s"] = secs
+    # every tree and lattice instantiation of mega_stage.cu's step kernel
+    # keeps its arrays in registers
+    steps = {}
+    for mangled, res in _build.kernel_resources("mega_stage").items():
+        label = _build.step_kernel_label(mangled)
+        if label:
+            steps[label] = res
+    report["step_kernels"] = steps
+    for label in sorted(k for k in steps if " tree " in k):
+        log(f"[phase 2] {label}: {steps[label]['registers']} registers, "
+            f"{steps[label]['stack']} bytes stack, {steps[label]['spill']} bytes spilled")
+    held = {k: v for k, v in steps.items() if v["stack"] or v["spill"]}
+    if len(steps) != 2 * 3 * (1 + 8) or held:
+        return fail(f"step kernels: {len(steps)} built, stack or spills in {held}")
 
     phase_s = report["phase_s"] = {}
 

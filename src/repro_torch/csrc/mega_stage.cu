@@ -41,41 +41,44 @@
 // lattices at f32) stays in the 50 MB L2.  What a lattice call costs is not
 // bytes but latency: 2048 (row, lattice) interpolations, each a chain of S
 // dependent halvings, behind a few dependent global reads and barriers; a
-// thread that walks its row alone keeps 2 warps on each of 4 SMs.
+// tree call is 2048 (row, tree) leaf selects, each a chain of a feature id,
+// a feature value and a leaf read.  A thread that walks its row alone keeps
+// 2 warps on each of 4 SMs and serialises its models' chains.
 //
-// Design: tree and matrix: one CTA per row block of `bn` rows, one thread
-// per row.  B4 loads the stage's slab (feature ids, thresholds, leaf tables,
-// the two threshold rows) into shared memory once, dequantising the payload
-// while it stages it, and every row of the block reads it; B7's lanes need
-// different slabs, so it reads them in place through the caches and
-// dequantises at each read with the lane's stage scale (the TPU kernel's
-// per-lane one-hot gathers and pre-gathered per-lane slab copies have no
-// counterpart).  Lattice (B4 and B7, lattice_step_kernel): a row block is
-// split over a thread-block cluster of up to 8 CTAs on 8 SMs, each owning
-// bn / 8 rows and running up to 16 warps (at cap 256 and bn 64: 32 CTAs
-// where one thread per row kept 8 warps on 4 SMs).  A CTA first stages
-// what a chunk needs from global memory in one parallel pass: B4 the
-// stage's feature ids, dequantised vertex values and threshold rows (each
-// CTA of the cluster its own copy); B7 each live row's feature ids and
-// threshold row.  Loads that need no live count (g0, B7's rows and
-// stages, B4's slab) are issued before it is read.  A (row, lattice) pair
-// is then scored by a team of min(32, 2^S) lanes of one warp
-// (lattice_interp_team): lane t holds vertex values t, t + 32, ..., read
-// as 2^S / 32 coalesced loads of 32 consecutive values (B4 from shared
-// memory, conflict-free; B7 from its lane's own stage slab in global memory,
-// 128 B a load at f32, 64 B at bf16, 32 B at int8) and dequantised as they
-// arrive; the halvings that pair values 32 or more apart run in registers,
-// the last five on warp shuffles, each rounded operation on the operands of
-// the one-thread order.  A team takes 4 pairs at once, so a warp has 4
-// independent chains in flight.  The W scores of a row go to shared memory,
-// and one thread per row walks threshold_step over them in model order (an
-// inactive row's later scores are computed and ignored).  Each CTA pushes
-// its survivor count into every rank's shared memory (distributed shared
-// memory) before one cluster barrier; its prefix is its block scan plus the
-// lower ranks' counts, and rank 0 writes the block's count, so
-// `_combine_blocks` and block billing see one count per row block.
-// The block prefix of tree and matrix is a warp scan with shuffles, then a
-// scan of the per-warp totals, as in the lattice CTAs.
+// Design: matrix: one CTA per row block of `bn` rows, one thread per row,
+// reading its score row in place (walk_and_pack).  Tree and lattice (B4 and
+// B7, step_kernel<Model>): a row block is split over a thread-block cluster
+// (TreeModel: kTreeCluster CTAs, lattices: up to 8), each CTA owning its share
+// of the rows.  A CTA first stages what a chunk of models needs from global
+// memory in one parallel pass (trees: each thread with kStageLoads loads in
+// flight before it stores them): B4 the stage's feature ids, tree thresholds,
+// dequantised leaf tables or vertex values and threshold rows (each CTA of the
+// cluster its own copy); B7 each of its rows' feature ids, tree thresholds and
+// threshold row (leaves and vertex values are read in place through the caches
+// from the lane's own stage slab, and dequantised with its stage's scale as
+// they arrive; the TPU kernel's per-lane one-hot gathers and pre-gathered
+// per-lane slab copies have no counterpart).  The live count is loaded first
+// and used only after the loads that need none (g0, B7's rows, stages and stop
+// flags, the first chunk's slab) are issued.  Every (live row, model) pair of
+// the chunk is then scored at once, speculatively: a tree pair by one thread,
+// with the depth's compares unrolled in groups of kTreeGroup levels (a
+// predicated remainder; a deeper tree takes another group), so a group's
+// feature ids, thresholds and feature values are all in flight together before
+// the leaf index is built MSB first and its one leaf read; a lattice pair by a
+// team of min(32, 2^S) lanes of one warp (lattice_interp_team): lane t holds
+// vertex values t, t + 32, ..., read as 2^S / 32 coalesced loads of 32
+// consecutive values and dequantised as they arrive; the halvings that pair
+// values 32 or more apart run in registers, the last five on warp shuffles,
+// each rounded operation on the operands of the one-thread order, 4 pairs a
+// team at once.  The W scores of a row go to shared memory, and one thread per
+// row walks threshold_step over them in model order (an inactive row's later
+// scores are computed and ignored; a leaf select and a dequantise are exact
+// functions of the inputs, so the walk sees the plain version's bits). Each
+// CTA pushes its survivor count into every rank's shared memory (distributed
+// shared memory) before one cluster barrier; its prefix is its block scan plus
+// the lower ranks' counts, and rank 0 writes the block's count, so
+// `_combine_blocks` and block billing see one count per row block. The block
+// prefix is a warp scan with shuffles, then a scan of the per-warp totals.
 #include <cuda_bf16.h>
 
 #include <cooperative_groups.h>
@@ -177,57 +180,6 @@ __device__ void skip_block(const float* __restrict__ g0, int i, bool lane_ok,
 }
 
 template <typename P>
-__global__ void mega_stage_tree_kernel(
-    const float* __restrict__ x, const float* __restrict__ g0, int stage,
-    const int* n_valid_dev, int n_valid_host, int cap, int d, int W,
-    int depth, int bn, const int* __restrict__ feats,
-    const float* __restrict__ thrs, const P* __restrict__ leaves,
-    const float* __restrict__ scales, const float* __restrict__ eps_pos,
-    const float* __restrict__ eps_neg, Outputs out) {
-  extern __shared__ unsigned char smem[];
-  const int n_leaves = 1 << depth;
-  int* s_warp = reinterpret_cast<int*>(smem);  // 32 ints
-  int* s_feats = s_warp + 32;                  // W * depth
-  float* s_thrs = reinterpret_cast<float*>(s_feats + W * depth);
-  float* s_leaves = s_thrs + W * depth;  // W * n_leaves
-  float* s_ep = s_leaves + W * n_leaves;
-  float* s_en = s_ep + W;
-
-  const int block_start = blockIdx.x * bn;
-  const int i = block_start + threadIdx.x;
-  const bool lane_ok = threadIdx.x < bn && i < cap;
-  const int nv = live_limit(n_valid_dev, n_valid_host, cap);
-  if (block_start >= nv) {
-    skip_block(g0, i, lane_ok, out);
-    return;
-  }
-  const size_t so = static_cast<size_t>(stage) * W;
-  for (int k = threadIdx.x; k < W * depth; k += blockDim.x) {
-    s_feats[k] = feats[so * depth + k];
-    s_thrs[k] = thrs[so * depth + k];
-  }
-  const float scale = scales[stage];
-  for (int k = threadIdx.x; k < W * n_leaves; k += blockDim.x) {
-    s_leaves[k] = dequant(leaves[so * n_leaves + k], scale);
-  }
-  for (int k = threadIdx.x; k < W; k += blockDim.x) {
-    s_ep[k] = eps_pos[so + k];
-    s_en[k] = eps_neg[so + k];
-  }
-  __syncthreads();
-  const float* xr = x + static_cast<size_t>(lane_ok ? i : 0) * d;
-  auto score = [&](int j) {
-    int idx = 0;
-    for (int k = 0; k < depth; ++k) {
-      idx = 2 * idx + (xr[s_feats[j * depth + k]] > s_thrs[j * depth + k]);
-    }
-    return s_leaves[j * n_leaves + idx];
-  };
-  walk_and_pack(g0, i, lane_ok, nv, W, s_ep, s_en, s_warp, score, out,
-                false);
-}
-
-template <typename P>
 __global__ void mega_stage_matrix_kernel(
     const P* __restrict__ x, const float* __restrict__ g0, int stage,
     int t0, const int* n_valid_dev, int n_valid_host, int cap, int t_pad,
@@ -260,23 +212,35 @@ __global__ void mega_stage_matrix_kernel(
                 false);
 }
 
-// ---- B4 and B7 lattice: warp-cooperative interpolation over a cluster -----
+// ---- B4 and B7 tree and lattice: one step kernel over a cluster ------------
 
-constexpr int kMaxCluster = 8;       // CTAs a row block is split over
-constexpr int kLatticeThreads = 512;  // most threads a CTA runs
-constexpr int kTeamTasks = 4;        // (row, lattice) pairs a team takes at once
-constexpr int kLatticeSmem = 48 * 1024;
+constexpr int kMaxCluster = 8;     // CTAs a row block is split over
+constexpr int kStepThreads = 512;  // most threads a CTA runs
+constexpr int kStepSmem = 48 * 1024;  // a chunk's staging budget
+constexpr int kMaxStepSmem = 232448;  // what one CTA may hold (opt-in)
+constexpr int kTeamTasks = 4;  // (row, lattice) pairs a team takes at once
+constexpr int kStageLoads = 4;  // loads a staging thread keeps in flight
+// Trees: CTAs a row block is split over (the card's sweep, PERF.md), and
+// levels whose loads are issued together.
+constexpr int kTreeCluster = 4;
+constexpr int kTreeGroup = 10;
+// B4 stages a chunk's dequantised leaf tables: one 2^15-leaf table (128 KB)
+// is the deepest that fits a CTA; B7 reads leaves in place (an int index).
+constexpr int kMaxStagedDepth = 15;
+constexpr int kMaxLaneDepth = 30;
 
-// What the lattice variants of B4 and B7 read.  B4 (kLanes false): lane i
-// scores row i of x (cap x d) at stage `stage`.  B7 (kLanes true): lane i
-// scores row rows[i] of x (n_rows x d, clamped into range) at stage
-// stages[i] (clamped into [0, n_stages)), and a lane flagged stop[i] is left
-// out of the prefix and the count.  feats (n_stages, W, S) and theta
-// (n_stages, W, 2^S) are the stage-stacked slabs, scales the (n_stages,)
-// payload scales, eps_pos/eps_neg the (n_stages, W) threshold tables.
-// rpc and wc are the launcher's geometry: rows a CTA of the cluster owns,
-// lattices scored per chunk.
-struct LatticeStep {
+// What the tree and lattice variants of B4 and B7 read.  B4 (kLanes
+// false): lane i scores row i of x (cap x d) at stage `stage`.  B7 (kLanes
+// true): lane i scores row rows[i] of x (n_rows x d, clamped into range) at
+// stage stages[i] (clamped into [0, n_stages)), and a lane flagged stop[i]
+// is left out of the prefix and the count.  feats (n_stages, W, dims) are
+// the stage-stacked feature ids, thrs (n_stages, W, dims) the tree
+// thresholds (trees only), payload the (n_stages, W, 2^dims) leaf tables or
+// vertex values, scales the (n_stages,) payload scales, eps_pos/eps_neg the
+// (n_stages, W) threshold tables; dims is the tree depth or the lattice
+// input count S.  rpc and wc are the launcher's geometry: rows a CTA of the
+// cluster owns, models scored per chunk.
+struct StepArgs {
   const float* x;
   const long long* rows;
   int n_rows;
@@ -291,13 +255,260 @@ struct LatticeStep {
   int d;
   int W;
   int bn;
+  int dims;
   const int* feats;
-  const void* theta;  // P: float, __nv_bfloat16 or int8_t
+  const float* thrs;
+  const void* payload;  // P: float, __nv_bfloat16 or int8_t
   const float* scales;
   const float* eps_pos;
   const float* eps_neg;
   int rpc;
   int wc;
+};
+
+// The shared memory a chunk's model region starts at, and the CTA's view of
+// the frame: its first lane r0, the B7 lanes' stages and rows.
+struct StepFrame {
+  int tid;
+  int r0;
+  const int* s_st;   // B7: rpc stages
+  const int* s_row;  // B7: rpc rows
+  float* s_score;    // rpc x wc scores
+  unsigned char* region;
+};
+
+// A model runs in the frame through two calls: stage(), which copies what
+// chunk [j0, j0 + wcc) of the slab needs into the region for the CTA's
+// first n_live lanes (B4: for all of them), and score(), which writes the
+// scores of every (live row, model) pair of the chunk to s_score[r * wc +
+// jj].  Every thread of the CTA calls both.
+
+// Oblivious trees of any depth: one thread per (row, tree) pair.  The
+// region holds the chunk's feature ids and thresholds
+// level-major (entry e = jj, or r * wc + jj for B7: the threads of a warp
+// read consecutive words) and, for B4, its dequantised leaf tables.
+struct TreeModel {
+  static constexpr int kCluster = kTreeCluster;
+  static constexpr int kTeam = 1;  // threads a pair
+  static constexpr int kPairs = 1;
+  static int words_per_model(int depth, int rpc, bool lanes) {
+    return lanes ? rpc * 2 * depth : 2 * depth + (1 << depth);
+  }
+
+  // B4's staged words a chunk (its leaf tables; the ids and thresholds, no
+  // more of them, ride beside), for which the launch brings threads enough
+  // to stage in one round of kStageLoads loads a thread; B7 stages ids and
+  // thresholds with the threads its pairs bring
+  static int staged_words(int depth, int, int wc, bool lanes) {
+    return lanes ? 0 : wc << depth;
+  }
+
+  // one round: each thread issues kStageLoads words' loads (an id and a
+  // threshold, and for B4 a leaf) before it stores what they bring
+  template <typename P, bool kLanes>
+  __device__ static void stage(const StepArgs& a, const StepFrame& f, int j0,
+                               int wcc, int n_live) {
+    constexpr int L = kStageLoads;
+    const int D = a.dims;
+    const int n_ent = (kLanes ? a.rpc : 1) * a.wc;
+    int* s_feats = reinterpret_cast<int*>(f.region);
+    float* s_thrs = reinterpret_cast<float*>(s_feats + n_ent * D);
+    float* s_leaves = s_thrs + n_ent * D;  // B4
+    const size_t m0 = static_cast<size_t>(a.stage) * a.W + j0;  // B4
+    const P* leaves = static_cast<const P*>(a.payload) + (m0 << D);
+    const float scale = kLanes ? 0.0f : a.scales[a.stage];
+    const int n_ft = (kLanes ? n_live : 1) * wcc * D;  // ids and thresholds
+    const int n_lv = kLanes ? 0 : wcc << D;             // B4's leaves
+    const int n = max(n_ft, n_lv);
+    const int bd = blockDim.x;
+    for (int k0 = f.tid; k0 < n; k0 += L * bd) {
+      int fv[L], ev[L];
+      float tv[L], lv[L];
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const int k = k0 + u * bd;
+        ev[u] = -1;
+        fv[u] = 0;
+        tv[u] = lv[u] = 0.0f;
+        if (k < n_ft) {  // word k: model rj = (r, jj) at level lvl
+          const int rj = k / D;
+          const int lvl = k - rj * D;
+          const int r = kLanes ? rj / wcc : 0;
+          const int jj = rj - r * wcc;
+          const size_t m =
+              kLanes ? static_cast<size_t>(f.s_st[r]) * a.W + j0 + jj : m0 + jj;
+          fv[u] = a.feats[m * D + lvl];
+          tv[u] = a.thrs[m * D + lvl];
+          ev[u] = lvl * n_ent + r * a.wc + jj;
+        }
+        if (k < n_lv) lv[u] = dequant(leaves[k], scale);
+      }
+#pragma unroll
+      for (int u = 0; u < L; ++u) {
+        const int k = k0 + u * bd;
+        if (ev[u] >= 0) {
+          s_feats[ev[u]] = fv[u];
+          s_thrs[ev[u]] = tv[u];
+        }
+        if (k < n_lv) s_leaves[k] = lv[u];
+      }
+    }
+  }
+
+  template <typename P, bool kLanes>
+  __device__ static void score(const StepArgs& a, const StepFrame& f, int j0,
+                               int wcc, int n_live) {
+    constexpr int G = kTreeGroup;
+    const int D = a.dims;
+    const int n_ent = (kLanes ? a.rpc : 1) * a.wc;
+    const int* s_feats = reinterpret_cast<const int*>(f.region);
+    const float* s_thrs = reinterpret_cast<const float*>(s_feats + n_ent * D);
+    const float* s_leaves = s_thrs + n_ent * D;  // B4
+    const P* leaves = static_cast<const P*>(a.payload);
+    const int n_tasks = n_live * wcc;
+    for (int task = f.tid; task < n_tasks; task += blockDim.x) {
+      const int r = task / wcc;
+      const int jj = task - r * wcc;
+      const int e = (kLanes ? r * a.wc : 0) + jj;
+      const float* xr =
+          a.x + static_cast<size_t>(kLanes ? f.s_row[r] : f.r0 + r) * a.d;
+      int idx = 0;
+      // levels in groups of G: a group's feature ids and thresholds, then
+      // its feature values, are all in flight at once; the bits go into
+      // the leaf index most significant first
+      for (int k0 = 0; k0 < D; k0 += G) {
+        int fid[G];
+        float thr[G], xv[G];
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          const bool on = k0 + k < D;
+          fid[k] = on ? s_feats[(k0 + k) * n_ent + e] : 0;
+          thr[k] = on ? s_thrs[(k0 + k) * n_ent + e] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < G; ++k) xv[k] = k0 + k < D ? xr[fid[k]] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < G; ++k) {
+          if (k0 + k < D) idx = 2 * idx + (xv[k] > thr[k]);
+        }
+      }
+      float v;
+      if (kLanes) {
+        const int st = f.s_st[r];
+        const size_t m = static_cast<size_t>(st) * a.W + j0 + jj;
+        v = dequant(leaves[(m << D) + idx], a.scales[st]);
+      } else {
+        v = s_leaves[(jj << D) + idx];
+      }
+      f.s_score[r * a.wc + jj] = v;
+    }
+  }
+};
+
+// Lattices of S inputs: a (row, lattice) pair is scored by a team of
+// min(32, 2^S) lanes of one warp (lattice_interp_team), 4 pairs a team at
+// once.  The region holds the chunk's feature ids ((r * wc + jj) * S + k;
+// B4: jj * S + k) and, for B4, its dequantised vertex values.
+template <int S>
+struct LatticeModel {
+  static constexpr int kCluster = kMaxCluster;
+  static constexpr int kTeam = LatticeTeam<S>::L;
+  static constexpr int kPairs = kTeamTasks;
+  static int words_per_model(int, int rpc, bool lanes) {
+    return lanes ? rpc * S : S + LatticeTeam<S>::V;
+  }
+  static int staged_words(int, int, int, bool) { return 0; }
+
+  template <typename P, bool kLanes>
+  __device__ static void stage(const StepArgs& a, const StepFrame& f, int j0,
+                               int wcc, int n_live) {
+    constexpr int V = LatticeTeam<S>::V;
+    int* s_feats = reinterpret_cast<int*>(f.region);
+    if (kLanes) {
+      for (int k = f.tid; k < n_live * wcc * S; k += blockDim.x) {
+        const int rj = k / S;
+        const int r = rj / wcc;
+        const int jj = rj - r * wcc;
+        const size_t m = static_cast<size_t>(f.s_st[r]) * a.W + j0 + jj;
+        s_feats[(r * a.wc + jj) * S + k - rj * S] = a.feats[m * S + k - rj * S];
+      }
+    } else {
+      const size_t m0 = static_cast<size_t>(a.stage) * a.W + j0;
+      for (int k = f.tid; k < wcc * S; k += blockDim.x) {
+        s_feats[k] = a.feats[m0 * S + k];
+      }
+      const P* theta = static_cast<const P*>(a.payload);
+      float* s_theta = reinterpret_cast<float*>(s_feats + a.wc * S);
+      const float scale = a.scales[a.stage];
+      for (int k = f.tid; k < wcc * V; k += blockDim.x) {
+        s_theta[k] = dequant(theta[(m0 << S) + k], scale);
+      }
+    }
+  }
+
+  // every lane runs every round (the shuffles name the whole warp); a pair
+  // past the last only computes
+  template <typename P, bool kLanes>
+  __device__ static void score(const StepArgs& a, const StepFrame& f, int j0,
+                               int wcc, int n_live) {
+    using Team = LatticeTeam<S>;
+    constexpr int V = Team::V;
+    constexpr int L = Team::L;
+    constexpr int K = Team::K;
+    const P* theta = static_cast<const P*>(a.payload);
+    const int* s_feats = reinterpret_cast<const int*>(f.region);
+    const float* s_theta = reinterpret_cast<const float*>(s_feats + a.wc * S);
+    const int lane = f.tid & 31;
+    const int t = lane & (L - 1);  // lane within its team
+    const int src0 = lane - t;     // the team's first lane
+    const int team = f.tid / L;
+    const int n_teams = blockDim.x / L;
+    const int n_tasks = n_live * wcc;
+    const int per_round = n_teams * kTeamTasks;
+    for (int base = 0; base < n_tasks; base += per_round) {
+      float v[kTeamTasks][K];
+      float xv[kTeamTasks];
+      int slot[kTeamTasks];
+#pragma unroll
+      for (int u = 0; u < kTeamTasks; ++u) {
+        const int task = base + u * n_teams + team;
+        const bool ok = task < n_tasks;
+        const int r = ok ? task / wcc : 0;
+        const int jj = task - r * wcc;
+        slot[u] = ok ? r * a.wc + jj : -1;
+        xv[u] = 0.0f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) v[u][k] = 0.0f;
+        if (!ok) continue;
+        if (kLanes) {
+          const int rs = f.s_st[r];
+          const size_t m = static_cast<size_t>(rs) * a.W + j0 + jj;
+          const float* xr = a.x + static_cast<size_t>(f.s_row[r]) * a.d;
+          if (t < S) xv[u] = xr[s_feats[slot[u] * S + t]];
+          const P* th = theta + (m << S) + t;
+          const float scale = a.scales[rs];
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[u][k] = dequant(th[k * L], scale);
+        } else {
+          const float* xr = a.x + static_cast<size_t>(f.r0 + r) * a.d;
+          if (t < S) xv[u] = xr[s_feats[jj * S + t]];
+          const float* th = s_theta + jj * V + t;
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[u][k] = th[k * L];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTeamTasks; ++u) {
+        float xs[S];
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          xs[k] = __shfl_sync(0xffffffffu, xv[u], src0 + k);
+        }
+        const float sc = lattice_interp_team<S>(v[u], xs);
+        if (t == 0 && slot[u] >= 0) f.s_score[slot[u]] = sc;
+      }
+    }
+  }
 };
 
 // The cluster barrier in two halves (PTX barrier.cluster): arrive early,
@@ -310,16 +521,11 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // One CTA per (row block, cluster rank); rank q owns rows [q rpc, (q + 1)
-// rpc) of the block.  Per chunk of wc lattices: stage, score, walk (the
+// rpc) of the block.  Per chunk of wc models: stage, score, walk (the
 // header's Design paragraph); then the block prefix across the cluster.
-template <int S, typename P, bool kLanes>
-__global__ void __launch_bounds__(kLatticeThreads, 1)
-    lattice_step_kernel(const LatticeStep a, const Outputs out) {
-  using Team = LatticeTeam<S>;
-  constexpr int V = Team::V;
-  constexpr int L = Team::L;
-  constexpr int K = Team::K;
-  const P* theta = static_cast<const P*>(a.theta);
+template <typename Model, typename P, bool kLanes>
+__global__ void __launch_bounds__(kStepThreads, 1)
+    step_kernel(const StepArgs a, const Outputs out) {
   const cg::cluster_group cluster = cg::this_cluster();
   const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -340,52 +546,61 @@ __global__ void __launch_bounds__(kLatticeThreads, 1)
   float* s_score = reinterpret_cast<float*>(s_row + (kLanes ? a.rpc : 0));
   float* s_ep = s_score + a.rpc * a.wc;
   float* s_en = s_ep + n_eps;
-  int* s_feats = reinterpret_cast<int*>(s_en + n_eps);  // n_eps x S
-  float* s_theta = reinterpret_cast<float*>(s_feats + n_eps * S);  // B4
+  const StepFrame f{tid, r0, s_st, s_row, s_score,
+                    reinterpret_cast<unsigned char*>(s_en + n_eps)};
 
-  // stage chunk [j0, j0 + wcc) of the slab for the CTA's first n_live rows
+  // stage chunk [j0, j0 + wcc) for the CTA's first n_live rows (B7's first
+  // chunk: every row it holds, before the live count is known): the
+  // threshold rows here (a thread's first entry loaded before the model
+  // stages its slab, so both are in flight at once), the slab in
+  // Model::stage
   auto stage_chunk = [&](int j0, int wcc, int n_live) {
-    if (kLanes) {
-      for (int k = tid; k < n_live * wcc; k += blockDim.x) {
-        const int r = k / wcc;
-        const int jj = k - r * wcc;
-        const size_t m = static_cast<size_t>(s_st[r]) * a.W + j0 + jj;
-        s_ep[r * a.wc + jj] = a.eps_pos[m];
-        s_en[r * a.wc + jj] = a.eps_neg[m];
-      }
-      for (int k = tid; k < n_live * wcc * S; k += blockDim.x) {
-        const int rj = k / S;
-        const int r = rj / wcc;
-        const int jj = rj - r * wcc;
-        const size_t m = static_cast<size_t>(s_st[r]) * a.W + j0 + jj;
-        s_feats[(r * a.wc + jj) * S + k - rj * S] = a.feats[m * S + k - rj * S];
-      }
-    } else {
-      const size_t m0 = static_cast<size_t>(a.stage) * a.W + j0;
-      for (int k = tid; k < wcc; k += blockDim.x) {
-        s_ep[k] = a.eps_pos[m0 + k];
-        s_en[k] = a.eps_neg[m0 + k];
-      }
-      for (int k = tid; k < wcc * S; k += blockDim.x) {
-        s_feats[k] = a.feats[m0 * S + k];
-      }
-      const float scale = a.scales[a.stage];
-      for (int k = tid; k < wcc * V; k += blockDim.x) {
-        s_theta[k] = dequant(theta[(m0 << S) + k], scale);
-      }
+    const int n_e = (kLanes ? n_live : 1) * wcc;
+    auto entry = [&](int k, size_t& m, int& e) {
+      const int r = kLanes ? k / wcc : 0;
+      const int jj = k - r * wcc;
+      m = static_cast<size_t>(kLanes ? s_st[r] : a.stage) * a.W + j0 + jj;
+      e = r * a.wc + jj;
+    };
+    float ep0 = 0.0f, en0 = 0.0f;
+    int e0 = -1;
+    if (tid < n_e) {
+      size_t m;
+      entry(tid, m, e0);
+      ep0 = a.eps_pos[m];
+      en0 = a.eps_neg[m];
+    }
+    Model::template stage<P, kLanes>(a, f, j0, wcc, n_live);
+    if (e0 >= 0) {
+      s_ep[e0] = ep0;
+      s_en[e0] = en0;
+    }
+    for (int k = tid + blockDim.x; k < n_e; k += blockDim.x) {
+      size_t m;
+      int e;
+      entry(k, m, e);
+      s_ep[e] = a.eps_pos[m];
+      s_en[e] = a.eps_neg[m];
     }
   };
 
-  // loads that need no live count, issued before it is read
+  // the live count's load first (live_limit's, with its clamp left until
+  // the count is used), then the loads that need none (g0, B7's stop
+  // flags, rows and stages, the first chunk's slab), all in flight at once
+  int nv_raw = a.n_valid_host;
+  if (a.n_valid_dev) nv_raw = *a.n_valid_dev;
   const float g_in = lane_ok ? a.g0[i] : 0.0f;
-  int st = 0, row = 0;
-  if (kLanes && lane_ok) {
-    st = min(max(a.stages[i], 0), a.n_stages - 1);
-    row = static_cast<int>(
-        min(max(a.rows[i], 0LL), static_cast<long long>(a.n_rows - 1)));
+  const bool stop = kLanes && lane_ok && a.stop[i];
+  if (kLanes) {
+    if (lane_ok) {
+      s_st[tid] = min(max(a.stages[i], 0), a.n_stages - 1);
+      s_row[tid] = static_cast<int>(
+          min(max(a.rows[i], 0LL), static_cast<long long>(a.n_rows - 1)));
+    }
+    __syncthreads();
   }
-  if (!kLanes) stage_chunk(0, min(a.wc, a.W), 0);
-  const int nv = live_limit(a.n_valid_dev, a.n_valid_host, a.cap);
+  stage_chunk(0, min(a.wc, a.W), kLanes ? max(0, min(nr, a.cap - r0)) : 0);
+  const int nv = min(nv_raw, a.cap);
   if (block_start >= nv) {  // the whole cluster agrees: inert outputs
     if (lane_ok) {
       out.g[i] = g_in;
@@ -399,24 +614,11 @@ __global__ void __launch_bounds__(kLatticeThreads, 1)
   }
   cluster_arrive_relaxed();  // this CTA runs: its shared memory may be written
   const int n_live = max(0, min(nr, nv - r0));  // live lanes: a prefix
-  if (kLanes) {
-    if (tid < n_live) {
-      s_st[tid] = st;
-      s_row[tid] = row;
-    }
-    __syncthreads();
-    stage_chunk(0, min(a.wc, a.W), n_live);
-  }
   float g = g_in;
   bool active = tid < n_live;
   bool dec = false;
   int ex = 0;
 
-  const int lane = tid & 31;
-  const int t = lane & (L - 1);   // lane within its team
-  const int src0 = lane - t;      // the team's first lane
-  const int team = tid / L;
-  const int n_teams = blockDim.x / L;
   for (int j0 = 0; j0 < a.W; j0 += a.wc) {
     const int wcc = min(a.wc, a.W - j0);
     if (j0 > 0) {
@@ -424,65 +626,19 @@ __global__ void __launch_bounds__(kLatticeThreads, 1)
       stage_chunk(j0, wcc, n_live);
     }
     __syncthreads();
-    // score the (row, lattice) pairs; every lane runs every round (the
-    // shuffles name the whole warp), a pair past the last only computes
-    const int n_tasks = n_live * wcc;
-    const int per_round = n_teams * kTeamTasks;
-    for (int base = 0; base < n_tasks; base += per_round) {
-      float v[kTeamTasks][K];
-      float xv[kTeamTasks];
-      int slot[kTeamTasks];
-#pragma unroll
-      for (int u = 0; u < kTeamTasks; ++u) {
-        const int task = base + u * n_teams + team;
-        const bool ok = task < n_tasks;
-        const int r = ok ? task / wcc : 0;
-        const int jj = task - r * wcc;
-        slot[u] = ok ? r * a.wc + jj : -1;
-        xv[u] = 0.0f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) v[u][k] = 0.0f;
-        if (!ok) continue;
-        if (kLanes) {
-          const int rs = s_st[r];
-          const size_t m = static_cast<size_t>(rs) * a.W + j0 + jj;
-          const float* xr = a.x + static_cast<size_t>(s_row[r]) * a.d;
-          if (t < S) xv[u] = xr[s_feats[slot[u] * S + t]];
-          const P* th = theta + (m << S) + t;
-          const float scale = a.scales[rs];
-#pragma unroll
-          for (int k = 0; k < K; ++k) v[u][k] = dequant(th[k * L], scale);
-        } else {
-          const float* xr = a.x + static_cast<size_t>(r0 + r) * a.d;
-          if (t < S) xv[u] = xr[s_feats[jj * S + t]];
-          const float* th = s_theta + jj * V + t;
-#pragma unroll
-          for (int k = 0; k < K; ++k) v[u][k] = th[k * L];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kTeamTasks; ++u) {
-        float xs[S];
-#pragma unroll
-        for (int k = 0; k < S; ++k) {
-          xs[k] = __shfl_sync(0xffffffffu, xv[u], src0 + k);
-        }
-        const float f = lattice_interp_team<S>(v[u], xs);
-        if (t == 0 && slot[u] >= 0) s_score[slot[u]] = f;
-      }
-    }
+    Model::template score<P, kLanes>(a, f, j0, wcc, n_live);
     __syncthreads();
     if (lane_ok) {
       for (int jj = 0; jj < wcc; ++jj) {
         const int e = kLanes ? tid * a.wc + jj : jj;
-        const float f = active ? s_score[tid * a.wc + jj] : 0.0f;
-        threshold_step(g, active, dec, ex, f, active ? s_ep[e] : 0.0f,
+        const float sc = active ? s_score[tid * a.wc + jj] : 0.0f;
+        threshold_step(g, active, dec, ex, sc, active ? s_ep[e] : 0.0f,
                        active ? s_en[e] : 0.0f, j0 + jj + 1);
       }
     }
   }
 
-  const bool keep = active && !(kLanes && a.stop[i]);
+  const bool keep = active && !stop;
   int total;
   const int incl = block_inclusive_scan(keep ? 1 : 0, s_warp, &total);
   cluster_wait();  // every CTA of the cluster runs
@@ -503,36 +659,53 @@ __global__ void __launch_bounds__(kLatticeThreads, 1)
   if (rank == 0 && tid == 0) out.cnt[blk] = all;
 }
 
-// The cluster size, rows per CTA, lattices per chunk, threads and shared
-// memory of one launch: a row block of bn rows over min(8, bn) CTAs, each
-// chunk's staged slab and scores within 48 KB, and threads enough to take
-// a chunk's pairs in one round (at most 512), but at least one per row.
-template <int S>
-struct LatticeGeometry {
+// The cluster size, rows per CTA, models per chunk, threads and shared
+// memory of one launch: a row block of bn rows over Model::kCluster CTAs
+// (more where a CTA would own more than kStepThreads rows, fewer where the
+// block has fewer rows), each chunk's threshold rows, scores and staged
+// slab within 48 KB (more only where one model alone needs it), and
+// threads enough to take a chunk's pairs in one round (Model::kPairs pairs
+// a team of Model::kTeam threads) and to stage its slab in one round of
+// kStageLoads loads a thread (B4 tree), at most kStepThreads, but at least
+// one per row.
+template <typename Model>
+struct StepGeometry {
   int ranks, rpc, wc, threads;
   size_t smem;
-  LatticeGeometry(int bn, int W, bool lanes) {
-    using Team = LatticeTeam<S>;
-    ranks = min(kMaxCluster, bn);
+  StepGeometry(int bn, int W, int dims, bool lanes) {
+    ranks = min(bn, max(Model::kCluster, (bn + kStepThreads - 1) / kStepThreads));
     rpc = (bn + ranks - 1) / ranks;
     ranks = (bn + rpc - 1) / rpc;  // no CTA without rows
     const int fixed = 4 * (32 + kMaxCluster + (lanes ? 2 * rpc : 0));
-    const int per_lattice =
-        4 * (rpc + (lanes ? rpc * (2 + S) : 2 + S + Team::V));
-    wc = min(W, (kLatticeSmem - fixed) / per_lattice);
-    const int teams = (rpc * wc + kTeamTasks - 1) / kTeamTasks;
-    threads = ((teams * Team::L + 31) / 32) * 32;
-    threads = min(max(threads, ((rpc + 31) / 32) * 32), kLatticeThreads);
-    smem = static_cast<size_t>(fixed + wc * per_lattice);
+    // a model's score column, threshold entries and slab
+    const int per_model = 4 * (rpc + 2 * (lanes ? rpc : 1) +
+                               Model::words_per_model(dims, rpc, lanes));
+    const int budget = max(kStepSmem, fixed + per_model);
+    wc = max(1, min(W, (budget - fixed) / per_model));
+    const int units = (rpc * wc + Model::kPairs - 1) / Model::kPairs;
+    const int stagers =
+        (Model::staged_words(dims, rpc, wc, lanes) + kStageLoads - 1) / kStageLoads;
+    threads = ((max(units * Model::kTeam, stagers) + 31) / 32) * 32;
+    threads = min(max(threads, ((rpc + 31) / 32) * 32), kStepThreads);
+    smem = static_cast<size_t>(fixed) + static_cast<size_t>(wc) * per_model;
   }
 };
 
-template <int S, typename P, bool kLanes>
-int launch_lattice_step(LatticeStep a, const Outputs& out,
-                        cudaStream_t stream) {
-  const LatticeGeometry<S> geo(a.bn, a.W, kLanes);
+template <typename Model, typename P, bool kLanes>
+int launch_step(StepArgs a, const Outputs& out, cudaStream_t stream) {
+  const StepGeometry<Model> geo(a.bn, a.W, a.dims, kLanes);
+  if (geo.smem > static_cast<size_t>(kMaxStepSmem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   a.rpc = geo.rpc;
   a.wc = geo.wc;
+  const auto kernel = step_kernel<Model, P, kLanes>;
+  if (geo.smem > static_cast<size_t>(kStepSmem)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(geo.smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = geo.ranks;
@@ -545,35 +718,44 @@ int launch_lattice_step(LatticeStep a, const Outputs& out,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, lattice_step_kernel<S, P, kLanes>, a, out);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a, out);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int S, bool kLanes>
-int launch_lattice_quant(int quant, const LatticeStep& a, const Outputs& out,
-                         cudaStream_t stream) {
+// Dispatch on the payload code: 0 f32, 1 bf16, 2 int8.
+template <typename Model, bool kLanes>
+int launch_step_quant(int quant, const StepArgs& a, const Outputs& out,
+                      cudaStream_t stream) {
   switch (quant) {
     case 0:
-      return launch_lattice_step<S, float, kLanes>(a, out, stream);
+      return launch_step<Model, float, kLanes>(a, out, stream);
     case 1:
-      return launch_lattice_step<S, __nv_bfloat16, kLanes>(a, out, stream);
+      return launch_step<Model, __nv_bfloat16, kLanes>(a, out, stream);
     case 2:
-      return launch_lattice_step<S, int8_t, kLanes>(a, out, stream);
+      return launch_step<Model, int8_t, kLanes>(a, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Dispatch on S (1..kMaxLatticeDims) and the payload code; returns
-// cudaErrorInvalidValue for anything else.
+// Trees of depth 0..kMaxStagedDepth (B4) or 0..kMaxLaneDepth (B7).
 template <bool kLanes>
-int launch_lattice(int s, int quant, const LatticeStep& a, const Outputs& out,
+int launch_tree(int quant, const StepArgs& a, const Outputs& out,
+                cudaStream_t stream) {
+  if (a.dims < 0 || a.dims > (kLanes ? kMaxLaneDepth : kMaxStagedDepth)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_step_quant<TreeModel, kLanes>(quant, a, out, stream);
+}
+
+// Lattices: dispatch on S = a.dims (1..kMaxLatticeDims).
+template <bool kLanes>
+int launch_lattice(int quant, const StepArgs& a, const Outputs& out,
                    cudaStream_t stream) {
-  switch (s) {
+  switch (a.dims) {
 #define LATTICE_CASE(S) \
   case S:               \
-    return launch_lattice_quant<S, kLanes>(quant, a, out, stream);
+    return launch_step_quant<LatticeModel<S>, kLanes>(quant, a, out, stream);
     LATTICE_CASE(1)
     LATTICE_CASE(2)
     LATTICE_CASE(3)
@@ -611,26 +793,6 @@ struct LaneArgs {
   int bn;
   const float* eps_pos;
   const float* eps_neg;
-};
-
-// score(xr, st, j): model j of stage st on the row xr.  `scales` are the
-// (n_stages,) per-stage dequantisation scales of the payload P.
-template <typename P>
-struct TreeLane {
-  const int* feats;     // (n_stages, W, depth)
-  const float* thrs;    // (n_stages, W, depth)
-  const P* leaves;      // (n_stages, W, 2^depth)
-  const float* scales;  // (n_stages,)
-  int depth;
-  int W;
-  __device__ float score(const float* xr, int st, int j) const {
-    const size_t m = static_cast<size_t>(st) * W + j;
-    int idx = 0;
-    for (int k = 0; k < depth; ++k) {
-      idx = 2 * idx + (xr[feats[m * depth + k]] > thrs[m * depth + k]);
-    }
-    return dequant(leaves[(m << depth) + idx], scales[st]);
-  }
 };
 
 template <typename X>
@@ -674,28 +836,6 @@ int launch_lane(const LaneArgs<X>& a, const Lane& v, const Outputs& out,
 }
 
 template <typename P>
-int launch_tree(const float* x, const float* g0, int stage,
-                const int* n_valid_dev, int n_valid_host, int cap, int d,
-                int W, int depth, int bn, const int* feats, const float* thrs,
-                const void* leaves, const float* scales, const float* eps_pos,
-                const float* eps_neg, const Outputs& out,
-                cudaStream_t stream) {
-  const int threads = ((bn + 31) / 32) * 32;  // whole warps for the scan
-  const int blocks = (cap + bn - 1) / bn;
-  const size_t smem =
-      static_cast<size_t>(32 + W * (2 * depth + (1 << depth)) + 2 * W) * 4;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(mega_stage_tree_kernel<P>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  }
-  mega_stage_tree_kernel<P><<<blocks, threads, smem, stream>>>(
-      x, g0, stage, n_valid_dev, n_valid_host, cap, d, W, depth, bn, feats,
-      thrs, static_cast<const P*>(leaves), scales, eps_pos, eps_neg, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename P>
 int launch_matrix(const void* x, const float* g0, int stage, int t0,
                   const int* n_valid_dev, int n_valid_host, int cap,
                   int t_pad, int W, int bn, const int* widths,
@@ -715,12 +855,47 @@ int launch_matrix(const void* x, const float* g0, int stage, int t0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// StepArgs of one launch; B4 passes no rows, stages or stop flags (lane i
+// reads row i at `stage`), B7 no `stage`.
+StepArgs step_args(const float* x, const long long* rows, int n_rows,
+                   int stage, const int* stages, const bool* stop,
+                   int n_stages, const float* g0, const int* n_valid_dev,
+                   int n_valid_host, int cap, int d, int W, int bn, int dims,
+                   const void* feats, const void* thrs, const void* payload,
+                   const float* scales, const float* eps_pos,
+                   const float* eps_neg) {
+  StepArgs a{};
+  a.x = x;
+  a.rows = rows;
+  a.n_rows = n_rows;
+  a.stage = stage;
+  a.stages = stages;
+  a.stop = stop;
+  a.n_stages = n_stages;
+  a.g0 = g0;
+  a.n_valid_dev = n_valid_dev;
+  a.n_valid_host = n_valid_host;
+  a.cap = cap;
+  a.d = d;
+  a.W = W;
+  a.bn = bn;
+  a.dims = dims;
+  a.feats = static_cast<const int*>(feats);
+  a.thrs = static_cast<const float*>(thrs);
+  a.payload = payload;
+  a.scales = scales;
+  a.eps_pos = eps_pos;
+  a.eps_neg = eps_neg;
+  return a;
+}
+
 }  // namespace
 
 // `quant` is the payload's storage code: 0 f32, 1 bf16, 2 int8 (the matrix
 // variant: the operand's, f32 or bf16).  `scales` are the (n_stages,) f32
 // per-stage scales (read for int8 only).  Every launcher returns
-// cudaErrorInvalidValue for a code it does not take.
+// cudaErrorInvalidValue for a code it does not take, and the tree launcher
+// for a depth outside [0, kMaxStagedDepth].
 extern "C" int mega_stage_tree_launch(
     const float* x, const float* g0, int stage, const int* n_valid_dev,
     int n_valid_host, int cap, int d, int W, int depth, int bn, int quant,
@@ -728,20 +903,12 @@ extern "C" int mega_stage_tree_launch(
     const float* scales, const float* eps_pos, const float* eps_neg,
     float* g_out, int* act_out, int* dec_out, int* ex_out, int* pfx_out,
     int* cnt_out, cudaStream_t stream) {
+  const StepArgs a =
+      step_args(x, nullptr, cap, stage, nullptr, nullptr, 0, g0, n_valid_dev,
+                n_valid_host, cap, d, W, bn, depth, feats, thrs, leaves,
+                scales, eps_pos, eps_neg);
   const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-  switch (quant) {
-#define TREE_CASE(Q, T)                                                      \
-  case Q:                                                                    \
-    return launch_tree<T>(x, g0, stage, n_valid_dev, n_valid_host, cap, d,  \
-                          W, depth, bn, feats, thrs, leaves, scales,        \
-                          eps_pos, eps_neg, out, stream);
-    TREE_CASE(0, float)
-    TREE_CASE(1, __nv_bfloat16)
-    TREE_CASE(2, int8_t)
-#undef TREE_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_tree<false>(quant, a, out, stream);
 }
 
 extern "C" int mega_stage_matrix_launch(
@@ -774,21 +941,21 @@ extern "C" int mega_stage_lattice_launch(
     const float* eps_pos, const float* eps_neg, float* g_out, int* act_out,
     int* dec_out, int* ex_out, int* pfx_out, int* cnt_out,
     cudaStream_t stream) {
-  // lane i reads row i at `stage`: no rows, stages or stop flags
-  const LatticeStep a{x,   nullptr, cap,   stage,       nullptr,      nullptr,
-                      0,   g0,      n_valid_dev,        n_valid_host, cap,
-                      d,   W,       bn,    feats,       theta,        scales,
-                      eps_pos,      eps_neg,            0,            0};
+  const StepArgs a =
+      step_args(x, nullptr, cap, stage, nullptr, nullptr, 0, g0, n_valid_dev,
+                n_valid_host, cap, d, W, bn, s, feats, nullptr, theta, scales,
+                eps_pos, eps_neg);
   const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-  return launch_lattice<false>(s, quant, a, out, stream);
+  return launch_lattice<false>(quant, a, out, stream);
 }
 
 // B7 entry points, one argument layout for the three variants: `aux` is the
 // tree depth (tree), the lattices' input count S (lattice) or unused
 // (matrix); p0/p1/p2 are the stage-stacked slabs: feats/thrs/leaves (tree),
 // t0s/widths/- (matrix), feats/theta/- (lattice); `quant` and `scales` as
-// for B4.  Returns cudaErrorInvalidValue for a lattice S outside
-// [1, kMaxLatticeDims] or a quant code the variant does not take.
+// for B4.  Returns cudaErrorInvalidValue for a tree depth outside [0,
+// kMaxLaneDepth], a lattice S outside [1, kMaxLatticeDims] or a quant code
+// the variant does not take.
 #define LANE_ARGS                                                            \
   const void *x, const long long *rows, int n_rows, const float *g0,         \
       const int *stage, const bool *stop, const int *n_valid_dev,            \
@@ -810,12 +977,17 @@ extern "C" int mega_stage_lattice_launch(
 
 namespace {
 
-template <typename P>
-int lane_tree(LANE_ARGS) {
-  LANE_PACK(float)
-  const TreeLane<P> v{static_cast<const int*>(p0), static_cast<const float*>(p1),
-                      static_cast<const P*>(p2), scales, aux, W};
-  return launch_lane(a, v, out, stream);
+// The StepArgs of a tree (p0/p1/p2: feats/thrs/leaves) or lattice
+// (feats/theta/-) B7 launch.
+template <bool kTree>
+int lane_step(LANE_ARGS) {
+  const StepArgs a = step_args(
+      static_cast<const float*>(x), rows, n_rows, 0, stage, stop, n_stages, g0,
+      n_valid_dev, n_valid_host, cap, d, W, bn, aux, p0, kTree ? p1 : nullptr,
+      kTree ? p2 : p1, scales, eps_pos, eps_neg);
+  const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
+  return kTree ? launch_tree<true>(quant, a, out, stream)
+               : launch_lattice<true>(quant, a, out, stream);
 }
 
 template <typename X>
@@ -831,16 +1003,7 @@ int lane_matrix(LANE_ARGS) {
 }  // namespace
 
 extern "C" int mega_lane_tree_launch(LANE_ARGS) {
-  switch (quant) {
-    case 0:
-      return lane_tree<float> LANE_CALL;
-    case 1:
-      return lane_tree<__nv_bfloat16> LANE_CALL;
-    case 2:
-      return lane_tree<int8_t> LANE_CALL;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return lane_step<true> LANE_CALL;
 }
 
 extern "C" int mega_lane_matrix_launch(LANE_ARGS) {
@@ -855,14 +1018,7 @@ extern "C" int mega_lane_matrix_launch(LANE_ARGS) {
 }
 
 extern "C" int mega_lane_lattice_launch(LANE_ARGS) {
-  (void)p2;
-  const LatticeStep a{static_cast<const float*>(x),
-                      rows,         n_rows,  0,  stage,   stop,    n_stages,
-                      g0,           n_valid_dev, n_valid_host,     cap,
-                      d,            W,       bn, static_cast<const int*>(p0),
-                      p1,           scales,  eps_pos, eps_neg, 0,   0};
-  const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-  return launch_lattice<true>(aux, quant, a, out, stream);
+  return lane_step<false> LANE_CALL;
 }
 #undef LANE_CALL
 #undef LANE_PACK

@@ -19,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -102,6 +103,54 @@ def build_all() -> dict[str, float]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return seconds
+
+
+def parse_ptxas(log: str) -> dict[str, dict]:
+    """Each kernel's resources from an ``-Xptxas=-v`` build log: mangled
+    name -> ``{"registers", "stack", "spill"}`` (stack frame bytes, spill
+    stores + loads bytes)."""
+    out: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {"registers": 0, "stack": 0, "spill": 0})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name]["stack"] = int(m.group(1))
+            out[name]["spill"] = int(m.group(2)) + int(m.group(3))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+_PAYLOAD = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+
+
+def step_kernel_label(mangled: str) -> str | None:
+    """``"B4 tree f32"``, ``"B7 lattice S=8 int8"``: the instantiation of
+    ``mega_stage.cu``'s ``step_kernel<Model, P, kLanes>`` a mangled name
+    names, or None for another kernel."""
+    m = re.search(r"step_kernelINS_(?:9(TreeModel)|12LatticeModelILi(\d+)EE)E"
+                  r"(f|13__nv_bfloat16|a)Lb([01])E", mangled)
+    if not m:
+        return None
+    kernel = "B7" if m.group(4) == "1" else "B4"
+    model = "tree" if m.group(1) else f"lattice S={m.group(2)}"
+    return f"{kernel} {model} {_PAYLOAD[m.group(3)]}"
+
+
+def kernel_resources(source: str) -> dict[str, dict]:
+    """``parse_ptxas`` of ``csrc/<source>.cu``'s build log (built first if
+    it is not yet)."""
+    log = _library_path(source).with_suffix(".log")
+    if not log.exists():
+        build_all()
+    return parse_ptxas(log.read_text())
 
 
 def function(source: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -65,6 +65,7 @@ __all__ = [
     "build_tree_slabs",
     "check_parity",
     "check_quant",
+    "check_tree_depth",
     "dequant",
     "gather_lane_slabs",
     "lane_scores",
@@ -88,6 +89,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the B4 launchers take the payload's quant code (0 f32, 1 bf16, 2 int8) and
 # the (S,) per-stage scales; the matrix launcher takes the operand's quant
 _QUANT_CODE = {"f32": 0, "bf16": 1, "int8": 2}
+# the deepest tree each kernel takes (csrc/mega_stage.cu kMaxStagedDepth,
+# kMaxLaneDepth): B4 stages a chunk's dequantised leaf tables in shared
+# memory, and one 2^15-leaf table (128 KB) is the largest a CTA can hold;
+# B7 reads leaves in place through an int leaf index
+MAX_TREE_DEPTH = {"mega_stage": 15, "mega_lane": 30}
 _TREE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I] + [_P] * 13
 _MATRIX_ARGTYPES = [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10
 _LATTICE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I] + [_P] * 12
@@ -97,6 +103,15 @@ _LANE_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P] * 13
 def check_quant(quant: str) -> None:
     if quant not in QUANTS:
         raise ValueError(f"quant must be one of {QUANTS}, got {quant!r}")
+
+
+def check_tree_depth(name: str, depth: int) -> None:
+    """Raise unless kernel ``name`` (``mega_stage`` or ``mega_lane``) takes
+    trees of ``depth``: 0 to ``MAX_TREE_DEPTH[name]``.  The plain versions
+    take any depth."""
+    limit = MAX_TREE_DEPTH[name]
+    if not 0 <= depth <= limit:
+        raise ValueError(f"{name}: tree depth {depth} not in [0, {limit}]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -480,6 +495,7 @@ def mega_stage_kernel(
     if slabs.variant == "tree":
         feats = slabs.data["feats"]
         depth = feats.shape[2]
+        check_tree_depth("mega_stage", depth)
         fn = _build.function("mega_stage", "mega_stage_tree_launch", _TREE_ARGTYPES)
         err = fn(
             x.data_ptr(), g0.data_ptr(), int(stage), nv_ptr, nv_host, cap,
@@ -645,6 +661,7 @@ def mega_lane_kernel(
     if slabs.variant == "tree":
         p0, p1, p2 = (slabs.data[k] for k in ("feats", "thrs", "payload"))
         aux = p0.shape[2]
+        check_tree_depth("mega_lane", aux)
     elif slabs.variant == "matrix":
         p0, p1, p2 = slabs.data["t0"], slabs.data["widths"], None
         aux = 0

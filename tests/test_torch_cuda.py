@@ -35,6 +35,7 @@ from repro_torch.kernels.device_executor import (
 )
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
 from repro_torch.kernels.megakernel import (
+    build_tree_slabs,
     mega_lane_kernel,
     mega_lane_plain,
     mega_stage_kernel,
@@ -708,3 +709,129 @@ def test_mega_lane_lattice_equals_plain_every_geometry(dev, S, quant, spread):
             calls += 1
     assert _build.LAUNCHES[key] == before + calls
     assert mid_block > 0
+
+
+# -- B4 and B7 tree at every depth, storage and block geometry --------------
+
+# the ends of B3's range (1, 10), exp1's and exp2's depths (5, 9), either
+# side of the scorer's unrolled group of 10 levels (8, 12), and the deepest
+# tree whose staged leaf table fits a CTA (15, B4's limit)
+TREE_DEPTHS = [1, 2, 3, 5, 8, 9, 10, 12, 15]
+
+
+def _tree_case(seed, depth, quant, n_rows, dev):
+    """37 oblivious trees of ``depth`` over 14 features at ``quant`` (raw
+    normal leaves, off every grid), stages of 8 with a ragged last one,
+    thresholds that retire rows mid-block, and ``n_rows`` feature rows (the
+    first 10 on a threshold of a tree: the compare is strict), on ``dev``."""
+    rng = np.random.default_rng(seed)
+    T, d = 37, 14
+    dplan = DevicePlan.from_plan(
+        CascadePlan(order=np.arange(T), eps_pos=rng.uniform(0.3, 1.5, size=T),
+                    eps_neg=-rng.uniform(0.3, 1.5, size=T), beta=0.0, costs=np.ones(T),
+                    chunk_t=8, lead_t=1),
+        quant=quant,
+    )
+    feats = rng.integers(0, d, size=(T, depth)).astype(np.int32)
+    thrs = rng.uniform(size=(T, depth)).astype(np.float32)
+    leaves = rng.normal(scale=0.6, size=(T, 1 << depth)).astype(np.float32)
+    x = rng.uniform(size=(n_rows, d)).astype(np.float32)
+    for r in range(10):
+        x[r, feats[r, 0]] = thrs[r, 0]
+    slabs = build_tree_slabs(dplan, feats, thrs, leaves, quant=quant, device=dev)
+    return rng, dplan, slabs, _t(x, dev)
+
+
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("depth", TREE_DEPTHS)
+def test_mega_stage_tree_equals_plain_every_geometry(dev, depth, quant):
+    """B4 tree equals its plain version bit for bit at every stage (the
+    lead, full ones, the ragged last), n_valid 0 / partial / all, and
+    blocks of 64 and of 50 rows over a buffer whose last block is ragged;
+    some rows retire mid-block."""
+    rng, dplan, slabs, xr = _tree_case(80 + depth, depth, quant, 200, dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    g0 = _t(rng.normal(scale=0.5, size=200).astype(np.float32), dev)
+    key = "mega_stage_tree" + ("" if quant == "f32" else f"_{quant}")
+    mid_block, calls = 0, 0
+    before = _build.LAUNCHES[key]
+    for bn in (64, 50):
+        for n_valid in (0, 117, 200):
+            nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+            for stage in range(dplan.S):
+                args = (slabs, xr, g0, stage, int(dplan.stage_t0[stage]), nv, *eps)
+                got = mega_stage_kernel(*args, block_n=bn)
+                _bits_equal(got, mega_stage_plain(*args, block_n=bn))
+                live = got[3][:n_valid]
+                mid_block += int(bool((live > 0).any() and (live == 0).any()))
+                calls += 1
+    assert _build.LAUNCHES[key] == before + calls
+    assert mid_block > 0
+
+
+@pytest.mark.parametrize("spread", [True, False], ids=["all-stages", "one-stage"])
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("depth", TREE_DEPTHS + [16])
+def test_mega_lane_tree_equals_plain_every_geometry(dev, depth, quant, spread):
+    """B7 tree equals its plain version bit for bit with lanes spread over
+    every stage (block 0 holds them all) or all at the ragged last stage,
+    stop lanes, trash rows past n_valid, n_valid 0 / partial / all, blocks
+    of 64 and of 50 rows, and depth 16 (past B4's limit: streaming reads
+    leaves in place); some rows retire mid-block and some stop lane runs
+    out active."""
+    cap = 256
+    rng, dplan, slabs, xt = _tree_case(100 + depth, depth, quant, 300, dev)
+    if spread:
+        stage = rng.integers(0, dplan.S, size=cap).astype(np.int32)
+        stage[: dplan.S] = np.arange(dplan.S)
+        stop = stage >= dplan.S - 1
+    else:
+        stage = np.full(cap, dplan.S - 1, dtype=np.int32)
+        stop = rng.uniform(size=cap) < 0.5
+    key = "mega_lane_tree" + ("" if quant == "f32" else f"_{quant}")
+    g0 = _t(rng.normal(scale=0.5, size=cap).astype(np.float32), dev)
+    stage_t, stop_t = _t(stage, dev), _t(stop, dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    mid_block, ran_out, calls = 0, 0, 0
+    before = _build.LAUNCHES[key]
+    for bn in (64, 50):
+        for n_valid in (0, 151, cap):
+            rows = rng.permutation(300)[:cap]
+            rows[n_valid:] = 299
+            nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+            args = (slabs, xt, _t(rows, dev), g0, stage_t, stop_t, nv, *eps)
+            got = mega_lane_kernel(*args, block_n=bn)
+            _bits_equal(got, mega_lane_plain(*args, block_n=bn))
+            live = got[3][:n_valid]
+            mid_block += int(bool((live > 0).any() and (live == 0).any()))
+            ran_out += int(bool(((got[1] == 1) & stop_t).any()))
+            calls += 1
+    assert _build.LAUNCHES[key] == before + calls
+    assert mid_block > 0 and ran_out > 0
+
+
+def test_tree_depth_past_the_limit_raises(dev):
+    """B4 refuses a tree deeper than its staged leaf table allows, naming
+    the limit; B7 takes it."""
+    rng, dplan, slabs, xt = _tree_case(7, 16, "f32", 64, dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    g0 = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match=r"mega_stage: tree depth 16 not in \[0, 15\]"):
+        mega_stage_kernel(slabs, xt, g0, 1, 1, 64, *eps, block_n=64)
+    stage = torch.ones(64, dtype=torch.int32, device=dev)
+    rows = torch.arange(64, device=dev)
+    stop = torch.zeros(64, dtype=torch.bool, device=dev)
+    mega_lane_kernel(slabs, xt, rows, g0, stage, stop, 64, *eps, block_n=64)
+
+
+def test_step_kernels_hold_no_stack(dev):
+    """Every tree and lattice instantiation of ``step_kernel`` keeps its
+    arrays in registers: the build log shows 0 bytes of stack frame and no
+    spills for each."""
+    steps = {}
+    for name, res in _build.kernel_resources("mega_stage").items():
+        label = _build.step_kernel_label(name)
+        if label:
+            steps[label] = res
+    assert len(steps) == 2 * 3 * (1 + 8)  # B4/B7 x f32/bf16/int8 x (tree, S 1-8)
+    assert {k: v for k, v in steps.items() if v["stack"] or v["spill"]} == {}
