@@ -10,7 +10,8 @@ Phases, each of which stops the run on failure:
 2. Build: ``nvcc`` compiles every kernel source of ``src/repro_torch/csrc``
    (one process per source, all at once) into ``build/repro_torch_kernels``,
    and fails unless every tree and lattice instantiation of
-   ``mega_stage.cu``'s step kernel holds 0 bytes of stack and spills none.
+   ``mega_stage.cu``'s step kernel, and every instantiation of its matrix
+   step kernel, holds 0 bytes of stack and spills none.
 3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
    tree, matrix and lattice, B5 lattice_scores, B6 cascade_lane, B7
    mega_lane tree, matrix and lattice, B8 cascade_group) against its plain
@@ -26,7 +27,9 @@ Phases, each of which stops the run on failure:
    grid: every output ``torch.equal`` to the plain version.  Then B4 and
    B7 lattice at S 1-8 and tree at depths 1-12 (``LATTICE_DIMS``,
    ``TREE_DEPTHS``), every storage, blocks of 64 and of 50 rows, B7's lanes
-   over every stage or all at the ragged last one.
+   over every stage or all at the ragged last one.  Then B4 and B7 matrix
+   at W 1, 8 and 13 (misaligned stage starts), f32 and bf16, B4 both
+   gathered and reading the operand in place through ``rows``.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -81,8 +84,11 @@ Phases, each of which stops the run on failure:
    (requests/s, wave and step wall times, steps and syncs per wave,
    PyTorch operator calls per step, one wave's busy share); the ranking
    server's drains of the test queries (median and p90 wall, PyTorch calls
-   per grouped stage, one drain's busy share); exp1's trees served fused at
-   f32 and at bf16 slabs (a batch-256 flush, a streaming wave); and each
+   per grouped stage, one drain's busy share); exp1's eager path (B3 + B4
+   matrix: flush latency at batch 128 / 256 / 1024 and one flush's busy
+   share; B3 + B7 matrix: streaming waves at both rates); exp1's trees
+   served fused at f32 and at bf16 slabs (a batch-256 flush, a streaming
+   wave); and each
    kernel's device time per launch (profiler) at its main-path shape beside
    its plain version's and its bound.
 
@@ -96,6 +102,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -304,6 +311,16 @@ def profile_device(window, prepare=None, tries: int = 3) -> dict:
     raise AssertionError(f"the profiler saw no device time in {tries} attempts")
 
 
+# the port's own kernels (every __global__ of src/repro_torch/csrc) by name
+PORT_KERNEL = re.compile(r"\b(?:cascade|cascade_chunk|cascade_lane|cascade_group|gbt_scores|"
+                         r"lattice_scores|step|matrix_step)_kernel\b")
+
+
+def port_kernels(by_name: dict) -> dict:
+    """The entries of a ``device_work`` dict that are the port's kernels."""
+    return {k: v for k, v in by_name.items() if PORT_KERNEL.search(k)}
+
+
 def device_time_ms(fn, reps: int = 50) -> float:
     """Device time of one call of ``fn``: the profiler's sum over every
     kernel and copy it launched, over ``reps`` calls, per call, after a
@@ -466,12 +483,17 @@ def phase_kernels(check: Check) -> dict:
             for n_valid in (nv(256), nv(0), nv(100), nv(200)):
                 t0 = int(dplan.stage_t0[stage])
                 args = (scorer.slabs, xr, g_buf, stage, t0, n_valid, eps_pos, eps_neg)
-                got = mega_stage_kernel(*args, block_n=64)
                 want = mega_stage_plain(*args, block_n=64)
-                for k, (a, b) in enumerate(zip(got, want)):
-                    check.equal(f"mega_stage_{variant}", f"stage {stage} output {k}", a, b)
-                n_cases += 1
-    log(f"[phase 3] B4 mega_stage tree + matrix == plain ({n_cases} cases)")
+                # the matrix variant also reads the operand in place (rows=)
+                forms = [(args, {})] + ([((scorer.slabs, xop) + args[2:], dict(rows=rows))]
+                                        if variant == "matrix" else [])
+                for a_, kw in forms:
+                    got = mega_stage_kernel(*a_, block_n=64, **kw)
+                    for k, (a, b) in enumerate(zip(got, want)):
+                        check.equal(f"mega_stage_{variant}", f"stage {stage} {sorted(kw)} "
+                                    f"output {k}", a, b)
+                    n_cases += 1
+    log(f"[phase 3] B4 mega_stage tree + matrix (gathered, rows=) == plain ({n_cases} cases)")
 
     # B5: exp4's widths (D 30, S 8, T 500), the calibration shape and stage
     # slabs, S in {1, 4, 8}; rows at the cube's corners (inputs 0 and 1)
@@ -633,11 +655,15 @@ def phase_kernels(check: Check) -> dict:
         for stage in (0, 5, 63):
             for n_valid in (nv(256), nv(0), nv(100), nv(200)):
                 args = (slabs, xr_q, g_buf, stage, int(plan_q.stage_t0[stage]), n_valid, ep_t, en_t)
-                got = mega_stage_kernel(*args, block_n=64)
                 want = mega_stage_plain(*args, block_n=64)
-                for k, (a, b) in enumerate(zip(got, want)):
-                    check.equal(f"mega_stage_{name}", f"stage {stage} output {k}", a, b)
-                n_cases += 1
+                forms = [(args, {})] + ([((slabs, xop) + args[2:], dict(rows=rows))]
+                                        if variant == "matrix" else [])
+                for a_, kw in forms:
+                    got = mega_stage_kernel(*a_, block_n=64, **kw)
+                    for k, (a, b) in enumerate(zip(got, want)):
+                        check.equal(f"mega_stage_{name}", f"stage {stage} {sorted(kw)} "
+                                    f"output {k}", a, b)
+                    n_cases += 1
         for n_valid in (nv(256), nv(0), nv(100), nv(200), 64):
             args = (slabs, xop, rows, g_buf, stage_l, stop, n_valid, ep_t, en_t)
             got = mega_lane_kernel(*args, block_n=64)
@@ -740,6 +766,59 @@ def phase_kernels(check: Check) -> dict:
     log(f"[phase 3] B4 + B7 tree at depth {TREE_DEPTHS}, f32/bf16/int8, blocks 64 and 50 "
         f"== plain ({n_cases} cases, {mid_block} B7 cases retiring rows mid-block, a stop "
         "lane running out active at every depth)")
+
+    # B4 and B7 matrix (one step kernel) at W 1, 8 and 13 (T 61 after a
+    # lead model: stage starts 1 + W k, misaligned; a ragged last stage),
+    # f32 and bf16, blocks of 64 and 50 rows: B4 gathered and through rows=
+    # (the trash row id, ids past the operand), B7's lanes over every stage
+    # or all at the ragged last one, stop lanes; its own generator, as above
+    mat_rng = np.random.default_rng(20)
+    n_cases, mid_block = 0, 0
+    for W_m in (1, 8, 13):
+        mplan = random_plan(mat_rng, 61, W_m, 1, lo=0.3, hi=1.5)
+        for q in ("f32", "bf16"):
+            mdp = DevicePlan.from_plan(mplan, quant=q)
+            msc = matrix_stage_scorer(mdp, device=dev)
+            Fm = msc.prepare(mat_rng.normal(scale=0.4, size=(300, 61)).astype(np.float32))
+            Fm = Fm.to(msc.slabs.x_dtype or torch.float32)
+            mrows = torch.from_numpy(mat_rng.permutation(300)[:256]).to(dev)
+            mrows[-9:] = 256
+            mrows[-2:] = torch.tensor([300, 10**6])
+            Fg = Fm[torch.clamp(mrows, 0, 299)].contiguous()
+            meps = (torch.from_numpy(mdp.eps_pos).to(dev), torch.from_numpy(mdp.eps_neg).to(dev))
+            S_m = mdp.S
+            spread = torch.from_numpy(mat_rng.integers(0, S_m, size=256).astype(np.int32)).to(dev)
+            spread[:S_m] = torch.arange(S_m, dtype=torch.int32, device=dev)
+            last = torch.full_like(spread, S_m - 1)
+            name = "matrix" if q == "f32" else f"matrix_{q}"
+            for bn in (64, 50):
+                for n_valid in (nv(0), nv(151), nv(256)):
+                    for st in (0, S_m // 2, S_m - 1):
+                        t0 = int(mdp.stage_t0[st])
+                        want = mega_stage_plain(msc.slabs, Fg, g_buf, st, t0, n_valid, *meps,
+                                                block_n=bn)
+                        for xs, kw in ((Fg, {}), (Fm, dict(rows=mrows))):
+                            got = mega_stage_kernel(msc.slabs, xs, g_buf, st, t0, n_valid,
+                                                    *meps, block_n=bn, **kw)
+                            for k, (a, b) in enumerate(zip(got, want)):
+                                check.equal(f"mega_stage_{name}", f"W={W_m} bn={bn} stage {st} "
+                                            f"{sorted(kw)} output {k}", a, b)
+                            n_cases += 1
+                    for layout, st_l, stop_l in (("all stages", spread, spread >= S_m - 1),
+                                                 ("one stage", last, last_stop)):
+                        args = (msc.slabs, Fm, mrows, g_buf, st_l, stop_l, n_valid, *meps)
+                        got = mega_lane_kernel(*args, block_n=bn)
+                        want = mega_lane_plain(*args, block_n=bn)
+                        for k, (a, b) in enumerate(zip(got, want)):
+                            check.equal(f"mega_lane_{name}", f"W={W_m} bn={bn} {layout} "
+                                        f"output {k}", a, b)
+                        live = got[3][: int(n_valid)]
+                        mid_block += int(bool((live > 0).any() and (live == 0).any()))
+                        n_cases += 1
+    if mid_block < 3 * 2 * 2:
+        raise AssertionError(f"matrix checks: only {mid_block} B7 cases retired rows mid-block")
+    log(f"[phase 3] B4 (gathered, rows=) + B7 matrix at W (1, 8, 13), f32/bf16, blocks 64 and "
+        f"50 == plain ({n_cases} cases, {mid_block} B7 cases retiring rows mid-block)")
 
     # B8 over (G 37, B) bucket layouts: integer scores (ties), groups of at
     # most k documents, eps +inf and 0 beside drawn thresholds, n_live 0,
@@ -885,6 +964,10 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     # the eager path: the score matrix per flush through the matrix variant
     eager = server("both", "cuda", scorer=None, score_fn=score_fn)
     res_eager = served("eager/both", eager)
+    n_stages = 1 + math.ceil((500 - 1) / 8)  # a lead model, then chunks of 8
+    if per_flush["eager/both"] != {"gbt_scores": 1.0, "mega_stage_matrix": float(n_stages)}:
+        raise AssertionError(f"eager: launched {per_flush['eager/both']} a flush, expected one "
+                             f"B3 and {n_stages} B4 matrix")
     ev = evaluate_cascade(fits["both"], F_test)
     if [r["models_evaluated"] for r in res_eager] != ev["exit_step"].tolist() or [
         r["decision"] for r in res_eager
@@ -1538,13 +1621,13 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
     return dict(batch_server=batch_server, stream_server=stream_server, cells=cells)
 
 
-def flush_latency(make_server, x, label: str) -> dict:
+def flush_latency(make_server, x, label: str, megakernels=(None, False)) -> dict:
     """Median and p90 flush latency at batch 128 / 256 / 1024, fused
-    (megakernel on, the default) and unfused, for the servers
-    ``make_server(batch_size=, backend_opts=)`` builds."""
+    (megakernel on, the default) and unfused, or only ``megakernels``, for
+    the servers ``make_server(batch_size=, backend_opts=)`` builds."""
     lat = {}
     for batch in (128, 256, 1024):
-        for megakernel in (None, False):
+        for megakernel in megakernels:
             srv = make_server(batch_size=batch, backend_opts={"megakernel": megakernel})
             times = []
             for k in range(N_WARM + N_FLUSH):
@@ -1596,6 +1679,7 @@ def busy_share(srv, x, median_ms: float, label: str) -> dict:
         device_busy_us=busy, wall_unprofiled_median_us=wall_unprofiled_us,
         busy_share=busy / wall_unprofiled_us, wall_profiled_us=wall["us"],
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+        port=port_kernels(by_name),
     )
 
 
@@ -1622,15 +1706,16 @@ class OpCount:
         self._mode.__exit__(*exc)
 
 
-def stream_timing(make_server, x, label: str) -> dict:
-    """Streaming at the heavy rate (phase 4c's first): ``N_DRAINS`` drains of
-    the test rows after one warm-up drain, each wave timed on the host clock
-    (a wave ends in its results' transfer); then one wave's PyTorch
-    operator calls, and one wave profiled for the device busy share over
-    the unprofiled median wave."""
+def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> dict:
+    """Streaming at ``rate`` requests per step (default the heavy rate,
+    phase 4c's first): ``N_DRAINS`` drains of the test rows after one
+    warm-up drain, each wave timed on the host clock (a wave ends in its
+    results' transfer); then one wave's PyTorch operator calls, and one
+    wave profiled for the device busy share over the unprofiled median
+    wave."""
     import numpy as np
 
-    arrivals = poisson_arrivals(x.shape[0], STREAM_RATES[0])
+    arrivals = poisson_arrivals(x.shape[0], rate)
     srv = make_server()
     walls, drains, per_step = [], [], []
     orig = srv.flush
@@ -1697,8 +1782,9 @@ def stream_timing(make_server, x, label: str) -> dict:
     out.update(
         device_busy_us=busy, busy_share=busy / med_us,
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+        port=port_kernels(by_name),
     )
-    log(f"[phase 5] {label} streaming (rate {STREAM_RATES[0]:g}, cap {STREAM_CAP}, window "
+    log(f"[phase 5] {label} streaming (rate {rate:g}, cap {STREAM_CAP}, window "
         f"{w}): {out['requests_per_s']:.0f} requests/s over a drain of {x.shape[0]}; wave "
         f"median {out['wave_median_ms']:.3f} ms, p90 {out['wave_p90_ms']:.3f} ms over "
         f"{len(walls)} waves; step median {out['step_median_ms']:.4f} ms, p90 "
@@ -1743,6 +1829,22 @@ def rank_timing(rmain: dict) -> dict:
         f"{out['torch_ops_per_stage']:.1f} PyTorch ops per grouped stage; one drain's "
         f"device busy {busy:.0f} us = {out['busy_share']:.2%} of the median drain")
     return out
+
+
+def eager_timing(make_batch, make_stream, x, label: str) -> dict:
+    """exp1's eager path (``score_fn``: one B3 score matrix a flush or wave,
+    then B4 matrix a stage or B7 matrix a step enqueued): the flush latency
+    at batch 128 / 256 / 1024, one batch-256 flush's device busy share and
+    top kernels, and the streaming server's waves at each rate of
+    ``STREAM_RATES``.  ``make_batch(batch_size=, backend_opts=)`` and
+    ``make_stream()`` build the servers."""
+    lat = flush_latency(make_batch, x, label, megakernels=(None,))
+    return dict(
+        flush_latency=lat,
+        profile_flush256=busy_share(make_batch(), x, lat["batch256"]["median_ms"], label),
+        stream={f"r{rate:g}": stream_timing(make_stream, x, label, rate=rate)
+                for rate in STREAM_RATES},
+    )
 
 
 def quant_timing(qmain: dict) -> dict:
@@ -1815,6 +1917,10 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         for cell in smain["cells"]
     }
     report["rank_timing"] = rank_timing(rmain)
+    report["eager_timing"] = eager_timing(
+        lambda **kw: server("both", "cuda", scorer=None, score_fn=main["score_fn"], **kw),
+        lambda: smain["server"]("exp1_adult", "cuda", eager=True), ds.x_test, "exp1_adult eager",
+    )
 
     g0, chunk, ep, en = ctx["chunk"]
     feats, thrs, leaves = ctx["forest"]
@@ -1827,7 +1933,6 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     W, d, depth, L = dplan.W, x_buf.shape[1], feats.shape[1], leaves.shape[1]
     rows_all = torch.arange(256, device="cuda")
     xr_tree = x_buf[rows_all].contiguous()
-    xr_mat = F[rows_all].contiguous()
     stage, t0 = 5, int(dplan.stage_t0[5])
     kernels = []
 
@@ -1892,14 +1997,16 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         nbytes=256 * 4 * (d + 1) + W * (8 * depth + 4 * L + 8) + out_bytes,
         ops=256 * W * (depth + 3), shape=f"cap=256 W={W} d={d} depth={depth}",
     )
+    # B4 matrix as the eager path calls it, reading F in place through rows
+    # (8 B a lane)
     entry(
         "mega_stage_matrix",
-        lambda: mk.mega_stage_kernel(matrix.slabs, xr_mat, g_buf, stage, t0, nv,
-                                     eps_pos, eps_neg, block_n=64),
-        lambda: mk.mega_stage_plain(matrix.slabs, xr_mat, g_buf, stage, t0, nv,
-                                    eps_pos, eps_neg, block_n=64),
-        nbytes=256 * 4 * (W + 1) + 8 * W + 4 + out_bytes,
-        ops=256 * W * 3, shape=f"cap=256 W={W} T_pad={F.shape[1]}",
+        lambda: mk.mega_stage_kernel(matrix.slabs, F, g_buf, stage, t0, nv,
+                                     eps_pos, eps_neg, block_n=64, rows=rows_all),
+        lambda: mk.mega_stage_plain(matrix.slabs, F, g_buf, stage, t0, nv,
+                                    eps_pos, eps_neg, block_n=64, rows=rows_all),
+        nbytes=256 * (8 + 4 * (W + 1)) + 8 * W + 4 + out_bytes,
+        ops=256 * W * 3, shape=f"cap=256 W={W} T_pad={F.shape[1]}, rows=",
     )
 
     # the lattice path: exp4's trained ensemble and fitted cascade
@@ -1999,15 +2106,21 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
             shape = f"cap=256 W={W} d={Dl} S={S}"
         else:
             xq, (ep_q, en_q) = ctx["F_bf16"], (eps_pos, eps_neg)
-            slab_b, w_ops, row_b, lane_x, stage_ops = 8, W * 3, 256 * (2 * W + 4), 256 * 2 * W, 0
+            # B4 reads F in place through rows (8 B a lane), as the eager path
+            slab_b, w_ops, row_b, lane_x, stage_ops = 8, W * 3, 256 * (2 * W + 12), 256 * 2 * W, 0
             shape = f"cap=256 W={W} T_pad={F.shape[1]}"
         xr_q = xq[rows_all].contiguous()
+        b4_x, b4_kw, b4_shape = xr_q, {}, shape
+        if variant == "matrix":
+            b4_x, b4_kw, b4_shape = xq, dict(rows=rows_all), shape + ", rows="
         entry(
             f"mega_stage_{name}",
-            lambda: mk.mega_stage_kernel(slabs, xr_q, g_buf, 5, t0, nv, ep_q, en_q, block_n=64),
-            lambda: mk.mega_stage_plain(slabs, xr_q, g_buf, 5, t0, nv, ep_q, en_q, block_n=64),
+            lambda: mk.mega_stage_kernel(slabs, b4_x, g_buf, 5, t0, nv, ep_q, en_q, block_n=64,
+                                         **b4_kw),
+            lambda: mk.mega_stage_plain(slabs, b4_x, g_buf, 5, t0, nv, ep_q, en_q, block_n=64,
+                                        **b4_kw),
             nbytes=row_b + slab_b + 8 * W + out_bytes, ops=256 * w_ops + stage_ops,
-            shape=f"{shape}, {q}",
+            shape=f"{b4_shape}, {q}",
         )
         lane_ops = 256 * W * deq * (1 if variant == "tree" else P)
         entry(
@@ -2088,19 +2201,20 @@ def main() -> int:
             if "Used" in line or "spill" in line or "stack frame" in line:
                 log(f"[phase 2]   {name}: {line.strip()}")
     report["build_s"] = secs
-    # every tree and lattice instantiation of mega_stage.cu's step kernel
-    # keeps its arrays in registers
+    # every tree and lattice instantiation of mega_stage.cu's step kernel,
+    # and every instantiation of its matrix step kernel, keeps its arrays in
+    # registers
     steps = {}
     for mangled, res in _build.kernel_resources("mega_stage").items():
         label = _build.step_kernel_label(mangled)
         if label:
             steps[label] = res
     report["step_kernels"] = steps
-    for label in sorted(k for k in steps if " tree " in k):
+    for label in sorted(k for k in steps if " tree " in k or " matrix " in k):
         log(f"[phase 2] {label}: {steps[label]['registers']} registers, "
             f"{steps[label]['stack']} bytes stack, {steps[label]['spill']} bytes spilled")
     held = {k: v for k, v in steps.items() if v["stack"] or v["spill"]}
-    if len(steps) != 2 * 3 * (1 + 8) or held:
+    if len(steps) != 2 * 3 * (1 + 8) + 2 * 2 or held:
         return fail(f"step kernels: {len(steps)} built, stack or spills in {held}")
 
     phase_s = report["phase_s"] = {}

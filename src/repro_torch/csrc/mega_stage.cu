@@ -30,7 +30,8 @@
 //
 // What bounds it on an H100: bytes and, at serving sizes, the launch.  At
 // the exp1 shape (256 rows x 14 features, W = 8, depth 5) a call reads about
-// 16 KB of rows and 1.4 KB of slab and writes 5 KB.  The lattice variant at
+// 16 KB of rows and 1.4 KB of slab and writes 5 KB; the matrix variant reads
+// 8 KB of scores (4 KB at bf16).  The lattice variant at
 // the exp4 shape (256 rows x 30 features, W = 8, S = 8) reads 31 KB of rows
 // and 8.4 KB of slab and does 1.6 MFLOP, 23 ns at the card's f32 peak.  The
 // fusion is what matters: the unfused stage writes a (cap, W) score buffer
@@ -45,12 +46,11 @@
 // a feature value and a leaf read.  A thread that walks its row alone keeps
 // 2 warps on each of 4 SMs and serialises its models' chains.
 //
-// Design: matrix: one CTA per row block of `bn` rows, one thread per row,
-// reading its score row in place (walk_and_pack).  Tree and lattice (B4 and
-// B7, step_kernel<Model>): a row block is split over a thread-block cluster
-// (TreeModel: kTreeCluster CTAs, lattices: up to 8), each CTA owning its share
-// of the rows.  A CTA first stages what a chunk of models needs from global
-// memory in one parallel pass (trees: each thread with kStageLoads loads in
+// Design: tree and lattice (B4 and B7, step_kernel<Model>): a row block is
+// split over a thread-block cluster (TreeModel: kTreeCluster CTAs,
+// lattices: up to 8), each CTA owning its share of the rows.  A CTA first
+// stages what a chunk of models needs from global memory in one parallel
+// pass (trees: each thread with kStageLoads loads in
 // flight before it stores them): B4 the stage's feature ids, tree thresholds,
 // dequantised leaf tables or vertex values and threshold rows (each CTA of the
 // cluster its own copy); B7 each of its rows' feature ids, tree thresholds and
@@ -79,6 +79,19 @@
 // the lower ranks' counts, and rank 0 writes the block's count, so
 // `_combine_blocks` and block billing see one count per row block. The block
 // prefix is a warp scan with shuffles, then a scan of the per-warp totals.
+//
+// Matrix (B4 and B7, matrix_step_kernel<P, kLanes>): a (row, model) pair is
+// one load, so nothing is shared across CTAs: one CTA of whole warps per row
+// block (billing's granularity), one thread per row, reading its score row
+// in place (B4 through `rows` as B7 does, or a row already gathered).  What
+// a call costs is its chain of dependent global reads, so every load that
+// does not wait on another is issued at once: the live count, g0, the row
+// id (B7: the stage and stop flag), then (B7) the stage's start, width and
+// threshold row, then the row's W scores and threshold entries (W up to
+// kMatrixGroup, the served width), all before the first threshold_step and
+// before the live count is used (a block past it writes inert outputs):
+// two dependent levels for B4, three for B7.  The block prefix is a
+// ballot's popcount a warp and one barrier.
 #include <cuda_bf16.h>
 
 #include <cooperative_groups.h>
@@ -127,6 +140,27 @@ __device__ int block_inclusive_scan(int v, int* s_warp, int* total) {
   return v + (warp > 0 ? s_warp[warp - 1] : 0);
 }
 
+// The same sum for a 0/1 flag in one barrier: a warp's prefix is a ballot's
+// popcount, and each thread adds the lower warps' counts.  The matrix step
+// kernel's scan (0.1 us a launch faster there); the cluster step kernels
+// keep block_inclusive_scan, which was 0.1-0.2 us faster for them (PERF.md).
+__device__ int block_flag_scan(bool v, int* s_warp, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, v);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  int off = 0, all = 0;
+  for (int w = 0; w < n_warps; ++w) {
+    const int c = s_warp[w];
+    off += w < warp ? c : 0;
+    all += c;
+  }
+  *total = all;
+  return off + __popc(ballot & (0xffffffffu >> (31 - lane)));
+}
+
 struct Outputs {
   float* g;
   int* active;
@@ -135,82 +169,6 @@ struct Outputs {
   int* pfx;
   int* cnt;
 };
-
-// The walk + pack shared by every variant of B4 and B7.  `score(j)` gives
-// model j's score for this thread's row; it is called for active rows only.
-// `ep`/`en` are the row's threshold row.  A lane with `stop` set is left out
-// of the prefix and the count (B7's last-stage lanes; always false in B4).
-template <typename Score>
-__device__ void walk_and_pack(const float* __restrict__ g0, int i,
-                              bool lane_ok, int nv, int W, const float* ep,
-                              const float* en, int* s_warp, Score score,
-                              Outputs out, bool stop) {
-  float g = lane_ok ? g0[i] : 0.0f;
-  bool active = lane_ok && i < nv;
-  bool dec = false;
-  int ex = 0;
-  for (int j = 0; j < W; ++j) {
-    const float f = active ? score(j) : 0.0f;
-    threshold_step(g, active, dec, ex, f, ep[j], en[j], j + 1);
-  }
-  int total;
-  const int incl =
-      block_inclusive_scan(active && !stop ? 1 : 0, s_warp, &total);
-  if (lane_ok) {
-    out.g[i] = g;
-    out.active[i] = active ? 1 : 0;
-    out.dec[i] = dec ? 1 : 0;
-    out.exit_rel[i] = ex;
-    out.pfx[i] = incl - 1;
-  }
-  if (threadIdx.x == 0) out.cnt[blockIdx.x] = total;
-}
-
-// A block past the live count: inert outputs, nothing computed.
-__device__ void skip_block(const float* __restrict__ g0, int i, bool lane_ok,
-                           Outputs out) {
-  if (lane_ok) {
-    out.g[i] = g0[i];
-    out.active[i] = 0;
-    out.dec[i] = 0;
-    out.exit_rel[i] = 0;
-    out.pfx[i] = 0;
-  }
-  if (threadIdx.x == 0) out.cnt[blockIdx.x] = 0;
-}
-
-template <typename P>
-__global__ void mega_stage_matrix_kernel(
-    const P* __restrict__ x, const float* __restrict__ g0, int stage,
-    int t0, const int* n_valid_dev, int n_valid_host, int cap, int t_pad,
-    int W, int bn, const int* __restrict__ widths,
-    const float* __restrict__ eps_pos, const float* __restrict__ eps_neg,
-    Outputs out) {
-  extern __shared__ unsigned char smem[];
-  int* s_warp = reinterpret_cast<int*>(smem);  // 32 ints
-  float* s_ep = reinterpret_cast<float*>(s_warp + 32);
-  float* s_en = s_ep + W;
-
-  const int block_start = blockIdx.x * bn;
-  const int i = block_start + threadIdx.x;
-  const bool lane_ok = threadIdx.x < bn && i < cap;
-  const int nv = live_limit(n_valid_dev, n_valid_host, cap);
-  if (block_start >= nv) {
-    skip_block(g0, i, lane_ok, out);
-    return;
-  }
-  const size_t so = static_cast<size_t>(stage) * W;
-  for (int k = threadIdx.x; k < W; k += blockDim.x) {
-    s_ep[k] = eps_pos[so + k];
-    s_en[k] = eps_neg[so + k];
-  }
-  __syncthreads();
-  const int width = widths[stage];
-  const P* xr = x + static_cast<size_t>(lane_ok ? i : 0) * t_pad + t0;
-  auto score = [&](int j) { return j < width ? dequant(xr[j], 1.0f) : 0.0f; };
-  walk_and_pack(g0, i, lane_ok, nv, W, s_ep, s_en, s_warp, score, out,
-                false);
-}
 
 // ---- B4 and B7 tree and lattice: one step kernel over a cluster ------------
 
@@ -770,88 +728,159 @@ int launch_lattice(int quant, const StepArgs& a, const Outputs& out,
   }
 }
 
-// ---- B7: mixed-stage lanes ------------------------------------------------
+// ---- B4 and B7 matrix: one thread per row, every load in flight ----------
 
-// What every B7 variant reads besides its slab.  Lane i scores row rows[i]
-// of x (n_rows x d, rows clamped into range; X = float, or the matrix
-// variant's bf16 operand) at stage stage[i] (clamped into [0, n_stages));
-// eps_pos/eps_neg are the (n_stages, W) threshold tables.
-template <typename X>
-struct LaneArgs {
-  const X* x;
+// Columns a thread holds in registers at once (scores and threshold
+// entries: 3 x 8 registers; 16 spill under the 64 registers a thread may
+// hold at 1024 threads a CTA).  A stage of W <= kMatrixGroup columns (the
+// served width, chunk_t 8) has all its loads issued before the first
+// threshold_step; a wider one is walked in groups of this many.
+constexpr int kMatrixGroup = 8;
+
+// What the matrix variant of B4 and B7 reads.  x is the (n_rows, t_pad)
+// prepared score matrix (P: float or __nv_bfloat16); lane i reads row
+// rows[i], clamped into [0, n_rows), or row i where rows is null (B4's
+// gathered form, n_rows = cap).  B4 (kLanes false): every lane at stage
+// `stage`, its columns from t0.  B7 (kLanes true): lane i at stage
+// stages[i] (clamped into [0, n_stages)), its columns from t0s[st], and a
+// lane flagged stop[i] is left out of the prefix and the count.  widths
+// (n_stages,) are the true stage widths (column j >= width scores 0.0),
+// eps_pos/eps_neg the (n_stages, W) threshold tables.
+struct MatrixArgs {
+  const void* x;
   const long long* rows;
   int n_rows;
-  const float* g0;
-  const int* stage;
+  int t_pad;
+  int stage;
+  int t0;
+  const int* stages;
   const bool* stop;
+  int n_stages;
+  const int* t0s;
+  const int* widths;
+  const float* g0;
   const int* n_valid_dev;
   int n_valid_host;
   int cap;
-  int d;
   int W;
-  int n_stages;
   int bn;
   const float* eps_pos;
   const float* eps_neg;
 };
 
-template <typename X>
-struct MatrixLane {
-  const int* t0s;     // (n_stages,) first cascade position of each stage
-  const int* widths;  // (n_stages,) true stage widths
-  __device__ float score(const X* xr, int st, int j) const {
-    return j < widths[st] ? dequant(xr[t0s[st] + j], 1.0f) : 0.0f;
+// Columns [j0, j0 + G) of a row's stage (those below W): its scores from
+// xr at t0 + j and its threshold entries, as independent scalar loads,
+// unconditionally.  A stage's columns start at any word (t0 = 1 + 8k at
+// exp1), so no vector load.  The column is clamped into the row, which the
+// wrappers' checks make a no-op for every column walked.
+template <typename P, int G>
+__device__ __forceinline__ void load_columns(
+    const P* xr, int t0, int t_pad, const float* ep_row, const float* en_row,
+    int j0, int W, float (&sc)[G], float (&ep)[G], float (&en)[G]) {
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int j = j0 + k;
+    const bool on = j < W;
+    sc[k] = on ? dequant(xr[min(t0 + j, t_pad - 1)], 1.0f) : 0.0f;
+    ep[k] = on ? ep_row[j] : 0.0f;
+    en[k] = on ? en_row[j] : 0.0f;
   }
-};
+}
 
-template <typename X, typename Lane>
-__global__ void mega_lane_kernel(LaneArgs<X> a, Lane v, Outputs out) {
+// One CTA of whole warps per row block of bn rows, one thread per row.  The
+// loads form two dependent levels for B4 (the row id, then its scores) and
+// three for B7 (the stage, then its start, width and threshold row, then
+// the scores); a row's scores are loaded unconditionally, so an inactive
+// row's are loaded and ignored (a load and a bf16 widen are exact: the walk
+// sees the plain version's bits).
+template <typename P, bool kLanes>
+__global__ void __launch_bounds__(1024)
+    matrix_step_kernel(const MatrixArgs a, const Outputs out) {
+  constexpr int G = kMatrixGroup;
   __shared__ int s_warp[32];
   const int block_start = blockIdx.x * a.bn;
   const int i = block_start + threadIdx.x;
   const bool lane_ok = threadIdx.x < a.bn && i < a.cap;
-  const int nv = live_limit(a.n_valid_dev, a.n_valid_host, a.cap);
-  if (block_start >= nv) {
-    skip_block(a.g0, i, lane_ok, out);
+
+  // the live count's load first (its clamp left until the count is used),
+  // then g0, the row id and B7's stage and stop flag, all in flight at once
+  int nv_raw = a.n_valid_host;
+  if (a.n_valid_dev) nv_raw = *a.n_valid_dev;
+  const float g_in = lane_ok ? a.g0[i] : 0.0f;
+  const bool stop = kLanes && lane_ok && a.stop[i];
+  long long r = lane_ok ? (a.rows ? a.rows[i] : i) : 0;
+  const int st =
+      kLanes ? (lane_ok ? min(max(a.stages[i], 0), a.n_stages - 1) : 0)
+             : a.stage;
+  const int t0 = kLanes ? a.t0s[st] : a.t0;
+  const int width = a.widths[st];
+  const float* ep_row = a.eps_pos + static_cast<size_t>(st) * a.W;
+  const float* en_row = a.eps_neg + static_cast<size_t>(st) * a.W;
+  r = min(max(r, 0LL), static_cast<long long>(a.n_rows - 1));
+  const P* xr = static_cast<const P*>(a.x) + r * a.t_pad;
+
+  float sc[G], ep[G], en[G];
+  load_columns(xr, t0, a.t_pad, ep_row, en_row, 0, a.W, sc, ep, en);
+
+  const int nv = min(nv_raw, a.cap);
+  if (block_start >= nv) {  // inert outputs
+    if (lane_ok) {
+      out.g[i] = g_in;
+      out.active[i] = 0;
+      out.dec[i] = 0;
+      out.exit_rel[i] = 0;
+      out.pfx[i] = 0;
+    }
+    if (threadIdx.x == 0) out.cnt[blockIdx.x] = 0;
     return;
   }
-  const int st = lane_ok ? min(max(a.stage[i], 0), a.n_stages - 1) : 0;
-  const long long r =
-      lane_ok ? min(max(a.rows[i], 0LL), static_cast<long long>(a.n_rows - 1))
-              : 0;
-  const X* xr = a.x + r * a.d;
-  const size_t so = static_cast<size_t>(st) * a.W;
-  auto score = [&](int j) { return v.score(xr, st, j); };
-  walk_and_pack(a.g0, i, lane_ok, nv, a.W, a.eps_pos + so, a.eps_neg + so,
-                s_warp, score, out, lane_ok && a.stop[i]);
+  float g = g_in;
+  bool active = lane_ok && i < nv;
+  bool dec = false;
+  int ex = 0;
+  for (int j0 = 0; j0 < a.W; j0 += G) {
+    if (j0 > 0) {
+      load_columns(xr, t0, a.t_pad, ep_row, en_row, j0, a.W, sc, ep, en);
+    }
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int j = j0 + k;
+      if (j < a.W) {
+        threshold_step(g, active, dec, ex, j < width ? sc[k] : 0.0f, ep[k],
+                       en[k], j + 1);
+      }
+    }
+  }
+
+  int total;
+  const int incl = block_flag_scan(active && !stop, s_warp, &total);
+  if (lane_ok) {
+    out.g[i] = g;
+    out.active[i] = active ? 1 : 0;
+    out.dec[i] = dec ? 1 : 0;
+    out.exit_rel[i] = ex;
+    out.pfx[i] = incl - 1;
+  }
+  if (threadIdx.x == 0) out.cnt[blockIdx.x] = total;
 }
 
-template <typename X, typename Lane>
-int launch_lane(const LaneArgs<X>& a, const Lane& v, const Outputs& out,
-                cudaStream_t stream) {
+// Dispatch on the operand's quant code: 0 f32, 1 bf16.
+template <bool kLanes>
+int launch_matrix(int quant, const MatrixArgs& a, const Outputs& out,
+                  cudaStream_t stream) {
   const int threads = ((a.bn + 31) / 32) * 32;  // whole warps for the scan
   const int blocks = (a.cap + a.bn - 1) / a.bn;
-  mega_lane_kernel<X, Lane><<<blocks, threads, 0, stream>>>(a, v, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename P>
-int launch_matrix(const void* x, const float* g0, int stage, int t0,
-                  const int* n_valid_dev, int n_valid_host, int cap,
-                  int t_pad, int W, int bn, const int* widths,
-                  const float* eps_pos, const float* eps_neg,
-                  const Outputs& out, cudaStream_t stream) {
-  const int threads = ((bn + 31) / 32) * 32;  // whole warps for the scan
-  const int blocks = (cap + bn - 1) / bn;
-  const size_t smem = static_cast<size_t>(32 + 2 * W) * 4;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(mega_stage_matrix_kernel<P>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  switch (quant) {
+    case 0:
+      matrix_step_kernel<float, kLanes><<<blocks, threads, 0, stream>>>(a, out);
+      break;
+    case 1:
+      matrix_step_kernel<__nv_bfloat16, kLanes>
+          <<<blocks, threads, 0, stream>>>(a, out);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  mega_stage_matrix_kernel<P><<<blocks, threads, smem, stream>>>(
-      static_cast<const P*>(x), g0, stage, t0, n_valid_dev, n_valid_host,
-      cap, t_pad, W, bn, widths, eps_pos, eps_neg, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -911,25 +940,21 @@ extern "C" int mega_stage_tree_launch(
   return launch_tree<false>(quant, a, out, stream);
 }
 
+// `rows` (cap,) the row of x (n_rows x t_pad) each lane reads, or null:
+// x is already gathered (n_rows = cap) and lane i reads row i.
 extern "C" int mega_stage_matrix_launch(
-    const void* x, const float* g0, int stage, int t0,
-    const int* n_valid_dev, int n_valid_host, int cap, int t_pad, int W,
-    int bn, int quant, const int* widths, const float* eps_pos,
-    const float* eps_neg, float* g_out, int* act_out, int* dec_out,
-    int* ex_out, int* pfx_out, int* cnt_out, cudaStream_t stream) {
+    const void* x, const long long* rows, int n_rows, const float* g0,
+    int stage, int t0, const int* n_valid_dev, int n_valid_host, int cap,
+    int t_pad, int W, int bn, int quant, const int* widths,
+    const float* eps_pos, const float* eps_neg, float* g_out, int* act_out,
+    int* dec_out, int* ex_out, int* pfx_out, int* cnt_out,
+    cudaStream_t stream) {
+  const MatrixArgs a{x,       rows,   n_rows, t_pad,       stage,
+                     t0,      nullptr, nullptr, 0,          nullptr,
+                     widths,  g0,     n_valid_dev, n_valid_host, cap,
+                     W,       bn,     eps_pos, eps_neg};
   const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-  switch (quant) {
-#define MATRIX_CASE(Q, T)                                                   \
-  case Q:                                                                   \
-    return launch_matrix<T>(x, g0, stage, t0, n_valid_dev, n_valid_host,   \
-                            cap, t_pad, W, bn, widths, eps_pos, eps_neg,   \
-                            out, stream);
-    MATRIX_CASE(0, float)
-    MATRIX_CASE(1, __nv_bfloat16)
-#undef MATRIX_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_matrix<false>(quant, a, out, stream);
 }
 
 // `s` is the lattices' input count (2^s vertex values each); returns
@@ -964,12 +989,6 @@ extern "C" int mega_stage_lattice_launch(
       const float *scales, const float *eps_pos, const float *eps_neg,       \
       float *g_out, int *act_out, int *dec_out, int *ex_out, int *pfx_out,   \
       int *cnt_out, cudaStream_t stream
-#define LANE_PACK(X)                                                         \
-  const LaneArgs<X> a{static_cast<const X*>(x), rows, n_rows, g0, stage,     \
-                      stop, n_valid_dev, n_valid_host, cap, d, W, n_stages,  \
-                      bn, eps_pos, eps_neg};                                 \
-  const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
-
 #define LANE_CALL                                                          \
   (x, rows, n_rows, g0, stage, stop, n_valid_dev, n_valid_host, cap, d, W, \
    n_stages, bn, aux, quant, p0, p1, p2, scales, eps_pos, eps_neg, g_out,  \
@@ -990,36 +1009,28 @@ int lane_step(LANE_ARGS) {
                : launch_lattice<true>(quant, a, out, stream);
 }
 
-template <typename X>
-int lane_matrix(LANE_ARGS) {
-  LANE_PACK(X)
-  (void)aux;
-  (void)p2;
-  (void)scales;
-  const MatrixLane<X> v{static_cast<const int*>(p0), static_cast<const int*>(p1)};
-  return launch_lane(a, v, out, stream);
-}
-
 }  // namespace
 
 extern "C" int mega_lane_tree_launch(LANE_ARGS) {
   return lane_step<true> LANE_CALL;
 }
 
+// p0/p1: t0s/widths; `d` is the operand's row length t_pad.
 extern "C" int mega_lane_matrix_launch(LANE_ARGS) {
-  switch (quant) {
-    case 0:
-      return lane_matrix<float> LANE_CALL;
-    case 1:
-      return lane_matrix<__nv_bfloat16> LANE_CALL;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  (void)aux;
+  (void)p2;
+  (void)scales;
+  const MatrixArgs a{x,     rows,     n_rows,   d,
+                     0,     0,        stage,    stop,
+                     n_stages, static_cast<const int*>(p0),
+                     static_cast<const int*>(p1), g0, n_valid_dev,
+                     n_valid_host, cap, W, bn, eps_pos, eps_neg};
+  const Outputs out{g_out, act_out, dec_out, ex_out, pfx_out, cnt_out};
+  return launch_matrix<true>(quant, a, out, stream);
 }
 
 extern "C" int mega_lane_lattice_launch(LANE_ARGS) {
   return lane_step<false> LANE_CALL;
 }
 #undef LANE_CALL
-#undef LANE_PACK
 #undef LANE_ARGS

@@ -132,9 +132,13 @@ _PAYLOAD = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
 
 
 def step_kernel_label(mangled: str) -> str | None:
-    """``"B4 tree f32"``, ``"B7 lattice S=8 int8"``: the instantiation of
-    ``mega_stage.cu``'s ``step_kernel<Model, P, kLanes>`` a mangled name
-    names, or None for another kernel."""
+    """``"B4 tree f32"``, ``"B7 lattice S=8 int8"``, ``"B7 matrix bf16"``:
+    the instantiation of ``mega_stage.cu``'s ``step_kernel<Model, P,
+    kLanes>`` or ``matrix_step_kernel<P, kLanes>`` a mangled name names, or
+    None for another kernel."""
+    m = re.search(r"matrix_step_kernelI(f|13__nv_bfloat16)Lb([01])E", mangled)
+    if m:
+        return f"{'B7' if m.group(2) == '1' else 'B4'} matrix {_PAYLOAD[m.group(1)]}"
     m = re.search(r"step_kernelINS_(?:9(TreeModel)|12LatticeModelILi(\d+)EE)E"
                   r"(f|13__nv_bfloat16|a)Lb([01])E", mangled)
     if not m:

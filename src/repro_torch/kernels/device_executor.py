@@ -518,9 +518,12 @@ class DeviceExecutor:
             t0 = int(dp.stage_t0[s])
             g_rows = g[rows]
             if self.megakernel:
+                # the matrix variant reads its rows of x in place
+                in_place = self.scorer.slabs.variant == "matrix"
                 g_new, active, dpos, ex_rel, pack, n_keep = mk.mega_stage(
-                    self.scorer.slabs, x[rows], g_rows, s, t0, n_active,
-                    self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
+                    self.scorer.slabs, x if in_place else x[rows], g_rows, s, t0,
+                    n_active, self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
+                    rows=rows if in_place else None,
                 )
             else:
                 scores = self.scorer.fn(x, rows, t0, n_active)

@@ -12,7 +12,9 @@ the block's survivor count; ``_combine_blocks`` turns those into pack
 positions with a (n_blocks,) exclusive scan.  The lattice variant scores
 with the arithmetic of ``csrc/lattice.cuh``, shared with B5, and its plain
 version calls ``apply_lattice_scores``, so fused and unfused lattice
-scores agree bit for bit.
+scores agree bit for bit.  The matrix variant's B4 reads the prepared
+score matrix in place through ``rows=``, as B7 does, so the executor's
+stage gathers no rows for it.
 
 B7 (``mega_lane``) is the same step for a buffer whose lanes sit at
 different stages: each lane scores the W models of its own stage with its
@@ -95,7 +97,7 @@ _QUANT_CODE = {"f32": 0, "bf16": 1, "int8": 2}
 # B7 reads leaves in place through an int leaf index
 MAX_TREE_DEPTH = {"mega_stage": 15, "mega_lane": 30}
 _TREE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I] + [_P] * 13
-_MATRIX_ARGTYPES = [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10
+_MATRIX_ARGTYPES = [_P, _P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I] + [_P] * 10
 _LATTICE_ARGTYPES = [_P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I] + [_P] * 12
 _LANE_ARGTYPES = [_P, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P] * 13
 
@@ -381,14 +383,27 @@ def _walk_and_pack(g0, n_valid, *, W, block_n, score_j, ep_j, en_j, stop=None):
     )
 
 
+def _check_rows(slabs: ParamSlabs, rows) -> None:
+    if rows is not None and slabs.variant != "matrix":
+        raise ValueError(
+            f"mega_stage: rows= reads the matrix variant's operand in place; "
+            f"the {slabs.variant} variant takes its rows gathered"
+        )
+
+
 def mega_stage_plain(
     slabs: ParamSlabs, x, g0, stage: int, t0: int, n_valid, eps_pos, eps_neg,
-    *, block_n: int,
+    *, block_n: int, rows=None,
 ):
     """Plain version of B4 (any device): the raw per-block outputs
     ``(g, active i32, decided_pos i32, exit_rel i32, pfx i32, cnt i32)``,
     the first five (cap,), ``cnt`` (n_blocks,).  A quantised payload is
-    dequantised first (``dequant``); the rest is the f32 arithmetic."""
+    dequantised first (``dequant``); the rest is the f32 arithmetic.  With
+    ``rows`` (matrix variant only) lane i reads row ``rows[i]`` of ``x``,
+    clamped into range, as B7 does."""
+    _check_rows(slabs, rows)
+    if rows is not None:
+        x = x[torch.clamp(rows.long(), 0, x.shape[0] - 1)]
     cap = g0.shape[0]
     dev = g0.device
     if slabs.variant == "tree":
@@ -446,7 +461,7 @@ def _launch_key(name: str, slabs: ParamSlabs) -> str:
 
 def mega_stage_kernel(
     slabs: ParamSlabs, x, g0, stage: int, t0: int, n_valid, eps_pos, eps_neg,
-    *, block_n: int,
+    *, block_n: int, rows=None,
 ):
     """B4, same contract as ``mega_stage_plain``: a CPU tensor goes to the
     plain version, a CUDA tensor to ``csrc/mega_stage.cu``.
@@ -454,29 +469,42 @@ def mega_stage_kernel(
     ``x`` is the gathered operand for the buffer's rows: (cap, d) f32
     feature rows for the tree and lattice variants, the (cap, T_pad)
     prepared score matrix for the matrix variant (at ``slabs.x_dtype``,
-    bf16 for matrix bf16 slabs).  ``stage``/``t0`` are the stage index
-    and its first cascade position; ``n_valid`` (an int or an int32 scalar tensor on the
-    device) the live count; ``eps_pos``/``eps_neg`` the full (S, W)
-    threshold tables, from which the kernel selects the stage's row.
+    bf16 for matrix bf16 slabs).  With ``rows`` ((cap,) int64, matrix
+    variant only) ``x`` is the whole (n_rows, T_pad) operand instead, and
+    lane i reads row ``rows[i]`` (clamped into range) in place.
+    ``stage``/``t0`` are the stage index and its first cascade position;
+    ``n_valid`` (an int or an int32 scalar tensor on the device) the live
+    count; ``eps_pos``/``eps_neg`` the full (S, W) threshold tables, from
+    which the kernel selects the stage's row.
     """
     if g0.device.type == "cpu":
         return mega_stage_plain(
-            slabs, x, g0, stage, t0, n_valid, eps_pos, eps_neg, block_n=block_n
+            slabs, x, g0, stage, t0, n_valid, eps_pos, eps_neg, block_n=block_n,
+            rows=rows,
         )
     if g0.device.type != "cuda":
         raise ValueError(f"mega_stage: unsupported device {g0.device}")
+    _check_rows(slabs, rows)
     f32, i32 = torch.float32, torch.int32
     checks = [
         ("g0", g0, f32), ("x", x, slabs.x_dtype or f32), ("eps_pos", eps_pos, f32),
         ("eps_neg", eps_neg, f32),
     ] + _slab_checks(slabs, "mega_stage")
+    if rows is not None:
+        checks.append(("rows", rows, torch.int64))
     _build.check_cuda("mega_stage", *checks)
     cap = g0.shape[0]
     S, W = slabs.S, slabs.W
-    if x.ndim != 2 or x.shape[0] != cap or eps_pos.shape != (S, W) or eps_neg.shape != (S, W):
+    n_rows = cap if rows is None else x.shape[0]
+    if (
+        x.ndim != 2 or x.shape[0] != n_rows or n_rows < 1
+        or (rows is not None and rows.shape != (cap,))
+        or eps_pos.shape != (S, W) or eps_neg.shape != (S, W)
+    ):
         raise ValueError(
-            f"mega_stage: x {tuple(x.shape)}, eps {tuple(eps_pos.shape)} do not "
-            f"fit cap {cap}, slabs (S={S}, W={W})"
+            f"mega_stage: x {tuple(x.shape)}, rows "
+            f"{None if rows is None else tuple(rows.shape)}, eps {tuple(eps_pos.shape)} "
+            f"do not fit cap {cap}, slabs (S={S}, W={W})"
         )
     if not 0 <= stage < S:
         raise ValueError(f"mega_stage: stage {stage} not in [0, {S})")
@@ -525,9 +553,10 @@ def mega_stage_kernel(
             "mega_stage", "mega_stage_matrix_launch", _MATRIX_ARGTYPES
         )
         err = fn(
-            x.data_ptr(), g0.data_ptr(), int(stage), int(t0), nv_ptr, nv_host,
-            cap, x.shape[1], W, bn, quant, slabs.data["widths"].data_ptr(),
-            eps_pos.data_ptr(), eps_neg.data_ptr(), *outs, _build.stream(dev),
+            x.data_ptr(), _build.ptr(rows), n_rows, g0.data_ptr(), int(stage),
+            int(t0), nv_ptr, nv_host, cap, x.shape[1], W, bn, quant,
+            slabs.data["widths"].data_ptr(), eps_pos.data_ptr(), eps_neg.data_ptr(),
+            *outs, _build.stream(dev),
         )
     key = _launch_key("mega_stage", slabs)
     _build.check("mega_stage", err, key)
@@ -550,14 +579,16 @@ def _combine_blocks(outs, cap: int, bn: int, stop=None):
 
 def mega_stage(
     slabs: ParamSlabs, x, g0, stage: int, t0: int, n_valid, eps_pos, eps_neg,
-    *, block_n: int,
+    *, block_n: int, rows=None,
 ):
     """One fused stage step over a survivor buffer -> ``(g, active i32,
     decided_pos i32, exit_rel i32, pack, n_keep)``: exits are relative
     1-based (the caller rebases by t0), and ``pack`` holds each survivor's
-    front-packed destination, or ``cap`` for a retired lane."""
+    front-packed destination, or ``cap`` for a retired lane.  ``x`` and
+    ``rows`` as for ``mega_stage_kernel``."""
     outs = mega_stage_kernel(
-        slabs, x, g0, stage, t0, n_valid, eps_pos, eps_neg, block_n=block_n
+        slabs, x, g0, stage, t0, n_valid, eps_pos, eps_neg, block_n=block_n,
+        rows=rows,
     )
     bn, _ = _block_geometry(g0.shape[0], block_n)
     return _combine_blocks(outs, g0.shape[0], bn)

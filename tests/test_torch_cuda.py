@@ -328,6 +328,56 @@ def test_mega_lane_kernel_equals_plain(dev, variant, n_valid):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("block_n", [64, 50])
+@pytest.mark.parametrize("W", [1, 8, 13])
+@pytest.mark.parametrize("quant", ["f32", "bf16"])
+def test_matrix_step_kernels_equal_plain(dev, quant, W, block_n):
+    """B4 and B7 matrix (``matrix_step_kernel``) against their plain
+    versions: B4 in the gathered form and reading the operand in place
+    through ``rows`` (trash row ids, ids past the operand), at the lead, a
+    middle and the ragged last stage (starts t0 = 1 + W k: misaligned); B7
+    with lanes over every stage or all at the ragged last one, stop lanes;
+    n_valid 0, partial and all."""
+    rng = np.random.default_rng(20 + W)
+    dplan = DevicePlan.from_plan(_plan(rng, T=61, chunk_t=W), quant=quant)
+    scorer = matrix_stage_scorer(dplan, device=dev)
+    cap, S = 256, dplan.S
+    x = scorer.prepare(rng.normal(scale=0.4, size=(300, 61)))
+    if quant == "bf16":
+        x = x.to(torch.bfloat16)
+    rows = rng.permutation(300)[:cap]
+    rows[-9:] = cap  # the executor's trash row id
+    rows[-2:] = [300, 10**6]  # past the operand: clamped
+    rows = _t(rows, dev)
+    xg = x[torch.clamp(rows, 0, x.shape[0] - 1)].contiguous()
+    spread = rng.integers(0, S, size=cap).astype(np.int32)
+    spread[:S] = np.arange(S)
+    last = np.full(cap, S - 1, np.int32)
+    g0 = _t(rng.normal(scale=0.5, size=cap).astype(np.float32), dev)
+    eps = _t(dplan.eps_pos, dev), _t(dplan.eps_neg, dev)
+    key = "matrix" if quant == "f32" else f"matrix_{quant}"
+    for n_valid in (0, 77, cap):
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+        for stage in (0, S // 2, S - 1):
+            t0 = int(dplan.stage_t0[stage])
+            want = mega_stage_plain(scorer.slabs, xg, g0, stage, t0, nv, *eps, block_n=block_n)
+            for xs, kw in ((xg, {}), (x, dict(rows=rows))):
+                before = _build.LAUNCHES[f"mega_stage_{key}"]
+                got = mega_stage_kernel(scorer.slabs, xs, g0, stage, t0, nv, *eps,
+                                        block_n=block_n, **kw)
+                assert _build.LAUNCHES[f"mega_stage_{key}"] == before + 1
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+        for st in (spread, last):
+            stop = _t(st >= S - 1, dev) if st is spread else _t(np.arange(cap) % 2 == 0, dev)
+            args = (scorer.slabs, x, rows, g0, _t(st, dev), stop, nv, *eps)
+            before = _build.LAUNCHES[f"mega_lane_{key}"]
+            got = mega_lane_kernel(*args, block_n=block_n)
+            assert _build.LAUNCHES[f"mega_lane_{key}"] == before + 1
+            for a, b in zip(got, mega_lane_plain(*args, block_n=block_n)):
+                assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("megakernel", [None, False])
 @pytest.mark.parametrize("ensemble", ["gbt", "lattice"])
 def test_streaming_server_on_card_equals_cpu(dev, small_gbt, ensemble, megakernel):
@@ -825,13 +875,14 @@ def test_tree_depth_past_the_limit_raises(dev):
 
 
 def test_step_kernels_hold_no_stack(dev):
-    """Every tree and lattice instantiation of ``step_kernel`` keeps its
-    arrays in registers: the build log shows 0 bytes of stack frame and no
+    """Every tree and lattice instantiation of ``step_kernel``, and every
+    instantiation of ``matrix_step_kernel``, keeps its arrays in registers: the build log shows 0 bytes of stack frame and no
     spills for each."""
     steps = {}
     for name, res in _build.kernel_resources("mega_stage").items():
         label = _build.step_kernel_label(name)
         if label:
             steps[label] = res
-    assert len(steps) == 2 * 3 * (1 + 8)  # B4/B7 x f32/bf16/int8 x (tree, S 1-8)
+    # B4/B7 x f32/bf16/int8 x (tree, S 1-8), and B4/B7 matrix x f32/bf16
+    assert len(steps) == 2 * 3 * (1 + 8) + 2 * 2
     assert {k: v for k, v in steps.items() if v["stack"] or v["spill"]} == {}
