@@ -29,7 +29,12 @@ Phases, each of which stops the run on failure:
    ``TREE_DEPTHS``), every storage, blocks of 64 and of 50 rows, B7's lanes
    over every stage or all at the ragged last one.  Then B4 and B7 matrix
    at W 1, 8 and 13 (misaligned stage starts), f32 and bf16, B4 both
-   gathered and reading the operand in place through ``rows``.
+   gathered and reading the operand in place through ``rows``.  B3 at
+   every tile shape (tk 1, 7, 8, 33, 500) and depth (1-9, 12, 15, 16;
+   leaf tables staged or read in place), rows clamped at both ends, n = 0
+   and n not a multiple of the block, and one tree at depth 30 (a 4 GiB
+   table read in place); B5 at S 1-8 on both sides of its regime switch
+   (team form and one thread a pair).
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -90,7 +95,8 @@ Phases, each of which stops the run on failure:
    served fused at f32 and at bf16 slabs (a batch-256 flush, a streaming
    wave); and each
    kernel's device time per launch (profiler) at its main-path shape beside
-   its plain version's and its bound.
+   its plain version's and its bound (B3 and B5 also at the sort key, the
+   eager matrix and the calibration matrix).
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -100,6 +106,7 @@ without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import re
@@ -142,11 +149,18 @@ QUANT_VARIANTS = [(v, q) for v in ("tree", "lattice") for q in QUANTS] + [("matr
 # lattice input counts phase 3 holds B4 and B7 lattice to their plain
 # versions at: every team shape of the warp-cooperative interpolation
 LATTICE_DIMS = (1, 2, 4, 5, 6, 8)
-# tree depths phase 3 holds B4 and B7 tree to their plain versions at: the
-# ends of B3's range (1, 10), exp1's and exp2_nomao's depths (5, 9), either
+# tree depths phase 3 holds B4 and B7 tree to their plain versions at:
+# depths 1 and 10 (B3's old limit), exp1's and exp2_nomao's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
 # streaming only, and is where a B4 chunk holds fewer than W trees)
 TREE_DEPTHS = (1, 2, 3, 5, 8, 9, 10, 12)
+# B3's tree widths and depths in phase 3: every tile shape (one tile of tk
+# trees, 17 + 16, 16 tiles of at most 32), every depth with a kernel of its
+# own (1-8), the any-depth kernel with leaf tables staged (9, 12) and read
+# in place (15, 16); then one tree at the new limit
+B3_WIDTHS = (1, 7, 8, 33, 500)
+B3_DEPTHS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15, 16)
+MAX_TREE_DEPTH_B3 = 30
 
 KERNELS = {
     # name: (source, TPU kernel it replaces, the served path whose launches
@@ -276,34 +290,43 @@ def counted(launches: dict, path: str, fn):
 
 
 def device_work(prof) -> dict:
-    """{name: (device us, count)} of the kernels and copies a profile saw."""
+    """{name: (device us, count)} of the kernels and copies a profile saw
+    (not the profiler's own step annotation, which spans the window on the
+    device)."""
     out = {}
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:
             dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt and e.device_type.name == "CUDA":
+        if dt and e.device_type.name == "CUDA" and not e.key.startswith("ProfilerStep"):
             out[e.key] = (float(dt), int(e.count))
     return out
 
 
 def profile_device(window, prepare=None, tries: int = 3) -> dict:
     """``device_work`` of one profiled run of ``window()`` (after
-    ``prepare()``, unprofiled).  On this card the profiler now and then
+    ``prepare()``, unprofiled).  The profiler gets a warm-up step first
+    (``prepare()`` and ``window()`` once more, their events dropped):
+    without it the first launches of a window went unrecorded on this card
+    (44 of 50 kernel events, 14 of 20).  The profiler also now and then
     returns no device events for a window (seen once in a phase-5 window
     that the run before had timed): the window is profiled again, at most
     ``tries`` times in all, and the run fails if no attempt sees device
     time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(tries):
-        if prepare is not None:
-            prepare()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            window()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for step in range(2):  # the warm-up step, then the recorded one
+                if prepare is not None:
+                    prepare()
+                torch.cuda.synchronize()
+                if step == 1:
+                    prof.step()
+                window()
+                torch.cuda.synchronize()
         work = device_work(prof)
         if work:
             return work
@@ -313,7 +336,7 @@ def profile_device(window, prepare=None, tries: int = 3) -> dict:
 
 # the port's own kernels (every __global__ of src/repro_torch/csrc) by name
 PORT_KERNEL = re.compile(r"\b(?:cascade|cascade_chunk|cascade_lane|cascade_group|gbt_scores|"
-                         r"lattice_scores|step|matrix_step)_kernel\b")
+                         r"lattice_scores|lattice_scores_team|step|matrix_step)_kernel\b")
 
 
 def port_kernels(by_name: dict) -> dict:
@@ -321,11 +344,17 @@ def port_kernels(by_name: dict) -> dict:
     return {k: v for k, v in by_name.items() if PORT_KERNEL.search(k)}
 
 
-def device_time_ms(fn, reps: int = 50) -> float:
+def device_time_ms(fn, reps: int = 50, tries: int = 3) -> float:
     """Device time of one call of ``fn``: the profiler's sum over every
     kernel and copy it launched, over ``reps`` calls, per call, after a
     warm-up.  The host's time between launches is left out: at serving
-    shapes a call costs the host tens of times what it costs the card."""
+    shapes a call costs the host tens of times what it costs the card.
+    Every call launches the same kernels, so each kernel's event count is a
+    multiple of ``reps``; a profile that is short is taken again, up to
+    ``tries`` in all, and failing that each kernel's mean time counts once
+    for every launch a call makes (its count over ``reps``, rounded).  A
+    plain version's thousands of launches a call are profiled once
+    (``tries=1``)."""
     import torch
 
     for _ in range(5):
@@ -336,8 +365,13 @@ def device_time_ms(fn, reps: int = 50) -> float:
         for _ in range(reps):
             fn()
 
-    total_us = sum(us for us, _ in profile_device(window).values())
-    return total_us / reps / 1e3
+    for attempt in range(tries):
+        work = profile_device(window)
+        if all(c % reps == 0 for _, c in work.values()):
+            return sum(us for us, _ in work.values()) / reps / 1e3
+        log(f"[phase 5] profile {attempt + 1}/{tries} of {reps} calls: event counts "
+            f"{sorted({c for _, c in work.values()})} are not all multiples of {reps}")
+    return sum(us / c * max(1, round(c / reps)) for us, c in work.values()) / 1e3
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -379,6 +413,7 @@ def phase_kernels(check: Check) -> dict:
         matrix_stage_scorer,
         tree_stage_scorer,
     )
+    from repro_torch.kernels import lattice_kernel
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
     from repro_torch.kernels.megakernel import (
         build_tree_slabs,
@@ -465,6 +500,46 @@ def phase_kernels(check: Check) -> dict:
         )
     log("[phase 3] B3 gbt_scores == plain (5 cases)")
 
+    # B3 at every tile shape (tk 1, 7, 8: one tile of tk trees; 33: 17 + 16;
+    # 500: 16 tiles) and depth (B3_DEPTHS), rows clamped at both ends, n = 0
+    # and n not a multiple of block_n; then one tree at the limit
+    # (their own generator, so the later checks' inputs stay as they were)
+    rng_b = np.random.default_rng(21)
+    x_rows = torch.from_numpy(rng_b.integers(-3, 260, size=257)).to(dev)
+    x_rows[:2] = torch.tensor([-3, 259])
+    n_cases = 0
+    for depth in B3_DEPTHS:
+        Tg = 503
+        fg = torch.from_numpy(rng_b.integers(0, d, size=(Tg, depth)).astype(np.int32)).to(dev)
+        tg = torch.from_numpy(rng_b.uniform(size=(Tg, depth)).astype(np.float32)).to(dev)
+        lg = torch.from_numpy(rng_b.normal(size=(Tg, 1 << depth)).astype(np.float32)).to(dev)
+        for tk in B3_WIDTHS:
+            for label, kw in [
+                ("all rows", dict()),
+                ("clamped rows, nv=130", dict(rows=x_rows, n_valid=nv(130))),
+                ("ragged n=100, host nv", dict(rows=x_rows[:100], n_valid=100)),
+                ("n=0", dict(rows=x_rows[:0])),
+            ]:
+                check.equal(
+                    "gbt_scores", f"depth {depth} tk {tk} {label}",
+                    gbt_scores_kernel(fg, tg, lg, x_buf, block_n=64, t0=3, t1=3 + tk, **kw),
+                    gbt_scores_plain(fg, tg, lg, x_buf, block_n=64, t0=3, t1=3 + tk, **kw),
+                )
+                n_cases += 1
+        del fg, tg, lg
+    depth = MAX_TREE_DEPTH_B3
+    fg = torch.from_numpy(rng_b.integers(0, d, size=(1, depth)).astype(np.int32)).to(dev)
+    tg = torch.from_numpy(rng_b.uniform(size=(1, depth)).astype(np.float32)).to(dev)
+    lg = torch.arange(1 << depth, dtype=torch.float32, device=dev)[None]  # 4 GiB, in place
+    check.equal(
+        "gbt_scores", f"depth {depth}",
+        gbt_scores_kernel(fg, tg, lg, x_buf, rows=x_rows, n_valid=nv(200), block_n=64),
+        gbt_scores_plain(fg, tg, lg, x_buf, rows=x_rows, n_valid=nv(200), block_n=64),
+    )
+    del fg, tg, lg
+    log(f"[phase 3] B3 gbt_scores at depths {B3_DEPTHS} x tk {B3_WIDTHS} == plain "
+        f"({n_cases} cases), and at depth {depth}")
+
     # B4: exp1's plan geometry (T 500, chunk 8, lead 1 -> S 64, W 8)
     plan = random_plan(rng, T, 8, 1)
     dplan = DevicePlan.from_plan(plan)
@@ -531,6 +606,36 @@ def phase_kernels(check: Check) -> dict:
             )
             n_cases += 1
     log(f"[phase 3] B5 lattice_scores == plain ({n_cases} cases)")
+
+    # B5 on both sides of its regime switch at every S: at the last row
+    # count whose team threads fit one wave of the card (team form) and one
+    # row more (one thread a pair), rows clamped at both ends, n_valid
+    # partial; the sort key and a stage slab (team form)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_cases, regimes = 0, collections.Counter()
+    for S in range(1, 9):
+        th = torch.from_numpy(rng_b.normal(size=(T, 1 << S)).astype(np.float32)).to(dev)
+        lf = torch.from_numpy(np.stack([rng_b.choice(D, S, replace=False) for _ in range(T)])
+                              .astype(np.int32)).to(dev)
+        n_sw = sms * lattice_kernel.TEAM_THREADS_PER_SM // (8 * min(32, 1 << S))
+        for n in (n_sw, n_sw + 1, 256):
+            lrows = torch.from_numpy(rng_b.integers(-3, 8003, size=n)).to(dev)
+            for label, kw in [
+                ("slab", dict(t0=9, t1=17, rows=lrows, n_valid=nv(n - 77))),
+                ("sort key", dict(t0=0, t1=1, rows=lrows, n_valid=n)),
+            ]:
+                reg = lattice_kernel.lattice_regime(n, kw["t1"] - kw["t0"], S, sms)
+                regimes["team" if reg.team else "thread"] += 1
+                check.equal(
+                    "lattice_scores", f"S={S} n={n} {label} ({'team' if reg.team else 'thread'})",
+                    lattice_scores_kernel(th, lf, xl_cal, block_n=64, **kw),
+                    lattice_scores_plain(th, lf, xl_cal, block_n=64, **kw),
+                )
+                n_cases += 1
+    if set(regimes) != {"team", "thread"}:
+        raise AssertionError(f"B5 regime cases: {dict(regimes)}")
+    log(f"[phase 3] B5 lattice_scores at S 1-8 on both sides of the regime switch == plain "
+        f"({n_cases} cases: {dict(regimes)})")
 
     # B4 lattice: the exp4 plan geometry, thresholds that retire rows
     # mid-block, the ragged last stage's ±inf padded columns
@@ -1940,7 +2045,7 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         # device time per launch, the plain version's per call (fewer reps:
         # its hundreds of small launches a call make a profile slow to read)
         t = time.perf_counter()
-        ms, plain_ms = device_time_ms(fn), device_time_ms(plain, reps=N_PLAIN_REPS)
+        ms, plain_ms = device_time_ms(fn), device_time_ms(plain, reps=N_PLAIN_REPS, tries=1)
         b, by = bound(nbytes, ops)
         src, replaces, path = KERNELS[name]
         e = dict(
@@ -1955,15 +2060,21 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         log(f"[phase 5] {name} {shape}: device {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), "
             f"bound {b * 1e3:.4f} us ({by}); timed in {time.perf_counter() - t:.1f}s")
 
+    def other_shape(name, label, fn, plain, nbytes, ops, shape, reps=50):
+        # another shape a path gives the kernel, beside the stage entry
+        ms = device_time_ms(fn, reps=reps)
+        plain_ms = device_time_ms(plain, reps=max(2, reps // 10), tries=1)
+        b, by = bound(nbytes, ops)
+        log(f"[phase 5] {name} {label} {shape}: device {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.1f} us, bound {b * 1e3:.4f} us ({by})")
+        return {label: dict(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)}
+
     def calibration(name, fn, plain, nbytes, ops, shape):
         # the one-off calibration shape, beside the serving shape's entry
-        ms = device_time_ms(fn, reps=20)
-        plain_ms = device_time_ms(plain, reps=5)
-        b, by = bound(nbytes, ops)
-        log(f"[phase 5] {name} calibration {shape}: device {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us, bound {b * 1e3:.2f} us ({by})")
-        return dict(calib_shape=shape, calib_ms=ms, calib_plain_ms=plain_ms,
-                    calib_bound_ms=b, calib_bound_by=by)
+        e = other_shape(name, "calibration", fn, plain, nbytes, ops, shape, reps=20)
+        c = e["calibration"]
+        return dict(calib_shape=shape, calib_ms=c["ms"], calib_plain_ms=c["plain_ms"],
+                    calib_bound_ms=c["bound_ms"], calib_bound_by=c["bound_by"], shapes=e)
 
     entry(
         "cascade_chunk",
@@ -1978,6 +2089,20 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         lambda: gbt_scores_plain(feats, thrs, leaves, x_cal),
         4 * N * d + T * (8 * depth + 4 * L) + 4 * N * T, N * T * depth, f"{N}x{T}",
     )
+    # the sort key (the first model on the flush's rows) and the eager and
+    # ranking score matrices (a batch of 256 x every tree)
+    x_b = x_buf[:256]
+    extra["shapes"].update(other_shape(
+        "gbt_scores", "sort_key",
+        lambda: gbt_scores_kernel(feats, thrs, leaves, x_b, block_n=64, t0=0, t1=1, n_valid=256),
+        lambda: gbt_scores_plain(feats, thrs, leaves, x_b, block_n=64, t0=0, t1=1, n_valid=256),
+        256 * 4 * d + 8 * depth + 4 * L + 4 * 256, 256 * depth, "256x1",
+    ))
+    extra["shapes"].update(other_shape(
+        "gbt_scores", "eager", lambda: gbt_scores_kernel(feats, thrs, leaves, x_b),
+        lambda: gbt_scores_plain(feats, thrs, leaves, x_b),
+        256 * 4 * d + T * (8 * depth + 4 * L) + 4 * 256 * T, 256 * T * depth, f"256x{T}",
+    ))
     entry(
         "gbt_scores",
         lambda: gbt_scores_kernel(feats, thrs, leaves, x_buf, block_n=64, t0=t0,
@@ -2021,7 +2146,23 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         lambda: lattice_scores_plain(theta, lfeats, xl_cal),
         4 * Nl * Dl + Tl * 4 * (P + S) + 4 * Nl * Tl, Nl * Tl * flops, f"{Nl}x{Tl} S={S}",
     )
-    xl_buf = torch.from_numpy(lds.x_test[:257]).cuda()
+    # the sort key (team form) and the eager test matrix (one thread a pair)
+    xl_test = torch.from_numpy(lds.x_test).cuda()
+    Ne = xl_test.shape[0]
+    xl_b = xl_test[:256]
+    extra["shapes"].update(other_shape(
+        "lattice_scores", "sort_key",
+        lambda: lattice_scores_kernel(theta, lfeats, xl_b, block_n=64, t0=0, t1=1, n_valid=256),
+        lambda: lattice_scores_plain(theta, lfeats, xl_b, block_n=64, t0=0, t1=1, n_valid=256),
+        256 * 4 * Dl + 4 * (P + S) + 4 * 256, 256 * flops, f"256x1 S={S}",
+    ))
+    extra["shapes"].update(other_shape(
+        "lattice_scores", "eager", lambda: lattice_scores_kernel(theta, lfeats, xl_test),
+        lambda: lattice_scores_plain(theta, lfeats, xl_test),
+        4 * Ne * Dl + Tl * 4 * (P + S) + 4 * Ne * Tl, Ne * Tl * flops, f"{Ne}x{Tl} S={S}",
+        reps=20,
+    ))
+    xl_buf = xl_test[:257].contiguous()
     entry(
         "lattice_scores",
         lambda: lattice_scores_kernel(theta, lfeats, xl_buf, block_n=64, t0=t0,

@@ -191,6 +191,17 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (launch geometry input)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def check_cuda(name: str, *tensors: tuple[str, torch.Tensor, torch.dtype]) -> None:
     """Every (label, tensor, dtype) lies on one CUDA device, has the dtype
     and is contiguous; raises naming the first that is not."""

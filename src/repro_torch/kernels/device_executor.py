@@ -256,9 +256,16 @@ def tree_stage_scorer(
     feats_p = padded(feats_o, np.int32)
     thrs_p = padded(thrs_ordered, np.float32)
     leaves_p = padded(leaves_ordered, np.float32)
+    n_feats = int(feats_o.max()) + 1 if feats_o.size else 0
 
     def prepare(x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, dtype=np.float32)).to(dev)
+        x = np.asarray(x, dtype=np.float32)
+        # the kernels read x[:, feats] unchecked
+        if x.ndim != 2 or x.shape[1] < n_feats:
+            raise ValueError(
+                f"expected (n, >= {n_feats}) feature rows for the trees, got {x.shape}"
+            )
+        return torch.as_tensor(x).to(dev)
 
     def fn(x, rows, t0: int, n_valid) -> torch.Tensor:
         return gbt_scores_kernel(

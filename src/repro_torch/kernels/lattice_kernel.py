@@ -12,6 +12,7 @@ scores are bit-identical to the plain version's.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -21,11 +22,52 @@ from repro_torch.kernels.tree_kernel import _model_range
 
 DEFAULT_BLOCK_N = 256
 MAX_DIMS = 8  # the kernels keep 2^(S-1) partial values in registers
+# the team regime while a team's threads for every pair fit one wave of the
+# card at TEAM_THREADS_PER_SM; its CTAs hold at most TEAM_THREADS threads and
+# are cut down (to one warp) until the launch spreads over the SMs
+TEAM_THREADS_PER_SM = 2048
+TEAM_THREADS = 256
+# the thread regime's CTA: 32 rows x 8 lattices (csrc/lattice_scores.cu)
+THREAD_TILE = (32, 8)
 
-__all__ = ["lattice_scores_kernel", "lattice_scores_plain"]
+__all__ = [
+    "LatticeRegime", "lattice_regime", "lattice_scores_kernel", "lattice_scores_plain",
+]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+_ARGTYPES = [_P, _P, _P, _P, _L, _P] + [_I] * 9 + [_P, _P]
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeRegime:
+    """B5's launch for (n rows, tk lattices, S inputs).  Team: CTA b's
+    thread j scores pair b (threads / lanes) + j // lanes, the pair p being
+    (row p // tk, lattice p % tk), with lanes = min(32, 2^S) threads a pair.
+    Thread: a grid of (rows / 32, tk / 8) CTAs of 32 x 8 threads, one a
+    pair."""
+
+    team: bool
+    lanes: int  # threads a pair
+    threads: int  # threads a CTA
+    grid: tuple[int, int]
+
+
+def lattice_regime(n: int, tk: int, S: int, n_sms: int) -> LatticeRegime:
+    """B5's regime, a pure function of the shapes and the card's SM count:
+    the team form (``lattice_interp_team``, min(32, 2^S) lanes a pair) while
+    its threads for all ``n * tk`` pairs fit one wave of the card
+    (``n_sms * TEAM_THREADS_PER_SM``), else one thread a pair."""
+    if n < 1 or tk < 1 or not 1 <= S <= MAX_DIMS:
+        raise ValueError(f"lattice_regime: n {n}, tk {tk}, S {S}")
+    lanes = min(32, 1 << S)
+    team_threads = n * tk * lanes
+    if team_threads > n_sms * TEAM_THREADS_PER_SM:
+        rows, lats = THREAD_TILE
+        return LatticeRegime(False, 1, rows * lats, (-(-n // rows), -(-tk // lats)))
+    threads = TEAM_THREADS
+    while threads > 32 and -(-team_threads // threads) < n_sms:
+        threads //= 2
+    return LatticeRegime(True, lanes, threads, (-(-team_threads // threads), 1))
 
 
 def lattice_scores_plain(
@@ -103,11 +145,13 @@ def lattice_scores_kernel(
     if n == 0:
         return out
     nv_ptr, nv_host = _build.n_valid_args(n_valid, n, x.device)
+    reg = lattice_regime(n, tk, dims, _build.sm_count(x.device))
     fn = _build.function("lattice_scores", "lattice_scores_launch", _ARGTYPES)
     err = fn(
         theta[t0].data_ptr(), feats[t0].data_ptr(), x.data_ptr(),
         _build.ptr(rows), x.shape[0], nv_ptr, nv_host, n, x.shape[1], tk, dims,
-        int(block_n), out.data_ptr(), _build.stream(x.device),
+        int(block_n), int(reg.team), reg.threads, reg.grid[0], out.data_ptr(),
+        _build.stream(x.device),
     )
     _build.check("lattice_scores", err, "lattice_scores")
     _build.LAUNCHES["lattice_scores"] += 1

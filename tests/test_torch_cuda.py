@@ -100,6 +100,97 @@ def test_gbt_scores_kernel_equals_plain(dev, n_valid):
         assert torch.equal(a, b)
 
 
+def _score_rows(rng, n, n_x, dev):
+    """n row ids with negative and past-the-end ones (the kernels clamp)."""
+    rows = rng.integers(-4, n_x + 4, size=n)
+    rows[: min(n, 2)] = (-2, n_x + 1)[: min(n, 2)]
+    return _t(rows.astype(np.int64), dev)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 15, 16])
+@pytest.mark.parametrize("tk", [1, 7, 8, 33, 500])
+def test_gbt_scores_kernel_equals_plain_every_geometry(dev, depth, tk):
+    """B3 at every tile shape (tk 1, 7, 8: one tile of tk trees; 33: 17 +
+    16; 500: 16 tiles of at most 32), every depth with a kernel of its own
+    (1-8), the any-depth kernel with staged (0, 9, 12) and in-place leaf
+    tables (15 and 16, past the old limit of 10), rows clamped at both ends,
+    n_valid None / 0 / partial / all, n = 0, and n not a multiple of
+    block_n; one launch a call."""
+    rng = np.random.default_rng(depth * 1000 + tk)
+    T, d, n_x = tk + 3, 14, 300
+    feats = _t(rng.integers(0, d, size=(T, depth)).astype(np.int32), dev)
+    thrs = _t(rng.uniform(size=(T, depth)).astype(np.float32), dev)
+    leaves = _t(rng.normal(size=(T, 1 << depth)).astype(np.float32), dev)
+    x = _t(rng.uniform(size=(n_x, d)).astype(np.float32), dev)
+    nv = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    cases = [
+        dict(), dict(n_valid=130), dict(rows=_score_rows(rng, 257, n_x, dev), n_valid=nv(200)),
+        dict(rows=_score_rows(rng, 257, n_x, dev), n_valid=nv(0)),
+        dict(rows=_score_rows(rng, 100, n_x, dev), n_valid=nv(100)),
+        dict(rows=_score_rows(rng, 0, n_x, dev)),
+    ]
+    before = _build.LAUNCHES["gbt_scores"]
+    for kw in cases:
+        a = gbt_scores_kernel(feats, thrs, leaves, x, block_n=64, t0=2, t1=2 + tk, **kw)
+        torch.cuda.synchronize()
+        b = gbt_scores_plain(feats, thrs, leaves, x, block_n=64, t0=2, t1=2 + tk, **kw)
+        assert torch.equal(a, b), kw
+    assert _build.LAUNCHES["gbt_scores"] == before + len(cases) - 1  # n = 0 launches nothing
+
+
+def test_gbt_scores_kernel_at_depth_30_and_past_the_limit(dev):
+    """B3 reads a 2^30-leaf table in place (one tree, 4 GiB) with its int
+    leaf index; a depth-31 forest is refused with the limit named."""
+    rng = np.random.default_rng(30)
+    feats = _t(rng.integers(0, 40, size=(1, 30)).astype(np.int32), dev)
+    thrs = _t(rng.uniform(size=(1, 30)).astype(np.float32), dev)
+    leaves = torch.arange(1 << 30, dtype=torch.float32, device=dev)[None]
+    x = _t(rng.uniform(size=(200, 40)).astype(np.float32), dev)
+    a = gbt_scores_kernel(feats, thrs, leaves, x)
+    torch.cuda.synchronize()
+    assert torch.equal(a, gbt_scores_plain(feats, thrs, leaves, x))
+    del leaves
+    with pytest.raises(ValueError, match=r"gbt_scores: tree depth 31 not in \[0, 30\]"):
+        gbt_scores_kernel(torch.zeros(1, 31, dtype=torch.int32, device=dev),
+                          torch.zeros(1, 31, device=dev), torch.zeros(1, 2, device=dev), x)
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+@pytest.mark.parametrize("side", ["team", "thread"])
+def test_lattice_scores_kernel_equals_plain_both_regimes(dev, S, side):
+    """B5 on either side of its regime switch (``lattice_regime``, from the
+    card's SM count): the switch's last row count takes the team form, one
+    more the thread form; each with rows clamped at both ends, n_valid None
+    / 0 / partial, a single-lattice slab and n = 0."""
+    from repro_torch.kernels.lattice_kernel import lattice_regime
+
+    rng = np.random.default_rng(S + (100 if side == "thread" else 0))
+    tk, d, n_x = 8, 30, 400
+    sms = _build.sm_count(dev)
+    n_switch = sms * 2048 // (tk * min(32, 1 << S))  # the last team row count
+    n = n_switch if side == "team" else n_switch + 1
+    assert lattice_regime(n, tk, S, sms).team == (side == "team")
+    T = tk + 2
+    theta = _t(rng.normal(size=(T, 1 << S)).astype(np.float32), dev)
+    feats = _t(np.stack([rng.choice(d, S, replace=False) for _ in range(T)]).astype(np.int32), dev)
+    xl = rng.uniform(size=(n_x, d)).astype(np.float32)
+    xl[:30] = np.round(xl[:30])
+    x = _t(xl, dev)
+    rows = _score_rows(rng, n, n_x, dev)
+    nv = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    cases = [
+        dict(t0=1, t1=1 + tk, rows=rows), dict(t0=1, t1=1 + tk, rows=rows, n_valid=nv(0)),
+        dict(t0=1, t1=1 + tk, rows=rows, n_valid=nv(n // 2 + 5)),
+        dict(t0=1, t1=1 + tk, rows=rows, n_valid=n // 3),
+        dict(t0=T - 1, rows=rows[:257]), dict(t0=0, t1=tk, rows=rows[:0]),
+    ]
+    for kw in cases:
+        a = lattice_scores_kernel(theta, feats, x, block_n=64, **kw)
+        torch.cuda.synchronize()
+        b = lattice_scores_plain(theta, feats, x, block_n=64, **kw)
+        assert torch.equal(a, b), kw
+
+
 @pytest.mark.parametrize("chunk_t", [1, 8, 64])
 def test_cascade_kernel_equals_plain(dev, chunk_t):
     """B1 with T not a multiple of chunk_t, rows that never exit and ±inf
@@ -763,7 +854,7 @@ def test_mega_lane_lattice_equals_plain_every_geometry(dev, S, quant, spread):
 
 # -- B4 and B7 tree at every depth, storage and block geometry --------------
 
-# the ends of B3's range (1, 10), exp1's and exp2's depths (5, 9), either
+# depths 1 and 10 (B3's old limit), exp1's and exp2's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12), and the deepest
 # tree whose staged leaf table fits a CTA (15, B4's limit)
 TREE_DEPTHS = [1, 2, 3, 5, 8, 9, 10, 12, 15]

@@ -30,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels.device_executor import DeviceExecutor, DevicePlan, tree_stage_scorer
 
-# both ends of B3's range (1, 10), exp2_nomao's depth (9), and a depth
+# depths 1 and 10 (B3's old limit), exp2_nomao's depth (9), and a depth
 # only streaming reaches (12)
 DEPTHS = [1, 2, 9, 10, 12]
 QUANTS = ["f32", "bf16", "int8"]
