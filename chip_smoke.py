@@ -34,7 +34,14 @@ Phases, each of which stops the run on failure:
    leaf tables staged or read in place), rows clamped at both ends, n = 0
    and n not a multiple of the block, and one tree at depth 30 (a 4 GiB
    table read in place); B5 at S 1-8 on both sides of its regime switch
-   (team form and one thread a pair).
+   (team form and one thread a pair).  B6 in its step form (the unfused
+   streaming step's: stage tables read in place, masked columns, stop
+   lanes, the pack written) at 256, 1024 and 1300 lanes, all six outputs
+   equal; B8 with ``rows`` (its top-k picks) at B 1, 4, 31, 32, 33, 64 and
+   256, k 1, 10 and B + 3, on integer ties, -0.0 / +0.0 ties, -inf on valid
+   lanes and groups with a valid NaN or -NaN, n_live None, a device scalar
+   and a host int: picks and exits equal, margins equal by their bits (a
+   zero margin between a -0.0 and a +0.0 by value, and counted).
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -64,9 +71,10 @@ Phases, each of which stops the run on failure:
    and order, the rows cut into ragged query groups (Poisson mean 16, seed
    2031), ``api.fit(groups=, topk=10)`` at alpha 0.05, the test queries
    served by ``compile(...).serve(score_fn=B3, batch_size=256)`` on the card
-   (B3 + B8 per stage), with device="cpu", on the host rung and by
-   ``run_grouped_host``: verdicts, exit stages and margins equal bit for
-   bit; the margin-inf run equals ``full_cascade_topk``.
+   (B3 + B8 per stage, B8 picking each query's top k), with
+   device="cpu", on the host rung and by ``run_grouped_host``: verdicts,
+   exit stages and margins equal bit for bit; the margin-inf run equals
+   ``full_cascade_topk``.
 4e. Quantised parameter slabs: phase 4's and 4b's ensembles and fits (no
    new fit) at bf16 and int8 slabs, the test rows served by ``QWYCServer``
    (batch 256, policy ``kernel``, ``megakernel=True``: B4 at the slabs'
@@ -87,16 +95,19 @@ Phases, each of which stops the run on failure:
    flushes), the device's busy share of a batch-256 flush (profiler device
    time over the unprofiled median flush); the streaming servers' drains
    (requests/s, wave and step wall times, steps and syncs per wave,
-   PyTorch operator calls per step, one wave's busy share); the ranking
-   server's drains of the test queries (median and p90 wall, PyTorch calls
-   per grouped stage, one drain's busy share); exp1's eager path (B3 + B4
+   PyTorch operator calls per step, one wave's busy share), fused and
+   unfused (lane_fn + B6); the ranking server's drains of the test queries
+   (median and p90 wall, PyTorch calls per grouped stage, one drain's busy
+   share; no sort kernel may appear); exp1's eager path (B3 + B4
    matrix: flush latency at batch 128 / 256 / 1024 and one flush's busy
    share; B3 + B7 matrix: streaming waves at both rates); exp1's trees
    served fused at f32 and at bf16 slabs (a batch-256 flush, a streaming
    wave); and each
    kernel's device time per launch (profiler) at its main-path shape beside
    its plain version's and its bound (B3 and B5 also at the sort key, the
-   eager matrix and the calibration matrix).
+   eager matrix and the calibration matrix; B8 with its picks beside B8
+   and ``group_topk_rows``, and the stable sort alone; B6's step form
+   beside the chain of gathers, B6 and compaction it replaces).
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -391,6 +402,120 @@ def random_plan(rng, T: int, chunk_t: int, lead_t: int, lo=1.0, hi=4.0):
     )
 
 
+def group_case(rng, G: int, B: int, kind: str):
+    """(g, valid, rows) numpy arrays of G query groups in bucket width B for
+    B8 with rows: integer scores (ties), ties of -0.0 and +0.0, -inf on
+    valid lanes, or drawn scores with a valid NaN in group 2 and a valid
+    -NaN in group 5; ragged sizes, an empty group 0 and a full group 1."""
+    import numpy as np
+
+    g = rng.integers(-3, 4, size=(G, B)).astype(np.float32)
+    if kind == "signed zeros":
+        g = np.where(g == 0, np.where(rng.uniform(size=(G, B)) < 0.5, -0.0, 0.0), g)
+    elif kind == "-inf":
+        g[rng.uniform(size=(G, B)) < 0.3] = -np.inf
+    elif kind == "nan":
+        g += rng.normal(scale=0.3, size=(G, B))
+        g[2, rng.integers(B)] = np.nan
+        g[5, rng.integers(B)] = -np.float32(np.nan)
+    sizes = rng.integers(1, B + 1, size=G)
+    sizes[:2] = [0, B]
+    if kind == "nan":
+        sizes[2] = sizes[5] = B
+    valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+    rows = rng.integers(0, 1 << 30, size=(G, B)).astype(np.int64)
+    return g.astype(np.float32), valid, rows
+
+
+def check_lane_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_lane_step) -> None:
+    """Phase 3: B6's step form against ``cascade_lane_step_plain``, as the
+    unfused streaming step calls it: raw scores, the (S, W) tables read at
+    each lane's stage (the ragged last stage's columns masked), stop lanes
+    at the last stage, -0.0 partial sums; one CTA up to 1024 lanes, block
+    prefixes and a combine past that."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_lane_step_plain
+
+    def nv(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    S = eps_pos.shape[0]
+    rng_s = np.random.default_rng(22)
+    n_cases, kept = 0, 0
+    for cap in (256, 1024, 1300):
+        st = torch.from_numpy(rng_s.integers(0, S, size=cap).astype(np.int32)).to(dev)
+        st[:S] = torch.arange(S, dtype=torch.int32, device=dev)
+        sc = torch.from_numpy(rng_s.normal(size=(cap, 8)).astype(np.float32)).to(dev)
+        gs = torch.from_numpy(rng_s.normal(size=cap).astype(np.float32)).to(dev)
+        gs[::5] = -0.0
+        for label, n_valid in [("all", None), ("nv=0", nv(0)), ("nv=cap", nv(cap)),
+                               ("ragged nv", nv(cap - 57)), ("host nv", cap // 3)]:
+            args = (gs, sc, st, eps_pos, eps_neg, col_valid)
+            got = cascade_lane_step(*args, n_valid=n_valid, block_n=64)
+            want = cascade_lane_step_plain(*args, n_valid=n_valid)
+            check.equal("cascade_lane", f"step cap {cap} {label} g bits",
+                        got[0].view(torch.int32), want[0].view(torch.int32))
+            for k, (a, b) in enumerate(zip(got[1:], want[1:])):
+                check.equal("cascade_lane", f"step cap {cap} {label} output {k + 1}", a, b)
+            kept += int(got[5])
+            n_cases += 1
+        if not bool((want[3] > 0).any() and ((want[1] == 1) & (st == S - 1)).any()):
+            raise AssertionError(f"B6 step check (cap {cap}): no exit or no active stop lane")
+    if not kept:
+        raise AssertionError("B6 step check: no lane was kept")
+    log(f"[phase 3] B6 cascade_lane step form (caps 256, 1024, 1300) == plain "
+        f"({n_cases} cases, {kept} lanes kept)")
+
+
+def check_group_rows(check: Check, dev, cascade_group_kernel, G: int = 37) -> None:
+    """Phase 3: B8 with rows (the grouped loop's form): picks, exits and
+    margins against ``cascade_group_plain`` + ``group_topk_rows`` over every
+    bucket-width regime (one warp a group up to 32 lanes, one CTA past
+    that), k 1, 10 and past B, the four kinds of ``group_case`` and n_live
+    None, a device scalar and a host int."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_group_plain, group_topk_rows
+
+    def nv(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    rng_g = np.random.default_rng(23)
+    n_cases, picked, zero_signs = 0, 0, 0
+    for B in (1, 4, 31, 32, 33, 64, 256):
+        for k in (1, 10, B + 3):
+            for kind in ("ties", "signed zeros", "-inf", "nan"):
+                gg, valid, rows_g = group_case(rng_g, G, B, kind)
+                eps = rng_g.uniform(0.0, 2.0, size=G).astype(np.float32)
+                eps[3], eps[4] = np.inf, 0.0
+                args = [torch.from_numpy(a).to(dev) for a in (gg, valid, eps)] + [k]
+                rows_t = torch.from_numpy(rows_g).to(dev)
+                for n_live in (None, nv(0), nv(20), 29):
+                    m, e, p = cascade_group_kernel(*args, n_live=n_live, rows=rows_t)
+                    wm, we = cascade_group_plain(*args, n_live=n_live)
+                    wp = group_topk_rows(args[0], args[1], rows_t, k)
+                    what = f"rows B={B} k={k} {kind} n_live {n_live}"
+                    check.equal("cascade_group", f"{what} picks", p, wp)
+                    check.equal("cascade_group", f"{what} exit", e, we)
+                    # margins by their bits; a zero between a -0.0 and a
+                    # +0.0 may take either sign (the plain max returns
+                    # either zero of a tie): counted, compared by value
+                    zero = (m == 0) & (wm == 0)
+                    zero_signs += int((zero & (m.view(torch.int32) != wm.view(torch.int32))).sum())
+                    check.equal("cascade_group", f"{what} margin bits",
+                                torch.where(zero, 0, m.view(torch.int32)),
+                                torch.where(zero, 0, wm.view(torch.int32)))
+                    if kind == "nan" and not bool((p[2] == -1).all() and (p[5] == -1).all()):
+                        raise AssertionError(f"B8 {what}: a NaN group picked a lane")
+                    picked += int((p >= 0).sum())
+                    n_cases += 1
+    log(f"[phase 3] B8 cascade_group with rows == plain + group_topk_rows ({n_cases} cases, "
+        f"{picked} picks, {zero_signs} zero margins of another sign)")
+
+
 def phase_kernels(check: Check) -> dict:
     """Phase 3: every kernel against its plain version on the card.
     Returns the main-path-shaped inputs phase 5 times."""
@@ -405,6 +530,7 @@ def phase_kernels(check: Check) -> dict:
         cascade_kernel,
         cascade_lane_kernel,
         cascade_lane_plain,
+        cascade_lane_step,
         cascade_plain,
     )
     from repro_torch.kernels.device_executor import (
@@ -439,6 +565,7 @@ def phase_kernels(check: Check) -> dict:
     cascade_group_kernel = synced(cascade_group_kernel)
     cascade_kernel = synced(cascade_kernel)
     cascade_lane_kernel = synced(cascade_lane_kernel)
+    cascade_lane_step = synced(cascade_lane_step)
     gbt_scores_kernel = synced(gbt_scores_kernel)
     lattice_scores_kernel = synced(lattice_scores_kernel)
     mega_lane_kernel = synced(mega_lane_kernel)
@@ -704,6 +831,7 @@ def phase_kernels(check: Check) -> dict:
     if not bool((got[3] > 0).any() and (got[1] > 0).any()):
         raise AssertionError("B6 check: no lane exited, or every lane exited")
     log(f"[phase 3] B6 cascade_lane == plain ({n_cases} cases)")
+    check_lane_step(check, dev, eps_pos, eps_neg, col_valid, cascade_lane_step)
 
     # B7 at cap 256, W 8, block 64: lanes over all S stages in block 0,
     # last-stage (stop) lanes, rows retiring mid-block, trash rows past
@@ -950,13 +1078,15 @@ def phase_kernels(check: Check) -> dict:
     if not exits:
         raise AssertionError("B8 check: no group exited")
     log(f"[phase 3] B8 cascade_group == plain ({n_cases} cases, {exits} exits)")
+    check_group_rows(check, dev, cascade_group_kernel)
     torch.cuda.synchronize()
     return dict(
         chunk=(g0, chunk, ep, en), forest=(feats, thrs, leaves), x_cal=x_cal,
         x_buf=x_buf, rows=rows, dplan=dplan, tree=tree, matrix=matrix, F=F,
         eps=(eps_pos, eps_neg), g_buf=g_buf, lat=(theta8, lfeats8), xl_cal=xl_cal,
         xl_buf=xl_buf, lplan=lplan, lattice=lattice, leps=leps,
-        lanes=dict(stage=stage_l, stop=stop, scores=lane_scores, eps=(lep, len_)),
+        lanes=dict(stage=stage_l, stop=stop, scores=lane_scores, eps=(lep, len_), raw=chunk,
+                   col_valid=col_valid),
         quant=quant, F_bf16=F_bf16,
     )
 
@@ -1482,7 +1612,8 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
     eps0 = torch.full((cap_g,), float(gp.eps_g[0]), device="cuda")
     return dict(
         server=lambda: server("device", "cuda"), x=ds.x_test, offsets=off,
-        b8=(g0, valid_t, eps0, gp.k, torch.tensor(len(gidx), dtype=torch.int32, device="cuda")),
+        b8=(g0, valid_t, eps0, gp.k, torch.tensor(len(gidx), dtype=torch.int32, device="cuda"),
+            rows_t),
         b8_shape=f"G={cap_g} (live {len(gidx)}) B={b} k={gp.k}", S=gp.S,
     )
 
@@ -1790,7 +1921,8 @@ def busy_share(srv, x, median_ms: float, label: str) -> dict:
 
 class OpCount:
     """Counts the PyTorch operator calls (aten ops: allocations, gathers,
-    scatters, elementwise ops, copies) made while it is entered."""
+    scatters, elementwise ops, copies) made while it is entered, in all
+    (``n``) and by name (``by_name``)."""
 
     def __enter__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -1800,9 +1932,11 @@ class OpCount:
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 counter.n += 1
+                counter.by_name[str(func.overloadpacket)] += 1
                 return func(*args, **(kwargs or {}))
 
         self.n = 0
+        self.by_name = collections.Counter()
         self._mode = _Mode()
         self._mode.__enter__()
         return self
@@ -1881,6 +2015,7 @@ def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> 
         wave()
     enq = srv.stream_results[-1].steps_enqueued
     out["torch_ops_per_step"] = ops.n / enq
+    out["ops_by_name"] = dict(ops.by_name.most_common())
     by_name = profile_device(wave, prepare=fill)
     busy = sum(v[0] for v in by_name.values())
     med_us = out["wave_median_ms"] * 1e3
@@ -1928,6 +2063,9 @@ def rank_timing(rmain: dict) -> dict:
         torch_ops_per_stage=ops.n / (waves * S), device_busy_us=busy,
         busy_share=busy / (med * 1e3),
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+        ops_by_name=dict(ops.by_name.most_common()),
+        sort_kernels=[k for k in by_name if "sort" in k.lower()],
+        sort_calls=ops.by_name["aten.sort"],
     )
     log(f"[phase 5] ranking drain of {off.size - 1} queries ({waves} waves of {S} stages): "
         f"median {med:.3f} ms, p90 {out['drain_p90_ms']:.3f} ms over {len(walls)} drains; "
@@ -1998,8 +2136,10 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         cascade_group_plain,
         cascade_kernel,
         cascade_lane_kernel,
-        cascade_lane_plain,
+        cascade_lane_step,
+        cascade_lane_step_plain,
         cascade_plain,
+        group_topk_rows,
     )
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
     from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
@@ -2021,7 +2161,17 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
                             smain["cells"][cell]["ds"].x_test, cell)
         for cell in smain["cells"]
     }
-    report["rank_timing"] = rank_timing(rmain)
+    # the unfused step (lane_fn + B6's step form), both cells at the heavy rate
+    report["stream_timing_unfused"] = {
+        cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", {"megakernel": False}),
+                            smain["cells"][cell]["ds"].x_test, f"{cell} unfused")
+        for cell in smain["cells"]
+    }
+    rt = report["rank_timing"] = rank_timing(rmain)
+    # B8 picks each group's top k: the drain sorts nothing on the card
+    if rt["sort_kernels"] or rt["sort_calls"]:
+        raise AssertionError(f"ranking drain: sort kernels {rt['sort_kernels']}, "
+                             f"{rt['sort_calls']} aten.sort calls")
     report["eager_timing"] = eager_timing(
         lambda **kw: server("both", "cuda", scorer=None, score_fn=main["score_fn"], **kw),
         lambda: smain["server"]("exp1_adult", "cuda", eager=True), ds.x_test, "exp1_adult eager",
@@ -2189,12 +2339,37 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     stage, stop = lanes["stage"], lanes["stop"]
     lep_, len_l = lanes["eps"]
     n_st = int(torch.unique(stage).numel())
+    # B6 as the unfused streaming step calls it (raw scores, the tables
+    # read at each lane's stage, the pack written); beside it the parent's
+    # chain (the tables gathered and the scores masked by PyTorch, B6 in the
+    # reference's form, the cumsum compaction) and that form alone
+    raw, col_valid = lanes["raw"], lanes["col_valid"]
+    step_args = (g0, raw, stage, eps_pos, eps_neg, col_valid)
+
+    def lane_chain():
+        sc = torch.where(col_valid[stage], raw, 0.0)
+        g, act, dpos, ex = cascade_lane_kernel(g0, sc, eps_pos[stage], eps_neg[stage],
+                                               block_n=64, n_valid=nv)
+        keep = act.bool() & ~(stage >= dplan.S - 1)
+        pack = torch.where(keep, torch.cumsum(keep, dim=0, dtype=torch.int32) - 1, m)
+        return g, act, dpos, ex, pack, keep.sum(dtype=torch.int32)
+
+    lane_extra = dict(
+        chain_ms=device_time_ms(lane_chain),
+        old_form_ms=device_time_ms(lambda: cascade_lane_kernel(
+            g0, lanes["scores"], lep_, len_l, block_n=64, n_valid=nv)),
+    )
+    log(f"[phase 5] cascade_lane: the parent's chain (gathers, mask, B6, compaction) "
+        f"{lane_extra['chain_ms'] * 1e3:.2f} us, the reference's form alone "
+        f"{lane_extra['old_form_ms'] * 1e3:.2f} us")
     entry(
         "cascade_lane",
-        lambda: cascade_lane_kernel(g0, lanes["scores"], lep_, len_l, block_n=64, n_valid=nv),
-        lambda: cascade_lane_plain(g0, lanes["scores"], lep_, len_l, n_valid=nv),
-        nbytes=4 * (m + 3 * m * ct) + 16 * m, ops=3 * m * ct,
-        shape=f"m={m} ct={ct}, lanes at {n_st} stages",
+        lambda: cascade_lane_step(*step_args, n_valid=nv, block_n=64),
+        lambda: cascade_lane_step_plain(*step_args, n_valid=nv),
+        # g0, scores and stage a lane, each stage's threshold rows and
+        # column mask once, n_valid; g, active, decided, exit, pack, n_keep
+        nbytes=4 * (m + m * ct + m) + n_st * ct * 9 + 4 + 20 * m + 4, ops=3 * m * ct,
+        shape=f"m={m} ct={ct}, lanes at {n_st} stages, step form", extra=lane_extra,
     )
     lane_in = 256 * (8 + 4 + 4 + 1) + out_bytes + n_st * W * 8  # rows, g0, stage, stop
     entry(
@@ -2291,14 +2466,34 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     # B8 on the main path's widest bucket wave, its first stage's input:
     # g and valid read once, eps and n_live read, margin and exit written;
     # about one compare a lane per pass
-    gq, vq, eq, k, nl = rmain["b8"]
+    gq, vq, eq, k, nl, rq = rmain["b8"]
     Gq, Bq = gq.shape
+
+    def b8_plain():
+        return (*cascade_group_plain(gq, vq, eq, k, n_live=nl), group_topk_rows(gq, vq, rq, k))
+
+    # beside it: the parent's chain (B8 for the margin, group_topk_rows for
+    # the picks), B8 without rows, and the stable sort alone, the
+    # yardstick of the pick half
+    key = torch.randint(-(1 << 40), 1 << 40, (Gq, Bq), device="cuda")
+    b8_extra = dict(
+        chain_ms=device_time_ms(lambda: (cascade_group_kernel(gq, vq, eq, k, n_live=nl),
+                                         group_topk_rows(gq, vq, rq, k))),
+        margin_only_ms=device_time_ms(lambda: cascade_group_kernel(gq, vq, eq, k, n_live=nl)),
+        sort_ms=device_time_ms(lambda: torch.sort(key, dim=1, descending=True, stable=True)),
+    )
+    log(f"[phase 5] cascade_group: the parent's chain (B8 + group_topk_rows) "
+        f"{b8_extra['chain_ms'] * 1e3:.2f} us, B8 without rows "
+        f"{b8_extra['margin_only_ms'] * 1e3:.2f} us, the stable sort of ({Gq}, {Bq}) int64 "
+        f"{b8_extra['sort_ms'] * 1e3:.2f} us")
     entry(
         "cascade_group",
-        lambda: cascade_group_kernel(gq, vq, eq, k, n_live=nl),
-        lambda: cascade_group_plain(gq, vq, eq, k, n_live=nl),
-        nbytes=8 * Gq * Bq + 4 * Gq + 4 + 8 * Gq, ops=(k + 1) * Gq * Bq,
-        shape=rmain["b8_shape"],
+        lambda: cascade_group_kernel(gq, vq, eq, k, n_live=nl, rows=rq),
+        b8_plain,
+        # g, valid and rows read once, eps and n_live read; margin, exit
+        # and k picks written
+        nbytes=16 * Gq * Bq + 4 * Gq + 4 + 8 * Gq + 4 * k * Gq, ops=(k + 1) * Gq * Bq,
+        shape=rmain["b8_shape"] + ", rows=", extra=b8_extra,
     )
     return kernels
 

@@ -100,6 +100,11 @@ def optimize_threshold_sorted(
     if n_exited < g.shape[0]:
         first_out = g_sorted[n_exited]
         thr = 0.5 * (last_in + first_out)
+        if thr == last_in:
+            # adjacent doubles: the midpoint rounds onto last_in, which the
+            # strict exit test would then keep in; first_out still keeps
+            # itself out and lets last_in exit.
+            thr = first_out
     else:
         # everything exits: any threshold beyond the extreme value works.
         thr = last_in + 1.0 if side == "neg" else last_in - 1.0

@@ -1,68 +1,171 @@
-// B6: one mixed-stage threshold walk (the lane decide of streaming
-// admission).
+// B6: the lane decide of streaming admission, a threshold walk over lanes
+// at mixed stages, with the compaction prefix of the step.
 //
 // Replaces repro/kernels/cascade_kernel.py cascade_lane_pallas (its
-// pallas_call at :316).  B2 with per-lane thresholds: streaming admission
-// refills freed lanes with stage-0 rows next to mid-cascade ones, so row i
-// walks its ct scores with its own threshold row eps_pos[i, :],
-// eps_neg[i, :] (gathered from the stage table at its own stage).  Rows at
-// or past n_valid start inactive.  Outputs g, active, decided_pos and the
-// RELATIVE 1-based exit step within the row's chunk (0 = survived); the
-// caller rebases it by each row's stage start.
+// pallas_call at :316), and takes over what the reference's unfused
+// streaming step (repro/kernels/device_executor.py:1059-1076) does around
+// it: gather each lane's threshold rows and column mask at its own stage,
+// zero the masked scores, and pack the survivors by a cumsum.  Lane i walks
+// its W scores with the threshold row of its own stage st = stages[i] from
+// the (S, W) tables eps_pos, eps_neg, adding a literal 0.0f for a column
+// that col_valid[st] marks invalid (the padded tail of a ragged last stage).
+// Lanes at or past n_valid start inactive.  Outputs g, active, decided_pos
+// and the RELATIVE 1-based exit step within the stage (0 = survived); the
+// caller rebases it by each lane's stage start.  A lane at stage >=
+// stop_stage (its last stage) is left out of the compaction whether it
+// exits or not, and so is a lane that exits or starts inactive:
+// * mode 1 (cap <= 1024, one CTA): pack[i] = the lane's front-packed
+//   destination, or cap, and *count = the lanes kept;
+// * mode 2 (more lanes): pack[i] = the lane's block-local inclusive prefix
+//   minus one, count[block] = the block's lanes kept; the caller adds the
+//   blocks' exclusive scan (cascade_kernel.combine_blocks);
+// * mode 0: no compaction.  The JAX-shaped form, (m, ct) per-row threshold
+//   slabs, runs as stages = null (lane i reads table row i), no column mask
+//   and no stop.
 //
-// What bounds it on an H100: bytes.  A row reads 3 ct + 1 floats, writes
-// four words and does ct adds and 2 ct compares; at the serving shape
-// (m = 256, ct = 8) the call moves about 29 KB, 9 ns at the card's memory
-// rate, so in practice the launch itself is the cost.
+// What bounds it on an H100: bytes.  A lane reads W scores, its stage and
+// g0 and its stage's threshold rows (read in place, so lanes at one stage
+// share them through the caches), and writes five words; at the serving
+// shape (cap 256, W 8, lanes over 64 stages) that is about 20 KB, 6 ns at
+// the card's memory rate, so in practice the launch is the cost, and the
+// PyTorch launches that gathered and packed around the kernel.
 //
-// Design: one thread per row, serial over the ct columns (the walk is a
+// Design: one thread per lane, serial over the W columns (the walk is a
 // dependent chain), each step the shared threshold_step device function,
-// as in B2.  A row at or past n_valid (a whole CTA of them, once the live
-// count is below the CTA's first row) and a row that has exited read no
-// scores or thresholds: only g0 is read and the four outputs written.
+// as in B2 and B4; then one block_flag_scan (common.cuh) of the kept flags.
+// The loads of a group of 8 columns (scores, mask, thresholds) are issued
+// together before its steps, so a lane waits for its stage and then for
+// one round of loads, not for one a step; where W is a multiple of 8 and
+// the rows are aligned, as 16-byte loads (8-byte for the mask), which
+// cuts the L1 requests of a warp's scattered threshold rows about 4x.  A lane at or past n_valid, and
+// a lane that exited in an earlier group, reads no scores or thresholds.
 #include "common.cuh"
 #include "threshold_step.cuh"
 
-__global__ void cascade_lane_kernel(const float* __restrict__ g0,
-                                    const float* __restrict__ scores,
-                                    const float* __restrict__ eps_pos,
-                                    const float* __restrict__ eps_neg,
-                                    const int* __restrict__ n_valid_dev,
-                                    int n_valid_host, int m, int ct,
-                                    float* __restrict__ g_out,
-                                    int* __restrict__ active_out,
-                                    int* __restrict__ dec_out,
-                                    int* __restrict__ exit_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int lim = live_limit(n_valid_dev, n_valid_host, m);
-  float g = g0[i];
-  bool active = i < lim;
-  bool dec = false;
-  int ex = 0;
-  const size_t row = static_cast<size_t>(i) * ct;
-  for (int j = 0; j < ct; ++j) {
-    // an inactive row adds 0.0f as the plain version does, and reads nothing
-    const float f = active ? scores[row + j] : 0.0f;
-    const float ep = active ? eps_pos[row + j] : 0.0f;
-    const float en = active ? eps_neg[row + j] : 0.0f;
-    threshold_step(g, active, dec, ex, f, ep, en, j + 1);
-  }
-  g_out[i] = g;
-  active_out[i] = active ? 1 : 0;
-  dec_out[i] = dec ? 1 : 0;
-  exit_out[i] = ex;
+namespace {
+
+constexpr int kGroup = 8;  // columns whose loads are in flight at once
+
+// 8 floats from 16-byte aligned memory in two loads
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 u = reinterpret_cast<const float4*>(p)[0];
+  const float4 v = reinterpret_cast<const float4*>(p)[1];
+  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
+  out[4] = v.x; out[5] = v.y; out[6] = v.z; out[7] = v.w;
 }
 
-extern "C" int cascade_lane_launch(const float* g0, const float* scores,
-                                   const float* eps_pos, const float* eps_neg,
-                                   const int* n_valid_dev, int n_valid_host,
-                                   int m, int ct, int threads, float* g_out,
-                                   int* active_out, int* dec_out,
-                                   int* exit_out, cudaStream_t stream) {
-  const int blocks = (m + threads - 1) / threads;
-  cascade_lane_kernel<<<blocks, threads, 0, stream>>>(
-      g0, scores, eps_pos, eps_neg, n_valid_dev, n_valid_host, m, ct, g_out,
-      active_out, dec_out, exit_out);
+struct LaneArgs {
+  const float* g0;
+  const float* scores;   // (cap, W)
+  const int* stages;     // (cap,) or null: lane i at table row i
+  const float* eps_pos;  // (n_stages, W)
+  const float* eps_neg;
+  const bool* col_valid;  // (n_stages, W) or null: every column valid
+  const int* n_valid_dev;
+  int n_valid_host;
+  int cap, W, n_stages, stop_stage;
+  int vec;  // W % 8 == 0, scores and tables 16-byte and col_valid 8-byte aligned
+  float* g;
+  int* active;
+  int* dec;
+  int* exit_rel;
+  int* pack;   // mode 1: destinations; mode 2: block-local prefixes
+  int* count;  // mode 1: the kept total; mode 2: each block's
+};
+
+template <int kMode>
+__global__ void __launch_bounds__(1024) lane_kernel(const LaneArgs a) {
+  __shared__ int s_warp[32];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool lane_ok = i < a.cap;
+  const int lim = live_limit(a.n_valid_dev, a.n_valid_host, a.cap);
+  int st = i;
+  if (a.stages && lane_ok) st = min(max(a.stages[i], 0), a.n_stages - 1);
+  float g = lane_ok ? a.g0[i] : 0.0f;
+  bool active = lane_ok && i < lim;
+  bool dec = false;
+  int ex = 0;
+  const size_t row = static_cast<size_t>(i) * a.W;
+  const size_t trow = static_cast<size_t>(st) * a.W;
+  for (int j0 = 0; j0 < a.W; j0 += kGroup) {
+    // a group's loads all at once, then its steps; an inactive lane reads
+    // nothing and adds 0.0f, as the plain version does, and so does a
+    // masked column
+    float f[kGroup], ep[kGroup], en[kGroup];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) f[k] = ep[k] = en[k] = 0.0f;
+    if (active && a.vec) {  // whole groups of 8 in 16-byte loads
+      load8(a.scores + row + j0, f);
+      load8(a.eps_pos + trow + j0, ep);
+      load8(a.eps_neg + trow + j0, en);
+      if (a.col_valid) {
+        const uint2 c = *reinterpret_cast<const uint2*>(a.col_valid + trow + j0);
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          const unsigned w = k < 4 ? c.x : c.y;
+          if (((w >> (8 * (k & 3))) & 0xffu) == 0) f[k] = 0.0f;
+        }
+      }
+    } else if (active) {
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int j = j0 + k;
+        if (j < a.W) {
+          const float s = a.scores[row + j];
+          f[k] = (!a.col_valid || a.col_valid[trow + j]) ? s : 0.0f;
+          ep[k] = a.eps_pos[trow + j];
+          en[k] = a.eps_neg[trow + j];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      if (j0 + k < a.W) threshold_step(g, active, dec, ex, f[k], ep[k], en[k], j0 + k + 1);
+    }
+  }
+  if (kMode != 0) {
+    const bool keep = active && st < a.stop_stage;
+    int total;
+    const int incl = block_flag_scan(keep, s_warp, &total);
+    if (lane_ok) a.pack[i] = (kMode == 1 && !keep) ? a.cap : incl - 1;
+    if (threadIdx.x == 0) a.count[blockIdx.x] = total;
+  }
+  if (lane_ok) {
+    a.g[i] = g;
+    a.active[i] = active ? 1 : 0;
+    a.dec[i] = dec ? 1 : 0;
+    a.exit_rel[i] = ex;
+  }
+}
+
+}  // namespace
+
+// `mode`, `blocks` and `threads` come from the wrapper's launch geometry
+// (cascade_kernel.lane_geometry); modes 1 and 2 take whole warps.  A
+// stop_stage of INT_MAX flags no lane.
+extern "C" int cascade_lane_launch(
+    const float* g0, const float* scores, const int* stages,
+    const float* eps_pos, const float* eps_neg, const bool* col_valid,
+    const int* n_valid_dev, int n_valid_host, int cap, int W, int n_stages,
+    int stop_stage, int vec, int mode, int blocks, int threads, float* g_out,
+    int* active_out, int* dec_out, int* exit_out, int* pack_out,
+    int* count_out, cudaStream_t stream) {
+  const LaneArgs a{g0, scores, stages, eps_pos, eps_neg, col_valid,
+                   n_valid_dev, n_valid_host, cap, W, n_stages, stop_stage,
+                   vec, g_out, active_out, dec_out, exit_out, pack_out,
+                   count_out};
+  switch (mode) {
+    case 0:
+      lane_kernel<0><<<blocks, threads, 0, stream>>>(a);
+      break;
+    case 1:
+      lane_kernel<1><<<blocks, threads, 0, stream>>>(a);
+      break;
+    case 2:
+      lane_kernel<2><<<blocks, threads, 0, stream>>>(a);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -140,27 +140,6 @@ __device__ int block_inclusive_scan(int v, int* s_warp, int* total) {
   return v + (warp > 0 ? s_warp[warp - 1] : 0);
 }
 
-// The same sum for a 0/1 flag in one barrier: a warp's prefix is a ballot's
-// popcount, and each thread adds the lower warps' counts.  The matrix step
-// kernel's scan (0.1 us a launch faster there); the cluster step kernels
-// keep block_inclusive_scan, which was 0.1-0.2 us faster for them (PERF.md).
-__device__ int block_flag_scan(bool v, int* s_warp, int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, v);
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  int off = 0, all = 0;
-  for (int w = 0; w < n_warps; ++w) {
-    const int c = s_warp[w];
-    off += w < warp ? c : 0;
-    all += c;
-  }
-  *total = all;
-  return off + __popc(ballot & (0xffffffffu >> (31 - lane)));
-}
-
 struct Outputs {
   float* g;
   int* active;

@@ -10,14 +10,20 @@ the single source of the step semantics on tensors; its CUDA twin is
   (N, T) score matrix (``ops.cascade_decide``, the eager Filter-and-Score
   evaluation of the paper's tables).
 * B2 ``cascade_chunk_kernel``: one stage's walk, the serving path's decide.
-* B6 ``cascade_lane_kernel``: B2 with a threshold row per lane, the decide
-  of the unfused streaming step (``csrc/cascade_lane.cu``).
+* B6 ``cascade_lane_step``: the decide of the unfused streaming step, each
+  lane walking its scores with the threshold rows and column mask of its
+  own stage, read in place from the plan's (S, W) tables, and the step's
+  compaction ``pack`` / ``n_keep`` (``csrc/cascade_lane.cu``).  The
+  JAX-shaped ``cascade_lane_kernel`` (per-row (m, ct) threshold slabs, no
+  compaction) runs the same kernel.
 * B8 ``cascade_group_kernel``: the group decide of a ranking cascade, a
-  query's top-k stability margin and its exit (``csrc/cascade_group.cu``).
+  query's top-k stability margin and its exit, and with ``rows`` the
+  group's top-k picks (``csrc/cascade_group.cu``).
 
 Each wrapper sends a CPU tensor to its plain version (``cascade_plain``,
-``cascade_chunk_plain``, ``cascade_lane_plain``, ``cascade_group_plain``)
-and a CUDA tensor to the hand-written kernel (or raises).
+``cascade_chunk_plain``, ``cascade_lane_plain``, ``cascade_lane_step_plain``,
+``cascade_group_plain`` and ``group_topk_rows``) and a CUDA tensor to the
+hand-written kernel (or raises).
 """
 
 from __future__ import annotations
@@ -30,9 +36,15 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK_N = 256
 DEFAULT_CHUNK_T = 8
-# groups per CTA of B8 (one warp each), and the group-capacity quantum of
-# the grouped stage loop, as the reference's block_g
+# the group-capacity quantum of the grouped stage loop, as the reference's
+# block_g
 DEFAULT_BLOCK_G = 8
+# B8's widest bucket (one CTA a group, its scores staged in shared memory)
+# and the most groups a CTA of its warp form takes (one warp each)
+MAX_GROUP_WIDTH = 4096
+MAX_CTA_GROUPS = 8
+# B6's stop stage for a walk that flags no lane
+NO_STOP = 2**31 - 1
 
 __all__ = [
     "threshold_step",
@@ -42,15 +54,21 @@ __all__ = [
     "cascade_chunk_plain",
     "cascade_lane_kernel",
     "cascade_lane_plain",
+    "cascade_lane_step",
+    "cascade_lane_step_plain",
     "cascade_group_kernel",
     "cascade_group_plain",
+    "combine_blocks",
+    "group_geometry",
+    "group_topk_rows",
+    "lane_geometry",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 _CASCADE_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
-_LANE_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_GROUP_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+_LANE_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P] * 7
+_GROUP_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P] * 4
 
 
 def threshold_step(g, active, decided_pos, exit_step, f_t, ep, en, step_1b):
@@ -181,6 +199,74 @@ def cascade_lane_plain(
     return g, active.to(torch.int32), dec.to(torch.int32), ex
 
 
+def lane_geometry(cap: int, block_n: int, compact: bool) -> tuple[int, int, int]:
+    """B6's launch: ``(mode, blocks, threads)``.  Without compaction (the
+    JAX-shaped form) mode 0 over CTAs of ``block_n`` lanes.  With it, up to
+    1024 lanes run in one CTA of whole warps that writes the pack positions
+    and ``n_keep`` itself (mode 1); past that, CTAs of ``block_n`` rounded up
+    to whole warps write block-local prefixes and counts (mode 2), which
+    ``combine_blocks`` turns into pack positions."""
+    if not 1 <= block_n <= 1024:
+        raise ValueError(f"cascade_lane: block_n {block_n} not in [1, 1024]")
+    if not compact:
+        return 0, -(-cap // block_n), block_n
+    if cap <= 1024:
+        return 1, 1, max(32, -(-cap // 32) * 32)
+    bn = -(-block_n // 32) * 32
+    return 2, -(-cap // bn), bn
+
+
+def combine_blocks(outs, cap: int, bn: int, stop=None):
+    """Per-block prefixes + counts -> global pack positions: a (n_blocks,)
+    exclusive scan instead of a cap-wide cumsum.  Retired lanes, and lanes
+    flagged ``stop`` (B6, B7), aim at ``cap``, the buffers' trash slot.
+    ``outs`` is ``(g, active, decided_pos, exit_rel, pfx, cnt)``, ``bn`` the
+    lanes a block."""
+    g, act, dec, ex, pfx, cnt = outs
+    off = torch.cumsum(cnt, dim=0, dtype=torch.int32) - cnt  # exclusive
+    lane = torch.arange(cap, device=g.device)
+    posg = pfx + off[lane // bn]
+    keep = act.bool() if stop is None else act.bool() & ~stop
+    pack = torch.where(keep, posg, cap)
+    return g, act, dec, ex, pack, cnt.sum(dtype=torch.int32)
+
+
+def _lane_launch(g0, scores, stage, eps_pos, eps_neg, col_valid, n_valid, *,
+                 stop_stage: int, mode: int, blocks: int, threads: int):
+    """One launch of ``csrc/cascade_lane.cu``: ``(g, active, decided_pos,
+    exit_rel, pack, count)`` (pack and count None in mode 0, count a 0-d
+    tensor in mode 1, (blocks,) in mode 2)."""
+    cap, W = scores.shape
+    dev = scores.device
+    i32 = torch.int32
+    g = torch.empty(cap, dtype=torch.float32, device=dev)
+    act, dec, ex = (torch.empty(cap, dtype=i32, device=dev) for _ in range(3))
+    pack = count = None
+    if mode:
+        pack = torch.empty(cap, dtype=i32, device=dev)
+        count = torch.empty(() if mode == 1 else blocks, dtype=i32, device=dev)
+    if cap == 0:
+        if count is not None:
+            count.zero_()
+        return g, act, dec, ex, pack, count
+    nv_ptr, nv_host = _build.n_valid_args(n_valid, cap, dev)
+    # 16-byte loads of a lane's rows where W and the alignment allow them
+    vec = W % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (scores, eps_pos, eps_neg)
+    ) and (col_valid is None or col_valid.data_ptr() % 8 == 0)
+    fn = _build.function("cascade_lane", "cascade_lane_launch", _LANE_ARGTYPES)
+    err = fn(
+        g0.data_ptr(), scores.data_ptr(), _build.ptr(stage), eps_pos.data_ptr(),
+        eps_neg.data_ptr(), _build.ptr(col_valid), nv_ptr, nv_host, cap, W,
+        eps_pos.shape[0], stop_stage, int(vec), mode, blocks, threads, g.data_ptr(),
+        act.data_ptr(), dec.data_ptr(), ex.data_ptr(), _build.ptr(pack),
+        _build.ptr(count), _build.stream(dev),
+    )
+    _build.check("cascade_lane", err, "cascade_lane")
+    _build.LAUNCHES["cascade_lane"] += 1
+    return g, act, dec, ex, pack, count
+
+
 def cascade_lane_kernel(
     g0: torch.Tensor,
     chunk_scores: torch.Tensor,
@@ -189,10 +275,11 @@ def cascade_lane_kernel(
     block_n: int = DEFAULT_BLOCK_N,
     n_valid=None,
 ):
-    """Threshold tests for ONE mixed-stage chunk (B6), same contract as
-    ``cascade_lane_plain``: ``eps_pos``/``eps_neg`` are (m, ct), each row's
-    thresholds gathered at its own stage.  ``n_valid`` and ``block_n`` as
-    in ``cascade_chunk_kernel``.
+    """Threshold tests for ONE mixed-stage chunk (B6 in the reference's
+    form), same contract as ``cascade_lane_plain``: ``eps_pos``/``eps_neg``
+    are (m, ct), each row's thresholds gathered at its own stage.  It runs
+    B6's kernel with lane i at table row i, no column mask, no stop and no
+    compaction.  ``n_valid`` and ``block_n`` as in ``cascade_chunk_kernel``.
     """
     if chunk_scores.device.type == "cpu":
         return cascade_lane_plain(g0, chunk_scores, eps_pos, eps_neg, n_valid)
@@ -209,24 +296,94 @@ def cascade_lane_kernel(
             f"cascade_lane: g0 {tuple(g0.shape)}, eps {tuple(eps_pos.shape)}/"
             f"{tuple(eps_neg.shape)} do not fit scores {(m, ct)}"
         )
-    if not 1 <= block_n <= 1024:
-        raise ValueError(f"cascade_lane: block_n {block_n} not in [1, 1024]")
-    dev = chunk_scores.device
-    g = torch.empty(m, dtype=f32, device=dev)
-    active, dec, ex = (torch.empty(m, dtype=torch.int32, device=dev) for _ in range(3))
-    if m == 0:
-        return g, active, dec, ex
-    nv_ptr, nv_host = _build.n_valid_args(n_valid, m, dev)
-    fn = _build.function("cascade_lane", "cascade_lane_launch", _LANE_ARGTYPES)
-    err = fn(
-        g0.data_ptr(), chunk_scores.data_ptr(), eps_pos.data_ptr(),
-        eps_neg.data_ptr(), nv_ptr, nv_host, m, ct, int(block_n),
-        g.data_ptr(), active.data_ptr(), dec.data_ptr(), ex.data_ptr(),
-        _build.stream(dev),
+    mode, blocks, threads = lane_geometry(m, block_n, compact=False)
+    return _lane_launch(
+        g0, chunk_scores, None, eps_pos, eps_neg, None, n_valid,
+        stop_stage=NO_STOP, mode=mode, blocks=blocks, threads=threads,
+    )[:4]
+
+
+def cascade_lane_step_plain(
+    g0: torch.Tensor,
+    scores: torch.Tensor,
+    stage: torch.Tensor,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    col_valid: torch.Tensor,
+    n_valid=None,
+):
+    """Plain version of B6's step form (any device): the unfused streaming
+    step's decide as the reference writes it -> ``(g, active i32,
+    decided_pos i32, exit_rel i32, pack i32, n_keep)``.  Each lane's scores
+    are masked by its stage's ``col_valid`` row, it walks them with its
+    stage's threshold rows (``cascade_lane_plain``), and the lanes that stay
+    active and are not at the last stage (S - 1) are packed to the front by
+    a cumsum: ``pack`` is each one's destination, ``cap`` for the others,
+    and ``n_keep`` (a 0-d int32 tensor) their count."""
+    S = eps_pos.shape[0]
+    cap = g0.shape[0]
+    i32 = torch.int32
+    scores = torch.where(col_valid[stage], scores, 0.0)
+    g, active, dpos, ex_rel = cascade_lane_plain(
+        g0, scores, eps_pos[stage], eps_neg[stage], n_valid
     )
-    _build.check("cascade_lane", err, "cascade_lane")
-    _build.LAUNCHES["cascade_lane"] += 1
-    return g, active, dec, ex
+    keep = active.bool() & ~(stage >= S - 1)
+    pack = torch.where(keep, torch.cumsum(keep, dim=0, dtype=i32) - 1, cap)
+    return g, active, dpos, ex_rel, pack, keep.sum(dtype=i32)
+
+
+def cascade_lane_step(
+    g0: torch.Tensor,
+    scores: torch.Tensor,
+    stage: torch.Tensor,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    col_valid: torch.Tensor,
+    n_valid=None,
+    block_n: int = DEFAULT_BLOCK_N,
+):
+    """One unfused streaming step's decide and compaction (B6), same
+    contract as ``cascade_lane_step_plain``.
+
+    ``g0`` (cap,) f32 the lanes' partial sums, ``scores`` (cap, W) f32 the
+    lanes' stage scores, ``stage`` (cap,) int32 each lane's stage,
+    ``eps_pos``/``eps_neg`` (S, W) f32 and ``col_valid`` (S, W) bool the
+    plan's tables, read in place at each lane's stage; ``n_valid`` as in
+    ``cascade_chunk_kernel``.  Up to 1024 lanes it is one launch; past
+    that, one launch and ``combine_blocks`` over CTAs of ``block_n``.
+    """
+    if scores.device.type == "cpu":
+        return cascade_lane_step_plain(
+            g0, scores, stage, eps_pos, eps_neg, col_valid, n_valid
+        )
+    if scores.device.type != "cuda":
+        raise ValueError(f"cascade_lane: unsupported device {scores.device}")
+    f32 = torch.float32
+    _build.check_cuda(
+        "cascade_lane", ("scores", scores, f32), ("g0", g0, f32),
+        ("stage", stage, torch.int32), ("eps_pos", eps_pos, f32),
+        ("eps_neg", eps_neg, f32), ("col_valid", col_valid, torch.bool),
+    )
+    cap, W = scores.shape
+    S = eps_pos.shape[0]
+    if (
+        g0.shape != (cap,) or stage.shape != (cap,) or S < 1
+        or eps_pos.shape != (S, W) or eps_neg.shape != (S, W)
+        or col_valid.shape != (S, W)
+    ):
+        raise ValueError(
+            f"cascade_lane: g0 {tuple(g0.shape)}, stage {tuple(stage.shape)}, eps "
+            f"{tuple(eps_pos.shape)}/{tuple(eps_neg.shape)}, col_valid "
+            f"{tuple(col_valid.shape)} do not fit scores {(cap, W)}"
+        )
+    mode, blocks, threads = lane_geometry(cap, block_n, compact=True)
+    outs = _lane_launch(
+        g0, scores, stage, eps_pos, eps_neg, col_valid, n_valid,
+        stop_stage=S - 1, mode=mode, blocks=blocks, threads=threads,
+    )
+    if mode == 1:
+        return outs
+    return combine_blocks(outs, cap, threads, stop=stage >= S - 1)
 
 
 def cascade_plain(
@@ -356,15 +513,68 @@ def cascade_group_plain(
     return margin, exit_g.to(torch.int32)
 
 
+def group_topk_rows(g, valid, rows, k: int) -> torch.Tensor:
+    """Per-group top-k GLOBAL document ids over a (G, B) bucket layout: the
+    picks of B8's plain version (``cascade_group_kernel`` with ``rows``).
+
+    The reference takes k segment-max passes, each consuming its first
+    (lowest-lane) hit; its picks are a group's valid lanes in the order
+    (score descending, lane ascending).  Here that order comes from one
+    stable descending sort of an exact int64 key per lane: the score's f32
+    bits mapped to an order-preserving integer (-0.0 taken as +0.0, as
+    ``==`` takes them), times two, plus the valid bit, so a valid lane
+    precedes an invalid one of equal score (-inf) and equal keys keep lane
+    order.  A NaN on a valid lane makes every one of the reference's passes
+    NaN, so no lane is consumed: such a group gets no picks.  Returns (G,
+    k) int32 ids, -1 past the group's size and in a group with a valid NaN.
+    """
+    G, B = g.shape
+    dev = g.device
+    ok = valid != 0
+    w = torch.where(ok, g, float("-inf"))
+    w = torch.where(w == 0, 0.0, w)
+    bits = w.view(torch.int32).long()
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * 2 + ok.long()
+    lanes = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+    picked = torch.gather(rows, 1, lanes).to(torch.int32)
+    pos = torch.arange(lanes.shape[1], device=dev)
+    live = pos[None, :] < ok.sum(dim=1, keepdim=True)
+    live = live & ~(ok & torch.isnan(g)).any(dim=1, keepdim=True)
+    picked = torch.where(live, picked, -1)
+    if lanes.shape[1] < k:  # k > B: the tail is always past the group's size
+        picked = torch.nn.functional.pad(picked, (0, k - lanes.shape[1]), value=-1)
+    return picked
+
+
+def group_geometry(G: int, B: int, sm_count: int) -> tuple[int, int, int]:
+    """B8's launch: ``(blocks, threads, shared memory bytes)``.  Up to 32
+    lanes a group is one warp, with as many groups a CTA (at most
+    ``MAX_CTA_GROUPS``) as spread G groups over about one CTA an SM; a
+    wider group is one CTA of up to 1024 threads, its B scores staged in
+    shared memory.  Raises past ``MAX_GROUP_WIDTH``."""
+    if not 1 <= B <= MAX_GROUP_WIDTH:
+        raise ValueError(
+            f"cascade_group: bucket width B = {B} not in [1, MAX_GROUP_WIDTH = "
+            f"{MAX_GROUP_WIDTH}]"
+        )
+    if B <= 32:
+        per = max(1, min(MAX_CTA_GROUPS, -(-G // sm_count)))
+        return -(-G // per), 32 * per, 0
+    return G, min(1024, -(-B // 32) * 32), 4 * B
+
+
 def cascade_group_kernel(
     g: torch.Tensor,
     valid: torch.Tensor,
     eps: torch.Tensor,
     k: int,
     n_live=None,
+    rows=None,
 ):
-    """Group decide over one (G, B) bucket layout (B8), same contract as
-    ``cascade_group_plain``.
+    """Group decide over one (G, B) bucket layout (B8) -> ``(margin (G,)
+    f32, exit (G,) int32)``, and with ``rows`` also ``picks``: the contract
+    of ``cascade_group_plain``, followed by ``group_topk_rows`` when
+    ``rows`` is given.
 
     ``g`` (G, B) float32 carries each group's partial document scores,
     ``valid`` (G, B) int32 marks real lanes, ``eps`` (G,) float32 is each
@@ -372,34 +582,50 @@ def cascade_group_kernel(
     tensor on the device) marks only the first groups live: the grouped
     stage loop keeps live groups front-packed and the count on the card.
     Margins are reported for every group, exits only for live ones.
+    ``rows`` (G, B) int64 holds the lanes' global row ids; ``picks`` (G, k)
+    int32 are those of each group's first k valid lanes in the order (score
+    descending, lane ascending), -1 past the group's size and in a group
+    with a valid NaN.
     """
     if g.device.type == "cpu":
-        return cascade_group_plain(g, valid, eps, k, n_live)
+        margin, exit_g = cascade_group_plain(g, valid, eps, k, n_live)
+        if rows is None:
+            return margin, exit_g
+        return margin, exit_g, group_topk_rows(g, valid, rows, k)
     if g.device.type != "cuda":
         raise ValueError(f"cascade_group: unsupported device {g.device}")
-    _build.check_cuda(
-        "cascade_group", ("g", g, torch.float32), ("valid", valid, torch.int32),
-        ("eps", eps, torch.float32),
-    )
-    if g.ndim != 2 or valid.shape != g.shape or eps.shape != g.shape[:1]:
+    checks = [("g", g, torch.float32), ("valid", valid, torch.int32),
+              ("eps", eps, torch.float32)]
+    if rows is not None:
+        checks.append(("rows", rows, torch.int64))
+    _build.check_cuda("cascade_group", *checks)
+    if (
+        g.ndim != 2 or valid.shape != g.shape or eps.shape != g.shape[:1]
+        or (rows is not None and rows.shape != g.shape)
+    ):
         raise ValueError(
             f"cascade_group: g {tuple(g.shape)}, valid {tuple(valid.shape)}, eps "
-            f"{tuple(eps.shape)} are not (G, B), (G, B), (G,)"
+            f"{tuple(eps.shape)}, rows {None if rows is None else tuple(rows.shape)} "
+            f"are not (G, B), (G, B), (G,), (G, B)"
         )
     G, B = g.shape
-    if k < 1 or B < 1:
-        raise ValueError(f"cascade_group: k = {k} and B = {B} must be >= 1")
+    if k < 1:
+        raise ValueError(f"cascade_group: k = {k} must be >= 1")
     dev = g.device
+    blocks, threads, smem = group_geometry(G, B, _build.sm_count(dev))
     margin = torch.empty(G, dtype=torch.float32, device=dev)
     exit_g = torch.empty(G, dtype=torch.int32, device=dev)
-    if G == 0:
+    picks = None if rows is None else torch.empty(G, k, dtype=torch.int32, device=dev)
+    if G:
+        nl_ptr, nl_host = _build.n_valid_args(n_live, G, dev)
+        fn = _build.function("cascade_group", "cascade_group_launch", _GROUP_ARGTYPES)
+        err = fn(
+            g.data_ptr(), valid.data_ptr(), eps.data_ptr(), _build.ptr(rows), nl_ptr,
+            nl_host, G, B, int(k), blocks, threads, smem, margin.data_ptr(),
+            exit_g.data_ptr(), _build.ptr(picks), _build.stream(dev),
+        )
+        _build.check("cascade_group", err, "cascade_group")
+        _build.LAUNCHES["cascade_group"] += 1
+    if rows is None:
         return margin, exit_g
-    nl_ptr, nl_host = _build.n_valid_args(n_live, G, dev)
-    fn = _build.function("cascade_group", "cascade_group_launch", _GROUP_ARGTYPES)
-    err = fn(
-        g.data_ptr(), valid.data_ptr(), eps.data_ptr(), nl_ptr, nl_host, G, B,
-        int(k), margin.data_ptr(), exit_g.data_ptr(), _build.stream(dev),
-    )
-    _build.check("cascade_group", err, "cascade_group")
-    _build.LAUNCHES["cascade_group"] += 1
-    return margin, exit_g
+    return margin, exit_g, picks

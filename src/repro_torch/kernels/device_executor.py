@@ -39,8 +39,9 @@ or trigger an exit.
 ``_stream_program``): the survivor buffer becomes a set of ``cap`` lanes
 that a ring of ``R`` pending rows refills as lanes free up, each lane at
 its own stage.  A step is the admission refill, one mixed-stage kernel
-(B7, ``mega_lane``; or the scorer's ``lane_fn`` and the lane decide B6),
-the finished rows' scatters and the repack.  Every buffer indexed by a row
+(B7, ``mega_lane``; or the scorer's ``lane_fn`` and the lane decide B6,
+which reads the stage tables in place and writes the pack positions), the
+finished rows' scatters and the repack.  Every buffer indexed by a row
 id has ``R + 1`` entries, the trash slot at ``R``.  The number of steps
 depends on the data, so the loop is enqueued in bursts: after each burst
 the live count and the ring head come back in one two-word transfer, and
@@ -54,7 +55,8 @@ the steps where the reference's loop condition held, so ``steps_run``,
 ``_grouped_program``): the batch stage loop at GROUP granularity.  The
 buffers are (cap_g, B) bucket-layout rectangles, a query group is B
 contiguous lanes, and the decide is the group decide (B8, top-k
-stability margin) instead of the row threshold test.  Groups exit as a
+stability margin, and the group's top-k picks) instead of the row
+threshold test.  Groups exit as a
 unit, live groups stay front-packed (whole-group compaction, trash slot
 ``cap_g``), and ``n_active`` counts live groups on the device, read by
 B8 as ``n_live``.  As in the reference it always runs the scorer's stage
@@ -78,7 +80,8 @@ from repro_torch.kernels.cascade_kernel import (
     DEFAULT_BLOCK_G,
     cascade_chunk_kernel,
     cascade_group_kernel,
-    cascade_lane_kernel,
+    cascade_lane_step,
+    group_topk_rows,
 )
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
@@ -416,34 +419,6 @@ class GroupedResult:
     scores_possible: int
 
 
-def group_topk_rows(g, valid, rows, k: int) -> torch.Tensor:
-    """Per-group top-k GLOBAL document ids over a (G, B) bucket layout.
-
-    The reference takes k segment-max passes, each consuming its first
-    (lowest-lane) hit; its picks are a group's valid lanes in the order
-    (score descending, lane ascending).  Here that order comes from one
-    stable descending sort of an exact int64 key per lane: the score's f32
-    bits mapped to an order-preserving integer (-0.0 taken as +0.0, as
-    ``==`` takes them), times two, plus the valid bit, so a valid lane
-    precedes an invalid one of equal score (-inf) and equal keys keep lane
-    order.  Returns (G, k) int32 ids, -1 past the group's size.
-    """
-    G, B = g.shape
-    dev = g.device
-    ok = valid != 0
-    w = torch.where(ok, g, float("-inf"))
-    w = torch.where(w == 0, 0.0, w)
-    bits = w.view(torch.int32).long()
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) * 2 + ok.long()
-    lanes = torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
-    picked = torch.gather(rows, 1, lanes).to(torch.int32)
-    pos = torch.arange(lanes.shape[1], device=dev)
-    picked = torch.where(pos[None, :] < ok.sum(dim=1, keepdim=True), picked, -1)
-    if lanes.shape[1] < k:  # k > B: the tail is always past the group's size
-        picked = torch.nn.functional.pad(picked, (0, k - lanes.shape[1]), value=-1)
-    return picked
-
-
 class DeviceExecutor:
     """Runs a ``CascadePlan`` on one device with no host sync in the stage
     loop (see the module docstring).
@@ -687,17 +662,13 @@ class DeviceExecutor:
                         self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
                     )
                 else:
+                    # B6 reads each lane's threshold rows and column mask at
+                    # its stage, and packs the survivors (a stage further on)
                     scores = self.scorer.lane_stage(t0_lane, rows, x, n_live)
-                    scores = torch.where(self._col_valid[stage], scores, 0.0)
-                    g_new, active, dpos, ex_rel = cascade_lane_kernel(
-                        g, scores.contiguous(), self._eps_pos[stage],
-                        self._eps_neg[stage], block_n=self.block_n, n_valid=n_live,
+                    g_new, active, dpos, ex_rel, pack, n_keep = cascade_lane_step(
+                        g, scores.contiguous(), stage, self._eps_pos, self._eps_neg,
+                        self._col_valid, n_valid=n_live, block_n=self.block_n,
                     )
-                    # cumsum-prefix compaction: survivors advance a stage
-                    keep = active.bool() & ~stop
-                    pos = torch.cumsum(keep, dim=0, dtype=i32) - 1
-                    pack = torch.where(keep, pos, cap)
-                    n_keep = keep.sum(dtype=i32)
                 # B6 and B7 start lanes past n_live inactive, so only live
                 # lanes exit (ex_rel > 0) or run out (still active at their
                 # last stage: decided by the full score, as the batch path's
@@ -861,9 +832,11 @@ class DeviceExecutor:
             for j in range(W):
                 g_flat = g_flat + scores[:, j]
             g_new = g_flat.reshape(cap_g, B)
-            margin, exit_g = cascade_group_kernel(g_new, valid2d, eps_b[s], k, n_live=n_active)
-            exit_b = exit_g.bool()  # live-gated inside B8
-            verdict = group_topk_rows(g_new, valid2d, rows2d, k)
+            # B8 decides and picks each group's top k (live-gated exits)
+            margin, exit_g, verdict = cascade_group_kernel(
+                g_new, valid2d, eps_b[s], k, n_live=n_active, rows=rows2d
+            )
+            exit_b = exit_g.bool()
             scat = torch.where(exit_b, gids, cap_g)
             verd[scat] = verdict
             exst[scat] = s + 1
@@ -877,10 +850,11 @@ class DeviceExecutor:
             g2d = repack(g_new, pack, 0.0)
             n_active = keep.sum(dtype=i32)
         # ran-out groups carry the full cascade's ranking; B8 at eps = +inf
-        # gives their margins
+        # gives their margins and picks
         inf = torch.full((cap_g,), float("inf"), dtype=torch.float32, device=dev)
-        margin_f, _ = cascade_group_kernel(g2d, valid2d, inf, k, n_live=n_active)
-        verdict_f = group_topk_rows(g2d, valid2d, rows2d, k)
+        margin_f, _, verdict_f = cascade_group_kernel(
+            g2d, valid2d, inf, k, n_live=n_active, rows=rows2d
+        )
         scat = torch.where(grp < n_active, gids, cap_g)
         verd[scat] = verdict_f
         exst[scat] = S

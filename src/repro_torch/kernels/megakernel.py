@@ -8,7 +8,7 @@ three passes over the survivor buffer: the score kernel (B3 or B5) writes a
 cumsum packs the survivors.  ``csrc/mega_stage.cu`` fuses them into one
 kernel per row block: select the stage's slab, score its W models, walk
 ``threshold_step`` W times, and emit the block-local compaction prefix and
-the block's survivor count; ``_combine_blocks`` turns those into pack
+the block's survivor count; ``combine_blocks`` turns those into pack
 positions with a (n_blocks,) exclusive scan.  The lattice variant scores
 with the arithmetic of ``csrc/lattice.cuh``, shared with B5, and its plain
 version calls ``apply_lattice_scores``, so fused and unfused lattice
@@ -55,7 +55,7 @@ import torch
 
 from repro_torch.ensembles.lattice import apply_lattice_scores, interpolate
 from repro_torch.kernels import _build
-from repro_torch.kernels.cascade_kernel import threshold_step
+from repro_torch.kernels.cascade_kernel import combine_blocks, threshold_step
 from repro_torch.kernels.lattice_kernel import MAX_DIMS
 
 __all__ = [
@@ -564,19 +564,6 @@ def mega_stage_kernel(
     return g, act, dec, ex, pfx, cnt
 
 
-def _combine_blocks(outs, cap: int, bn: int, stop=None):
-    """Per-block prefixes + counts -> global pack positions: a (n_blocks,)
-    exclusive scan instead of a cap-wide cumsum.  Retired lanes, and lanes
-    flagged ``stop`` (B7), aim at ``cap``, the buffers' trash slot."""
-    g, act, dec, ex, pfx, cnt = outs
-    off = torch.cumsum(cnt, dim=0, dtype=torch.int32) - cnt  # exclusive
-    lane = torch.arange(cap, device=g.device)
-    posg = pfx + off[lane // bn]
-    keep = act.bool() if stop is None else act.bool() & ~stop
-    pack = torch.where(keep, posg, cap)
-    return g, act, dec, ex, pack, cnt.sum(dtype=torch.int32)
-
-
 def mega_stage(
     slabs: ParamSlabs, x, g0, stage: int, t0: int, n_valid, eps_pos, eps_neg,
     *, block_n: int, rows=None,
@@ -591,7 +578,7 @@ def mega_stage(
         rows=rows,
     )
     bn, _ = _block_geometry(g0.shape[0], block_n)
-    return _combine_blocks(outs, g0.shape[0], bn)
+    return combine_blocks(outs, g0.shape[0], bn)
 
 
 # ---------------------------------------------------------------------------
@@ -754,4 +741,4 @@ def mega_lane(
         block_n=block_n,
     )
     bn, _ = _block_geometry(g0.shape[0], block_n)
-    return _combine_blocks(outs, g0.shape[0], bn, stop=stop)
+    return combine_blocks(outs, g0.shape[0], bn, stop=stop)

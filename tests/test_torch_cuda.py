@@ -21,6 +21,7 @@ from repro_torch.ensembles.lattice import init_lattice_ensemble
 from repro_torch.kernels.cascade_kernel import (
     cascade_chunk_kernel,
     cascade_chunk_plain,
+    cascade_group_plain,
     cascade_kernel,
     cascade_lane_kernel,
     cascade_lane_plain,
@@ -541,6 +542,108 @@ def test_cascade_group_kernel_equals_plain(dev, B, k, n_live):
     assert _build.LAUNCHES["cascade_group"] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _group_case(seed, G, B, kind):
+    """(g, valid, rows) for B8's picks: integer ties, -0.0 / +0.0 ties, -inf
+    on valid lanes, or a group with a valid NaN and one with a valid -NaN
+    among drawn ones; ragged sizes, an empty group."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(-3, 4, size=(G, B)).astype(np.float32)
+    if kind == "signed zeros":
+        g = np.where(g == 0, np.where(rng.uniform(size=(G, B)) < 0.5, -0.0, 0.0), g)
+        g = g.astype(np.float32)
+    elif kind == "-inf":
+        g[rng.uniform(size=(G, B)) < 0.3] = -np.inf
+    elif kind == "nan":
+        g[1::2] += rng.normal(scale=0.3, size=(G, B))[1::2].astype(np.float32)
+        g[2, rng.integers(B)] = np.nan
+        g[5, rng.integers(B)] = -np.float32(np.nan)
+    sizes = rng.integers(1, B + 1, size=G)
+    sizes[:2] = [0, B]
+    if kind == "nan":
+        sizes[2] = sizes[5] = B
+    valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+    rows = rng.integers(0, 1 << 30, size=(G, B)).astype(np.int64)
+    return g, valid, rows
+
+
+def _same_margin(a, b) -> bool:
+    """Bits, except that a zero margin between a -0.0 and a +0.0 may take
+    either sign: the plain version's max returns either zero of a tie."""
+    zero = (a == 0) & (b == 0)
+    return torch.equal(torch.where(zero, 0, a.view(torch.int32)),
+                       torch.where(zero, 0, b.view(torch.int32)))
+
+
+@pytest.mark.parametrize("kind", ["ties", "signed zeros", "-inf", "nan"])
+@pytest.mark.parametrize("k_of", ["1", "10", "B+3"])
+@pytest.mark.parametrize("B", [1, 4, 31, 32, 33, 64, 256])
+def test_cascade_group_picks_equal_plain(dev, B, k_of, kind):
+    """B8 with ``rows``: picks, exits and margins equal the plain version
+    (``cascade_group_plain`` + ``group_topk_rows``) for n_live None, a
+    device scalar (0 and below G) and a host int; one launch a call."""
+    from repro_torch.kernels.cascade_kernel import cascade_group_kernel
+
+    k = {"1": 1, "10": 10, "B+3": B + 3}[k_of]
+    G = 37
+    g, valid, rows = _group_case(B + 7 * k, G, B, kind)
+    eps = np.random.default_rng(B).uniform(0.0, 2.0, size=G).astype(np.float32)
+    eps[3], eps[4] = np.inf, 0.0
+    args = [_t(g, dev), _t(valid, dev), _t(eps, dev), k]
+    r, cpu = _t(rows, dev), [torch.from_numpy(a) for a in (g, valid, eps)] + [k]
+    for n_live in (None, 0, 20, "host"):
+        nl = {None: None, "host": 29}.get(n_live)
+        if isinstance(n_live, int):
+            nl = torch.tensor(n_live, dtype=torch.int32, device=dev)
+        before = _build.LAUNCHES["cascade_group"]
+        m, e, p = cascade_group_kernel(*args, n_live=nl, rows=r)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["cascade_group"] == before + 1
+        wm, we, wp = cascade_group_kernel(*cpu, n_live=None if nl is None else int(nl),
+                                          rows=torch.from_numpy(rows))
+        assert torch.equal(p.cpu(), wp) and torch.equal(e.cpu(), we)
+        pm, pe = cascade_group_plain(*args, n_live=nl)
+        assert _same_margin(m, pm) and torch.equal(e, pe)
+    if kind == "nan":
+        assert (p[2] == -1).all() and (p[5] == -1).all()
+
+
+@pytest.mark.parametrize("n_valid", [None, 0, 100, "host"])
+@pytest.mark.parametrize("cap", [256, 1024, 1300])
+def test_cascade_lane_step_equals_plain(dev, cap, n_valid):
+    """B6's step form: lanes spread over S stages, a last stage narrower
+    than W (masked columns), stop lanes, -0.0 partial sums; one launch
+    (one CTA up to 1024 lanes, block prefixes and a combine past that)
+    and all six outputs equal the plain version (``g`` by its bits)."""
+    from repro_torch.kernels.cascade_kernel import cascade_lane_step, cascade_lane_step_plain
+
+    rng = np.random.default_rng(cap)
+    S, W = 64, 8
+    stage = rng.integers(0, S, size=cap).astype(np.int32)
+    stage[:S] = np.arange(S)
+    ep = rng.uniform(0.5, 3.0, size=(S, W)).astype(np.float32)
+    en = -rng.uniform(0.5, 3.0, size=(S, W)).astype(np.float32)
+    col = np.ones((S, W), bool)
+    col[S - 1, 5:] = False
+    ep[S - 1, 5:], en[S - 1, 5:] = np.inf, -np.inf
+    scores = rng.normal(size=(cap, W)).astype(np.float32)
+    g0 = rng.normal(size=cap).astype(np.float32)
+    g0[::5] = -0.0
+    args = [_t(a, dev) for a in (g0, scores, stage, ep, en, col)]
+    nv = {None: None, "host": cap - 17}.get(n_valid)
+    if isinstance(n_valid, int):
+        nv = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["cascade_lane"]
+    got = cascade_lane_step(*args, n_valid=nv, block_n=64)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["cascade_lane"] == before + 1
+    want = cascade_lane_step_plain(*args, n_valid=nv)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if n_valid != 0:
+        assert 0 < int(got[5]) < cap and (got[3] > 0).any()
 
 
 def test_run_grouped_on_card_equals_cpu(dev):

@@ -87,3 +87,36 @@ def test_converted_model_evaluates_equal(mode):
         qwyc_model_from_numpy(
             np.zeros(16), jm.eps_pos, jm.eps_neg, 0.0, jm.costs, 0.0, mode
         )
+
+
+@pytest.mark.parametrize("side", ["neg", "pos"])
+def test_threshold_between_adjacent_doubles(side):
+    """The exact optimizer's threshold exits what it counts when the cut
+    falls between two adjacent doubles, where their midpoint rounds onto one
+    of them; elsewhere it agrees with the JAX reference."""
+    from repro.core.thresholds import optimize_threshold_sorted as j_sorted
+    from repro_torch.core.thresholds import optimize_threshold_sorted
+
+    sign = 1.0 if side == "neg" else -1.0
+    g = sign * np.array([0.0] * 9 + [np.nextafter(-100.0, 0.0), -100.0])
+    # the nearer of the pair is an error, so within budget 0 only the
+    # farther one may exit
+    fp = np.full(11, side == "pos")
+    fp[9] = side == "neg"
+    got = optimize_threshold_sorted(g, fp, 0, side)
+    exits = g < got.threshold if side == "neg" else g > got.threshold
+    errs = exits & (fp if side == "neg" else ~fp)
+    assert (got.n_exited, got.n_errors) == (1, 0)
+    assert (int(exits.sum()), int(errs.sum())) == (got.n_exited, got.n_errors)
+
+    rng = np.random.default_rng(0)
+    g = rng.normal(size=200)
+    fp = rng.uniform(size=200) < 0.4
+    for budget in (0, 3, 10):
+        got = optimize_threshold_sorted(g, fp, budget, side)
+        want = j_sorted(g, fp, budget, side)
+        assert (got.threshold, got.n_exited, got.n_errors) == (
+            want.threshold,
+            want.n_exited,
+            want.n_errors,
+        )

@@ -266,6 +266,38 @@ def test_group_topk_rows_matches_jax(B, k):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("k_of", ["1", "3", "B+3"])
+@pytest.mark.parametrize("B", [1, 2, 4, 31, 32, 33, 64])
+def test_group_topk_rows_nan_groups_match_jax(B, k_of):
+    """A valid NaN (or -NaN) in a group makes every one of the reference's
+    segment-max passes NaN, so it consumes no lane and picks nothing: the
+    port gives such a group all -1 too.  Beside those groups: -inf on
+    valid lanes, -0.0 / +0.0 ties, integer ties, a NaN on an invalid lane
+    only (masked) and an empty group."""
+    k = {"1": 1, "3": 3, "B+3": B + 3}[k_of]
+    rng = np.random.default_rng(100 * B + k)
+    G = 12
+    g = rng.integers(-2, 3, size=(G, B)).astype(np.float32)
+    g[G // 2 :] += rng.normal(scale=0.3, size=(G - G // 2, B)).astype(np.float32)
+    valid = (rng.uniform(size=(G, B)) < 0.75).astype(np.int32)
+    valid[:6, 0] = 1
+    g[1] = np.where(rng.uniform(size=B) < 0.5, -0.0, 0.0).astype(np.float32)
+    g[2, ::2] = -np.inf
+    g[3, rng.integers(B)] = np.nan
+    valid[3] = 1
+    g[4, 0] = -np.float32(np.nan)
+    g[5, 0], valid[5, 0] = np.nan, 0
+    valid[6] = 0
+    rows = rng.integers(0, 10_000, size=(G, B)).astype(np.int64)
+    want = np.asarray(
+        jde.group_topk_rows(jnp.asarray(g), jnp.asarray(valid), jnp.asarray(rows), k)
+    )
+    got = group_topk_rows(torch.from_numpy(g), torch.from_numpy(valid), torch.from_numpy(rows), k)
+    assert got.dtype == torch.int32 and got.shape == (G, k)
+    assert (want[3] == -1).all() and (want[4] == -1).all()
+    assert np.array_equal(got.numpy(), want)
+
+
 def _run_all_buckets(ex, F, sizes, gp, eps_g=None, cap=None):
     ordered = np.ascontiguousarray(F.astype(np.float32)[:, gp.plan.order])
     off = bucketing.group_offsets(sizes)
