@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Device time per call of the decide kernels B8 (``csrc/cascade_group.cu``)
-and B6 (``csrc/cascade_lane.cu``) with the PyTorch calls that their loops
-run beside them, and B2 as a control, for the ``repro_torch`` of one
-source tree.
+"""Device time per call of the decide kernels B8 (``csrc/cascade_group.cu``),
+B6 (``csrc/cascade_lane.cu``), B2 (``csrc/cascade_chunk.cu``) and B1
+(``csrc/cascade.cu``) with the PyTorch calls that their loops run beside
+them, for the ``repro_torch`` of one source tree.
 
     python benchmarks/torch/bench_decide_step.py [--src DIR] [--reps N]
         [--set module.NAME=VALUE,...] [--paths]
@@ -17,7 +17,10 @@ change, change, parent).  Each tree builds its kernels into its own
 The inputs are made from fixed seeds at the serving shapes.  B8: 256 group
 slots of bucket width 32, 200 live, ragged sizes, k 10 (the ranking
 drain's widest wave).  B6: 256 lanes at W 8 over the 64 stages of a
-T = 500 plan with a ragged last stage, all live.  Names:
+T = 500 plan with a ragged last stage, all live.  B2: the same plan's
+stage 5, 256 lanes, all live, their partial sums at permuted slots of a
+(257,) buffer.  B1: a (2000, 500) matrix with Filter-and-Score-like
+thresholds (negative exits only; rows drifting up never exit).  Names:
 
 * ``b8/picks``: what the tree's grouped loop runs a stage for the margin,
   the exit and the picks: B8 with ``rows=`` where the tree's B8 takes it,
@@ -30,7 +33,14 @@ T = 500 plan with a ragged last stage, all live.  Names:
   chain; ``b6/chain``: the stage tables gathered and the scores masked by
   PyTorch, B6 in the reference's form, the cumsum compaction;
   ``b6/reference_form``: that B6 launch alone;
-* ``control/cascade_chunk``: B2 on (256, 8) scores.
+* ``b2/step``: what the tree's unfused batch stage runs for the decide
+  and the compaction: B2's step form where the tree has it, else the
+  chain; ``b2/chain``: the partial sums gathered through the row ids, the
+  scores masked by the stage's column row, B2 in the reference's form,
+  the cumsum pack; ``b2/reference_form``: that B2 launch alone (the
+  control of earlier versions of this bench, ``control/cascade_chunk``);
+* ``b1/eager``: B1 on the (2000, 500) matrix, as ``ops.cascade_decide``
+  calls it.
 
 ``us`` is ``chip_smoke.device_time_ms``'s device time per call (every
 kernel and copy the call launches, over ``--reps`` calls, after a
@@ -44,10 +54,14 @@ GBT and fitted cascade (``bench_matrix_step.exp1_eager``'s, cached in
 of chip_smoke's phase 4d (the test rows cut into ragged queries, Poisson
 mean 16, seed 2031; ``api.fit(groups=, topk=10)`` at alpha 0.05 on the
 cascade's order; B3 + B8, 256 queries a flush) timed by
-``chip_smoke.rank_timing``, and the unfused streaming server (lane_fn +
-B6; capacity 256, window 1024, 256 requests a step) timed by
-``chip_smoke.stream_timing``: walls, PyTorch calls per grouped stage or
-step, busy shares, and the sorts the drain runs.
+``chip_smoke.rank_timing``, the unfused streaming server (lane_fn + B6;
+capacity 256, window 1024, 256 requests a step) timed by
+``chip_smoke.stream_timing``, and the unfused batch server (B3 + B2,
+sorted-kernel, chunk_t 8) at batch 128 / 256 / 1024 timed by
+``chip_smoke.flush_latency``, with the PyTorch calls of one batch-256
+flush a stage (``chip_smoke.unfused_calls`` where the tree's B2 has its
+step form; counted the same way otherwise): walls, PyTorch calls per
+grouped stage, step or stage, busy shares, and the sorts the drain runs.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line
 ``{"src": ..., "card": ..., "set": ..., "us": {...}, "host_us": {...},
@@ -79,14 +93,14 @@ def path_times() -> dict:
     from bench_matrix_step import exp1_eager
     from chip_smoke import (
         RANK_ALPHA, RANK_BATCH, RANK_GROUP_MEAN, RANK_K, STREAM_CAP, STREAM_WINDOW,
-        rank_timing, stream_timing,
+        flush_latency, rank_timing, serve, stream_timing,
     )
     from repro_torch import api
     from repro_torch.api.scorers import TreeScorer
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.launch.serve import GROUPS_SEED, _ragged_sizes
     from repro_torch.ranking import group_offsets
-    from repro_torch.serving.engine import StreamingServer
+    from repro_torch.serving.engine import QWYCServer, StreamingServer
 
     cache = ROOT / "build" / "bench_matrix_exp1.npz"
     score_fn, x_test, fit = exp1_eager(cache)
@@ -112,6 +126,23 @@ def path_times() -> dict:
             window=STREAM_WINDOW, chunk_t=8, block_n=64, scorer=TreeScorer(*params),
             backend_opts={"megakernel": False},
         ), x_test, "exp1_adult unfused")
+
+    def batch_server(**kw):
+        kw.setdefault("batch_size", 256)
+        kw.setdefault("backend_opts", {"megakernel": False})
+        return QWYCServer(fit, exec_backend="device", device="cuda", backend="sorted-kernel",
+                          chunk_t=8, scorer=TreeScorer(*params), **kw)
+
+    lat = flush_latency(batch_server, x_test, "exp1_adult", megakernels=(False,))
+    # the PyTorch calls of one steady batch-256 flush, a stage
+    srv = batch_server()
+    serve(srv, x_test[:256])
+    for row in x_test[256:511]:
+        srv.submit(row)
+    with OpCount() as ops:
+        srv.submit(x_test[511])
+    torch.cuda.synchronize()
+    n_stages = srv._dev[0].dplan.S
     keys = ("drain_median_ms", "drain_p90_ms", "torch_ops_per_stage", "device_busy_us",
             "busy_share", "sort_kernels", "sort_calls")
     return dict(
@@ -119,6 +150,11 @@ def path_times() -> dict:
         stream_unfused={k: stream[k] for k in (
             "wave_median_ms", "wave_p90_ms", "step_median_ms", "torch_ops_per_step",
             "device_busy_us", "busy_share")},
+        batch_unfused=dict(
+            latency=lat, torch_ops=ops.n, torch_ops_per_stage=ops.n / n_stages,
+            stages=n_stages, cumsum=ops.by_name.get("aten.cumsum", 0),
+            gathers=ops.by_name.get("aten.index", 0),
+        ),
     )
 
 
@@ -227,12 +263,41 @@ def main(argv=None) -> int:
     timed("b6/reference_form", lambda: ck.cascade_lane_kernel(
         g0, sc_masked, ep_l, en_l, block_n=64, n_valid=nv))
 
-    # B2 on one stage's scores
+    # B2 at the unfused batch stage's shape: stage 5 of the same plan,
+    # partial sums at permuted slots of a (cap + 1,) buffer
+    g_slots = torch.cat([g0, torch.zeros(1, device=dev)])
+    rows_b2 = t(rng.permutation(cap).astype(np.int64))
+    lane = torch.arange(cap, device=dev)
+
+    def b2_chain():
+        sc = torch.where(col[5][None, :], scores, 0.0)
+        g_new, act, dpos, ex = ck.cascade_chunk_kernel(
+            g_slots[rows_b2], sc.contiguous(), ep[5], en[5], 0, block_n=64, n_valid=nv)
+        keep = act.bool() & (lane < nv)
+        pack = torch.where(keep, torch.cumsum(keep, dim=0, dtype=torch.int32) - 1, cap)
+        return g_new, act, dpos, ex, pack, keep.sum(dtype=torch.int32)
+
+    b2_step = getattr(ck, "cascade_chunk_step", None)
+    timed("b2/step", (lambda: b2_step(g_slots, rows_b2, scores, 5, ep, en, col, n_valid=nv,
+                                      block_n=64)) if b2_step else b2_chain)
+    timed("b2/chain", b2_chain)
     ep_c, en_c = ep[5].contiguous(), en[5].contiguous()
-    timed("control/cascade_chunk", lambda: ck.cascade_chunk_kernel(
-        g0, scores, ep_c, en_c, 0, block_n=64, n_valid=nv))
+    g_rows = g_slots[rows_b2]
+    sc_b2 = torch.where(col[5][None, :], scores, 0.0)
+    timed("b2/reference_form", lambda: ck.cascade_chunk_kernel(
+        g_rows, sc_b2, ep_c, en_c, 0, block_n=64, n_valid=nv))
+
+    # B1 on a (2000, 500) matrix with negative exits only, as the eager
+    # Filter-and-Score path calls it (ops.cascade_decide's block_n 256)
+    n1, T1 = 2000, 500
+    drift = rng.normal(scale=0.05, size=(n1, 1))
+    F1 = t((rng.normal(scale=0.3, size=(n1, T1)) + drift).astype(np.float32))
+    ep1 = t(np.full(T1, np.inf, np.float32))
+    en1 = t(-rng.uniform(1.5, 4.0, size=T1).astype(np.float32))
+    timed("b1/eager", lambda: ck.cascade_kernel(F1, ep1, en1, 0.0, block_n=256, chunk_t=8))
+    steps = int(ck.cascade_kernel(F1, ep1, en1, 0.0, block_n=256, chunk_t=8)[1].sum())
     report = {"src": args.src, "card": card, "set": args.set, "us": us,
-              "host_us": host_us, "calls": calls}
+              "host_us": host_us, "calls": calls, "b1_steps_walked": steps}
     if args.paths:
         report["paths"] = path_times()
     print(card, flush=True)

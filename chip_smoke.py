@@ -12,7 +12,8 @@ Phases, each of which stops the run on failure:
    and fails unless every tree and lattice instantiation of
    ``mega_stage.cu``'s step kernel, and every instantiation of its matrix
    step kernel, holds 0 bytes of stack and spills none.
-3. Each kernel (B1 cascade, B2 cascade_chunk, B3 gbt_scores, B4 mega_stage
+3. Each kernel (B1 cascade, B2 cascade_chunk and its step form, B3
+   gbt_scores, B4 mega_stage
    tree, matrix and lattice, B5 lattice_scores, B6 cascade_lane, B7
    mega_lane tree, matrix and lattice, B8 cascade_group) against its plain
    PyTorch version on
@@ -37,8 +38,14 @@ Phases, each of which stops the run on failure:
    (team form and one thread a pair).  B6 in its step form (the unfused
    streaming step's: stage tables read in place, masked columns, stop
    lanes, the pack written) at 256, 1024 and 1300 lanes, all six outputs
-   equal; B8 with ``rows`` (its top-k picks) at B 1, 4, 31, 32, 33, 64 and
-   256, k 1, 10 and B + 3, on integer ties, -0.0 / +0.0 ties, -inf on valid
+   equal; B2's step form (the unfused batch stage's: partial sums read
+   through the row ids, the stage's tables read in place, the pack
+   written, the last stage's survivors kept) at caps 1, 31, 256, 1024,
+   1025 and 1300, W 8 (aligned and misaligned rows), 3 and 12, n_valid
+   mid-block, NaN scores, all six outputs equal; B1 at (2000, 500)
+   qwyc-like and at ±inf, (1, 1), (33, 7), T = 499 with chunk 7, T odd
+   (rows not 16-byte aligned) and 4096 x 512 / 513; B8 with ``rows``
+   (its top-k picks) at B 1, 4, 31, 32, 33, 64 and 256, k 1, 10 and B + 3, on integer ties, -0.0 / +0.0 ties, -inf on valid
    lanes and groups with a valid NaN or -NaN, n_live None, a device scalar
    and a host int: picks and exits equal, margins equal by their bits (a
    zero margin between a -0.0 and a +0.0 by value, and counted).
@@ -49,15 +56,18 @@ Phases, each of which stops the run on failure:
    sorted-kernel, batch 256, chunk_t 8) over the test rows.  The verdicts, models
    evaluated and full scores equal the same server run with device="cpu"
    (the plain versions) and the ``evaluate_cascade`` oracle; megakernel on
-   equals off (results and billing).
+   equals off (results and billing; off is B3 + B2's step form, once a
+   stage).  The same cascade on the host rung with the kernel decide
+   (``compile("host", decide="kernel")``: B2 in the reference's form once
+   a stage) equals ``evaluate_cascade`` on the test score matrix.
 4b. The second main path, paper experiment 4 (exp4_rw2_joint) at full
    width: rw2 (8000 / 2000 rows, D = 30), T = 500 lattices over S = 8
    features trained jointly (300 AdamW steps on the card), the calibration
    matrix with B5, ``fit_qwyc`` (alpha 0.005, neg_only).  Eager: B5 on the
    test rows, the columns ordered, ``ops.cascade_decide`` (B1), equal to
    ``evaluate_cascade``.  Served: the lattice server fused (B4 lattice) and
-   unfused (B5 + B2), both equal to the same server on the CPU and to the
-   eager B1 verdicts.
+   unfused (B5 + B2's step form), both equal to the same server on the CPU
+   and to the eager B1 verdicts.
 4c. Streaming admission: both cells' ensembles and cascades (no new fit)
    served by ``StreamingServer`` (capacity 256, window 1024, chunk_t 8,
    block 64) over the test rows under the seed-2028 Poisson trace at 256
@@ -100,14 +110,18 @@ Phases, each of which stops the run on failure:
    (median and p90 wall, PyTorch calls per grouped stage, one drain's busy
    share; no sort kernel may appear); exp1's eager path (B3 + B4
    matrix: flush latency at batch 128 / 256 / 1024 and one flush's busy
-   share; B3 + B7 matrix: streaming waves at both rates); exp1's trees
+   share; B3 + B7 matrix: streaming waves at both rates); the PyTorch
+   calls of an unfused batch-256 flush, by stage, both cells (no cumsum
+   and no per-stage gather may remain: B2's step form does the decide's);
+   exp1's trees
    served fused at f32 and at bf16 slabs (a batch-256 flush, a streaming
    wave); and each
    kernel's device time per launch (profiler) at its main-path shape beside
    its plain version's and its bound (B3 and B5 also at the sort key, the
    eager matrix and the calibration matrix; B8 with its picks beside B8
    and ``group_topk_rows``, and the stable sort alone; B6's step form
-   beside the chain of gathers, B6 and compaction it replaces).
+   beside the chain of gathers, B6 and compaction it replaces; B2's step
+   form beside the gather, mask, B2 and cumsum pack it replaces).
 
 Prints the card, then the ``kernels`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -179,7 +193,9 @@ KERNELS = {
     "cascade": ("src/repro_torch/csrc/cascade.cu",
                 "src/repro/kernels/cascade_kernel.py:127", "lattice_eager/neg_only"),
     "cascade_chunk": ("src/repro_torch/csrc/cascade_chunk.cu",
-                      "src/repro/kernels/cascade_kernel.py:346", "unfused/both"),
+                      "src/repro/kernels/cascade_kernel.py:346", "host_kernel/both"),
+    "cascade_chunk_step": ("src/repro_torch/csrc/cascade_chunk.cu",
+                           "src/repro/kernels/cascade_kernel.py:346", "unfused/both"),
     "gbt_scores": ("src/repro_torch/csrc/tree_scores.cu",
                    "src/repro/kernels/tree_kernel.py:62", "fused/both"),
     "mega_stage_tree": ("src/repro_torch/csrc/mega_stage.cu",
@@ -217,13 +233,14 @@ for _v, _q in QUANT_VARIANTS:
 PATH_KERNELS = {
     "calibration": {"gbt_scores"},  # the (N, 500) score matrices
     "fused": {"gbt_scores", "mega_stage_tree"},  # default: sort key + B4 tree
-    "unfused": {"gbt_scores", "cascade_chunk"},  # megakernel=False: B3 + B2
+    "unfused": {"gbt_scores", "cascade_chunk_step"},  # megakernel=False: B3 + B2 step form
+    "host_kernel": {"cascade_chunk"},  # the host rung's kernel decide: B2
     "cpu": set(),  # device="cpu": the plain versions only
     "eager": {"gbt_scores", "mega_stage_matrix"},  # score_fn matrix + B4 matrix
     "lattice_calibration": {"lattice_scores"},  # the (N, 500) score matrix
     "lattice_eager": {"lattice_scores", "cascade"},  # B5 test matrix + B1
     "lattice_fused": {"lattice_scores", "mega_stage_lattice"},  # sort key + B4
-    "lattice_unfused": {"lattice_scores", "cascade_chunk"},  # B5 + B2
+    "lattice_unfused": {"lattice_scores", "cascade_chunk_step"},  # B5 + B2 step form
     "lattice_cpu": set(),
     # phase 4c, streaming admission
     "stream_fused": {"mega_lane_tree"},  # B7 tree
@@ -346,7 +363,7 @@ def profile_device(window, prepare=None, tries: int = 3) -> dict:
 
 
 # the port's own kernels (every __global__ of src/repro_torch/csrc) by name
-PORT_KERNEL = re.compile(r"\b(?:cascade|cascade_chunk|cascade_lane|cascade_group|gbt_scores|"
+PORT_KERNEL = re.compile(r"\b(?:cascade|cascade_chunk|chunk_step|cascade_lane|cascade_group|gbt_scores|"
                          r"lattice_scores|lattice_scores_team|step|matrix_step)_kernel\b")
 
 
@@ -469,6 +486,77 @@ def check_lane_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_lane
         f"({n_cases} cases, {kept} lanes kept)")
 
 
+def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chunk_step) -> None:
+    """Phase 3: B2's step form against ``cascade_chunk_step_plain``, as the
+    unfused batch stage calls it: the partial sums read through the row
+    ids from a (cap + 1,) buffer (-0.0 entries; the trash slot for the
+    lanes past n_valid), the (S, W) tables read at a stage, NaN scores.
+    W 8 on exp1's plan geometry (the lead stage, a full stage, the ragged
+    last stage) with the rows 16-byte aligned and misaligned; W 3 and 12
+    (scalar loads, a partial group) on tables of 5 stages (a full stage, a
+    ±inf one, a ragged last one).  Caps 1 to 1300: one CTA up to 1024
+    lanes, block prefixes and a combine past that.  All six outputs
+    equal, ``g`` by its bits; the last stage's survivors are kept."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_chunk_step_plain
+
+    def nv(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    rng_s = np.random.default_rng(23)
+    n_cases, kept, exits = 0, 0, 0
+    for form in ("8", "8 misaligned", "3", "12"):
+        W = int(form.split()[0])
+        if W == 8:
+            tables, stages = (eps_pos, eps_neg, col_valid), (0, 5, eps_pos.shape[0] - 1)
+        else:
+            ep = rng_s.uniform(0.3, 2.0, size=(5, W)).astype(np.float32)
+            en = -rng_s.uniform(0.3, 2.0, size=(5, W)).astype(np.float32)
+            col = np.ones((5, W), bool)
+            ep[1], en[1] = np.inf, -np.inf
+            col[4, W - 2:], ep[4, W - 2:], en[4, W - 2:] = False, np.inf, -np.inf
+            tables, stages = (t(ep), t(en), t(col)), (2, 1, 4)
+        for cap in (1, 31, 256, 1024, 1025, 1300):
+            g = rng_s.normal(scale=0.5, size=cap + 1).astype(np.float32)
+            g[::7] = -0.0
+            g = t(g)
+            raw = rng_s.normal(size=(cap, W)).astype(np.float32)
+            raw[rng_s.integers(cap), rng_s.integers(W)] = np.nan
+            if form == "8 misaligned":  # rows 4 bytes past a 16-byte boundary
+                scores = torch.empty(cap * W + 1, device=dev)[1:].view(cap, W)
+                scores.copy_(t(raw))
+            else:
+                scores = t(raw)
+            for label, n_valid in [("all", None), ("nv=0", nv(0)), ("nv=cap", nv(cap)),
+                                   ("mid-block nv", nv(min(cap, cap // 2 + 5))),
+                                   ("host nv", cap // 3)]:
+                live = cap if n_valid is None else min(cap, int(n_valid))
+                rows = np.full(cap, cap, np.int64)
+                rows[:live] = rng_s.permutation(cap)[:live]
+                rows = t(rows)
+                for s in stages:
+                    args = (g, rows, scores, s, *tables)
+                    got = cascade_chunk_step(*args, n_valid=n_valid, block_n=64)
+                    want = cascade_chunk_step_plain(*args, n_valid=n_valid)
+                    what = f"W {form} cap {cap} {label} stage {s}"
+                    check.equal("cascade_chunk_step", f"{what} g bits",
+                                got[0].view(torch.int32), want[0].view(torch.int32))
+                    for k, (a, b) in enumerate(zip(got[1:], want[1:])):
+                        check.equal("cascade_chunk_step", f"{what} output {k + 1}", a, b)
+                    kept += int(got[5])
+                    exits += int((got[3] > 0).sum())
+                    n_cases += 1
+    if not (kept and exits):
+        raise AssertionError(f"B2 step check: {kept} lanes kept, {exits} exits")
+    log(f"[phase 3] B2 cascade_chunk step form (caps 1-1300, W 8 / 8 misaligned / 3 / 12) "
+        f"== plain ({n_cases} cases, {kept} lanes kept, {exits} exits)")
+
+
 def check_group_rows(check: Check, dev, cascade_group_kernel, G: int = 37) -> None:
     """Phase 3: B8 with rows (the grouped loop's form): picks, exits and
     margins against ``cascade_group_plain`` + ``group_topk_rows`` over every
@@ -525,6 +613,7 @@ def phase_kernels(check: Check) -> dict:
     from repro_torch.kernels.cascade_kernel import (
         cascade_chunk_kernel,
         cascade_chunk_plain,
+        cascade_chunk_step,
         cascade_group_kernel,
         cascade_group_plain,
         cascade_kernel,
@@ -562,6 +651,7 @@ def phase_kernels(check: Check) -> dict:
         return call
 
     cascade_chunk_kernel = synced(cascade_chunk_kernel)
+    cascade_chunk_step = synced(cascade_chunk_step)
     cascade_group_kernel = synced(cascade_group_kernel)
     cascade_kernel = synced(cascade_kernel)
     cascade_lane_kernel = synced(cascade_lane_kernel)
@@ -809,7 +899,26 @@ def phase_kernels(check: Check) -> dict:
         Tl = F_.shape[1]
         if not bool((got[1][:64] == Tl).all()):
             raise AssertionError(f"B1 {label}: a zero row exited")
-    log("[phase 3] B1 cascade == plain (3 cases)")
+    # B1 at the edges of its tiles and warps: (1, 1), (33, 7), T odd (rows
+    # not 16-byte aligned: 4-byte copies), 4096 rows on a tile multiple
+    # (tensor-map tiles) and past one, each at drawn and at ±inf thresholds
+    # (their own generator, so the checks after them draw what they drew
+    # before)
+    rng_b = np.random.default_rng(13)
+    n_b1 = 3
+    for (nb, Tb, ct, bn) in [(1, 1, 8, 256), (33, 7, 8, 64), (2000, 501, 8, 256),
+                             (77, 37, 3, 32), (4096, 512, 8, 256), (4096, 513, 8, 256)]:
+        Fe = torch.from_numpy(rng_b.normal(scale=0.3, size=(nb, Tb)).astype(np.float32)).to(dev)
+        pe = torch.from_numpy(rng_b.uniform(0.5, 3.0, size=Tb).astype(np.float32)).to(dev)
+        ne = -torch.from_numpy(rng_b.uniform(0.5, 3.0, size=Tb).astype(np.float32)).to(dev)
+        infe = torch.full((Tb,), float("inf"), device=dev)
+        for label, (p_, n_) in [("drawn", (pe, ne)), ("±inf", (infe, -infe))]:
+            got = cascade_kernel(Fe, p_, n_, 0.05, block_n=bn, chunk_t=ct)
+            want = cascade_plain(Fe, p_, n_, 0.05, chunk_t=ct)
+            for k, (a, b) in enumerate(zip(got, want)):
+                check.equal("cascade", f"({nb}, {Tb}) {label} output {k}", a, b)
+            n_b1 += 1
+    log(f"[phase 3] B1 cascade == plain ({n_b1} cases)")
 
     # B6 at (256, 8): each lane's threshold row gathered at its own stage of
     # exp1's plan geometry (the ragged last stage's ±inf padded columns
@@ -832,6 +941,7 @@ def phase_kernels(check: Check) -> dict:
         raise AssertionError("B6 check: no lane exited, or every lane exited")
     log(f"[phase 3] B6 cascade_lane == plain ({n_cases} cases)")
     check_lane_step(check, dev, eps_pos, eps_neg, col_valid, cascade_lane_step)
+    check_chunk_step(check, dev, eps_pos, eps_neg, col_valid, cascade_chunk_step)
 
     # B7 at cap 256, W 8, block 64: lanes over all S stages in block 0,
     # last-stage (stop) lanes, rows retiring mid-block, trash rows past
@@ -1103,6 +1213,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.api.pipeline import FittedCascade
     from repro_torch.api.scorers import TreeScorer
     from repro_torch.core import evaluate_cascade, fit_qwyc
     from repro_torch.data.synthetic import make_dataset
@@ -1169,6 +1280,12 @@ def phase_main_path(report: dict, launches: dict) -> dict:
         res_off = served(f"unfused/{mode}", off)
         if res_off != res_card:
             raise AssertionError(f"{mode}: megakernel off != on")
+        # the unfused stage is B2's step form once a stage, never its
+        # reference form
+        n_stages = off._dev[0].dplan.S
+        if per_flush[f"unfused/{mode}"].get("cascade_chunk_step") != n_stages:
+            raise AssertionError(f"unfused/{mode}: {per_flush[f'unfused/{mode}']} a flush, "
+                                 f"expected cascade_chunk_step {n_stages}")
         for k in ("scores_computed", "chunk_survivors", "models_evaluated"):
             a, b, c = (getattr(s.stats, k) for s in (card, off, cpu))
             if not a == b == c:
@@ -1195,6 +1312,20 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             f"flushes, mean models {st.mean_models:.3f}/500, scores computed "
             f"{st.scores_computed}/{st.scores_possible}, test acc {acc:.4f}; "
             f"== CPU plain, == megakernel off, == evaluate_cascade")
+
+    # the host rung with the kernel decide: B2's reference form, once a
+    # stage that runs, over the test score matrix
+    hosted = FittedCascade(model=fits["both"]).compile("host", decide="kernel", device="cuda")
+    res_host = counted(launches, "host_kernel/both", lambda: hosted.evaluate(scores=F_test))
+    ev = evaluate_cascade(fits["both"], F_test)
+    if not (np.array_equal(res_host.decisions, ev["decisions"])
+            and np.array_equal(res_host.exit_step, ev["exit_step"])):
+        raise AssertionError("host rung, kernel decide: verdicts != evaluate_cascade")
+    if launches["host_kernel/both"]["cascade_chunk"] != len(res_host.chunk_stats):
+        raise AssertionError(f"host rung: {launches['host_kernel/both']} launches for "
+                             f"{len(res_host.chunk_stats)} stages")
+    log(f"[phase 4] host rung, kernel decide (B2): == evaluate_cascade over "
+        f"{len(res_host.chunk_stats)} stages; launches {launches['host_kernel/both']}")
 
     # the eager path: the score matrix per flush through the matrix variant
     eager = server("both", "cuda", scorer=None, score_fn=score_fn)
@@ -1304,7 +1435,7 @@ def phase_lattice_path(report: dict, launches: dict) -> dict:
         want = {
             "lattice_fused": {"lattice_scores": nb, "mega_stage_lattice": nb * n_stages},
             "lattice_unfused": {"lattice_scores": nb * (1 + n_stages),
-                                "cascade_chunk": nb * n_stages},
+                                "cascade_chunk_step": nb * n_stages},
             "lattice_cpu": {},
         }[path]
         if launches[key] != want:
@@ -1945,6 +2076,31 @@ class OpCount:
         self._mode.__exit__(*exc)
 
 
+def unfused_calls(srv, x, label: str) -> dict:
+    """The PyTorch operator calls of one steady batch-256 flush of the
+    unfused server ``srv``: in all, a stage of its plan, and by name.
+    Fails if the flush makes a cumsum, or a gather (``aten.index``) a
+    stage: the decide's compaction and its ``g[rows]``, which B2's step
+    form does on the card."""
+    import torch
+
+    serve(srv, x[:256])
+    for row in x[256:511]:
+        srv.submit(row)
+    with OpCount() as ops:
+        srv.submit(x[511])  # the 256th row: one flush
+    torch.cuda.synchronize()
+    S = srv._dev[0].dplan.S
+    by_name = dict(ops.by_name)
+    if by_name.get("aten.cumsum", 0) or by_name.get("aten.index", 0) >= S:
+        raise AssertionError(f"{label} unfused flush: {by_name.get('aten.cumsum', 0)} "
+                             f"cumsums, {by_name.get('aten.index', 0)} gathers over {S} stages")
+    log(f"[phase 5] {label} unfused flush (batch 256): {ops.n} PyTorch calls, "
+        f"{ops.n / S:.1f} a stage over {S} stages; no cumsum, "
+        f"{by_name.get('aten.index', 0)} gathers")
+    return dict(torch_ops=ops.n, stages=S, torch_ops_per_stage=ops.n / S, by_name=by_name)
+
+
 def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> dict:
     """Streaming at ``rate`` requests per step (default the heavy rate,
     phase 4c's first): ``N_DRAINS`` drains of the test rows after one
@@ -2126,12 +2282,15 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
                 launches: dict, check: Check, report: dict) -> list:
     """Phase 5: flush latency, streaming wave times, the ranking drain and
     per-kernel device times."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import megakernel as mk
     from repro_torch.kernels.cascade_kernel import (
         cascade_chunk_kernel,
         cascade_chunk_plain,
+        cascade_chunk_step,
+        cascade_chunk_step_plain,
         cascade_group_kernel,
         cascade_group_plain,
         cascade_kernel,
@@ -2156,6 +2315,13 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     report["lattice_profile_flush256"] = busy_share(
         lserver("cuda"), lds.x_test, llat["batch256"]["median_ms"], "exp4_rw2_joint"
     )
+    # the unfused batch stage (B3 or B5, then B2's step form): its calls
+    report["unfused_calls"] = {
+        "exp1_adult": unfused_calls(server("both", "cuda", backend_opts={"megakernel": False}),
+                                    ds.x_test, "exp1_adult"),
+        "exp4_rw2_joint": unfused_calls(lserver("cuda", backend_opts={"megakernel": False}),
+                                        lds.x_test, "exp4_rw2_joint"),
+    }
     report["stream_timing"] = {
         cell: stream_timing(lambda c=cell: smain["server"](c, "cuda"),
                             smain["cells"][cell]["ds"].x_test, cell)
@@ -2232,6 +2398,36 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         lambda: cascade_chunk_plain(g0, chunk, ep, en, 0, n_valid=nv),
         nbytes=4 * (m + m * ct + 2 * ct) + 16 * m, ops=3 * m * ct,
         shape=f"m={m} ct={ct}",
+    )
+    # B2's step form as the unfused batch stage calls it (g read through
+    # permuted row ids, stage 5's tables in place, the pack written); beside
+    # it the parent's chain (the gather, the column mask, B2 in the
+    # reference's form, the cumsum pack) and that form alone
+    g_slots = torch.cat([g0, torch.zeros(1, device="cuda")])
+    rows_perm = torch.from_numpy(np.random.default_rng(5).permutation(m)).cuda()
+    col_valid = ctx["lanes"]["col_valid"]
+    lane_m = torch.arange(m, device="cuda")
+    step_in = (g_slots, rows_perm, chunk, 5, eps_pos, eps_neg, col_valid)
+
+    def chunk_chain():
+        sc = torch.where(col_valid[5][None, :], chunk, 0.0)
+        g, act, dpos, ex = cascade_chunk_kernel(g_slots[rows_perm], sc.contiguous(), eps_pos[5],
+                                                eps_neg[5], 0, block_n=64, n_valid=nv)
+        keep = act.bool() & (lane_m < nv)
+        pack = torch.where(keep, torch.cumsum(keep, dim=0, dtype=torch.int32) - 1, m)
+        return g, act, dpos, ex, pack, keep.sum(dtype=torch.int32)
+
+    step_extra = dict(chain_ms=device_time_ms(chunk_chain))
+    log(f"[phase 5] cascade_chunk_step: the parent's chain (gather, mask, B2, cumsum pack) "
+        f"{step_extra['chain_ms'] * 1e3:.2f} us")
+    entry(
+        "cascade_chunk_step",
+        lambda: cascade_chunk_step(*step_in, n_valid=nv, block_n=64),
+        lambda: cascade_chunk_step_plain(*step_in, n_valid=nv),
+        # a lane's row id, g and scores; the stage's threshold rows and
+        # column mask, n_valid; g, active, decided, exit, pack, n_keep
+        nbytes=m * (8 + 4 + 4 * ct) + 9 * ct + 4 + 20 * m + 4, ops=3 * m * ct,
+        shape=f"cap={m} W={ct}, stage 5, step form", extra=step_extra,
     )
     N, T = x_cal.shape[0], feats.shape[0]
     extra = calibration(

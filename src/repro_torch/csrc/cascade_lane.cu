@@ -32,27 +32,17 @@
 //
 // Design: one thread per lane, serial over the W columns (the walk is a
 // dependent chain), each step the shared threshold_step device function,
-// as in B2 and B4; then one block_flag_scan (common.cuh) of the kept flags.
-// The loads of a group of 8 columns (scores, mask, thresholds) are issued
-// together before its steps, so a lane waits for its stage and then for
-// one round of loads, not for one a step; where W is a multiple of 8 and
-// the rows are aligned, as 16-byte loads (8-byte for the mask), which
-// cuts the L1 requests of a warp's scattered threshold rows about 4x.  A lane at or past n_valid, and
-// a lane that exited in an earlier group, reads no scores or thresholds.
+// as in B2 and B4; the walk is common.cuh's lane_walk (shared with B2's
+// step form): the loads of a group of 8 columns issued together, as
+// 16-byte loads where W % 4 == 0 and the rows are aligned, which cuts the
+// L1 requests of a warp's scattered threshold rows about 4x.  Then one
+// block_flag_scan (common.cuh) of the kept flags.  A lane at or past
+// n_valid, and a lane that exited in an earlier group, reads no scores or
+// thresholds.
 #include "common.cuh"
 #include "threshold_step.cuh"
 
 namespace {
-
-constexpr int kGroup = 8;  // columns whose loads are in flight at once
-
-// 8 floats from 16-byte aligned memory in two loads
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 u = reinterpret_cast<const float4*>(p)[0];
-  const float4 v = reinterpret_cast<const float4*>(p)[1];
-  out[0] = u.x; out[1] = u.y; out[2] = u.z; out[3] = u.w;
-  out[4] = v.x; out[5] = v.y; out[6] = v.z; out[7] = v.w;
-}
 
 struct LaneArgs {
   const float* g0;
@@ -64,7 +54,7 @@ struct LaneArgs {
   const int* n_valid_dev;
   int n_valid_host;
   int cap, W, n_stages, stop_stage;
-  int vec;  // W % 8 == 0, scores and tables 16-byte and col_valid 8-byte aligned
+  int vec;  // W % 4 == 0, scores and tables 16-byte and col_valid 4-byte aligned
   float* g;
   int* active;
   int* dec;
@@ -85,44 +75,10 @@ __global__ void __launch_bounds__(1024) lane_kernel(const LaneArgs a) {
   bool active = lane_ok && i < lim;
   bool dec = false;
   int ex = 0;
-  const size_t row = static_cast<size_t>(i) * a.W;
   const size_t trow = static_cast<size_t>(st) * a.W;
-  for (int j0 = 0; j0 < a.W; j0 += kGroup) {
-    // a group's loads all at once, then its steps; an inactive lane reads
-    // nothing and adds 0.0f, as the plain version does, and so does a
-    // masked column
-    float f[kGroup], ep[kGroup], en[kGroup];
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) f[k] = ep[k] = en[k] = 0.0f;
-    if (active && a.vec) {  // whole groups of 8 in 16-byte loads
-      load8(a.scores + row + j0, f);
-      load8(a.eps_pos + trow + j0, ep);
-      load8(a.eps_neg + trow + j0, en);
-      if (a.col_valid) {
-        const uint2 c = *reinterpret_cast<const uint2*>(a.col_valid + trow + j0);
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          const unsigned w = k < 4 ? c.x : c.y;
-          if (((w >> (8 * (k & 3))) & 0xffu) == 0) f[k] = 0.0f;
-        }
-      }
-    } else if (active) {
-#pragma unroll
-      for (int k = 0; k < kGroup; ++k) {
-        const int j = j0 + k;
-        if (j < a.W) {
-          const float s = a.scores[row + j];
-          f[k] = (!a.col_valid || a.col_valid[trow + j]) ? s : 0.0f;
-          ep[k] = a.eps_pos[trow + j];
-          en[k] = a.eps_neg[trow + j];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kGroup; ++k) {
-      if (j0 + k < a.W) threshold_step(g, active, dec, ex, f[k], ep[k], en[k], j0 + k + 1);
-    }
-  }
+  lane_walk(a.scores + static_cast<size_t>(i) * a.W, a.eps_pos + trow,
+            a.eps_neg + trow, a.col_valid ? a.col_valid + trow : nullptr, a.W,
+            a.vec != 0, g, active, dec, ex);
   if (kMode != 0) {
     const bool keep = active && st < a.stop_stage;
     int total;

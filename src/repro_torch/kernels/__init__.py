@@ -2,7 +2,8 @@
 PyTorch versions.
 
 cascade_kernel:  B1, the whole-matrix decide; B2, one stage's threshold
-                 walk (the chunk decide); B6, the walk with a threshold row
+                 walk (the chunk decide), and its step form with the batch
+                 stage's compaction; B6, the walk with a threshold row
                  per lane (the lane decide of streaming admission); B8, the
                  group decide of a ranking cascade.
 tree_kernel:     B3, oblivious-forest scores.

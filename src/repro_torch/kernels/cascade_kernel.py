@@ -9,7 +9,12 @@ the single source of the step semantics on tensors; its CUDA twin is
 * B1 ``cascade_kernel``: the whole-matrix decide over a cascade-ordered
   (N, T) score matrix (``ops.cascade_decide``, the eager Filter-and-Score
   evaluation of the paper's tables).
-* B2 ``cascade_chunk_kernel``: one stage's walk, the serving path's decide.
+* B2 ``cascade_chunk_kernel``: one stage's walk, the host
+  ``ChunkedExecutor``'s decide (``ops.kernel_decide_fn``); and B2's step
+  form ``cascade_chunk_step``: the unfused batch stage's decide, which
+  reads each lane's partial sum through ``rows`` and stage ``s``'s
+  threshold rows and column mask in place, and writes the stage's
+  compaction ``pack`` / ``n_keep`` (``csrc/cascade_chunk.cu``).
 * B6 ``cascade_lane_step``: the decide of the unfused streaming step, each
   lane walking its scores with the threshold rows and column mask of its
   own stage, read in place from the plan's (S, W) tables, and the step's
@@ -21,9 +26,10 @@ the single source of the step semantics on tensors; its CUDA twin is
   group's top-k picks (``csrc/cascade_group.cu``).
 
 Each wrapper sends a CPU tensor to its plain version (``cascade_plain``,
-``cascade_chunk_plain``, ``cascade_lane_plain``, ``cascade_lane_step_plain``,
-``cascade_group_plain`` and ``group_topk_rows``) and a CUDA tensor to the
-hand-written kernel (or raises).
+``cascade_chunk_plain``, ``cascade_chunk_step_plain``,
+``cascade_lane_plain``, ``cascade_lane_step_plain``, ``cascade_group_plain``
+and ``group_topk_rows``) and a CUDA tensor to the hand-written kernel (or
+raises).
 """
 
 from __future__ import annotations
@@ -45,6 +51,8 @@ MAX_GROUP_WIDTH = 4096
 MAX_CTA_GROUPS = 8
 # B6's stop stage for a walk that flags no lane
 NO_STOP = 2**31 - 1
+# B1: rows a CTA of one warp walks, one a lane (``csrc/cascade.cu``'s kRows)
+B1_WARP_ROWS = 32
 
 __all__ = [
     "threshold_step",
@@ -52,6 +60,9 @@ __all__ = [
     "cascade_plain",
     "cascade_chunk_kernel",
     "cascade_chunk_plain",
+    "cascade_chunk_step",
+    "cascade_chunk_step_plain",
+    "cascade_geometry",
     "cascade_lane_kernel",
     "cascade_lane_plain",
     "cascade_lane_step",
@@ -66,8 +77,9 @@ __all__ = [
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-_CASCADE_ARGTYPES = [_P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P]
+_CASCADE_ARGTYPES = [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P, _P, _P]
 _LANE_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P] * 7
+_STEP_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P] * 7
 _GROUP_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P] * 4
 
 
@@ -173,6 +185,110 @@ def cascade_chunk_kernel(
     return g, active, dec, ex
 
 
+def cascade_chunk_step_plain(
+    g: torch.Tensor,
+    rows: torch.Tensor,
+    scores: torch.Tensor,
+    s: int,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    col_valid: torch.Tensor,
+    n_valid=None,
+):
+    """Plain version of B2's step form (any device): the unfused batch
+    stage's decide as the reference writes it
+    (``repro/kernels/device_executor.py:832-849``) -> ``(g_new, active
+    i32, decided_pos i32, exit_rel i32, pack i32, n_keep)``.  Each lane's
+    partial sum is gathered, ``g[rows]``; the scores are masked by stage
+    ``s``'s ``col_valid`` row; the lanes walk them with stage ``s``'s
+    threshold rows (``cascade_chunk_plain``, exit steps relative to the
+    stage); and the lanes still active are packed to the front by a
+    cumsum: ``pack`` is each one's destination, ``cap`` for the others,
+    and ``n_keep`` (a 0-d int32 tensor) their count.  The last stage's
+    survivors are kept too (the caller decides them by beta)."""
+    cap = rows.shape[0]
+    i32 = torch.int32
+    scores = torch.where(col_valid[s][None, :], scores, 0.0)
+    g_new, active, dpos, ex_rel = cascade_chunk_plain(
+        g[rows], scores, eps_pos[s], eps_neg[s], 0, n_valid
+    )
+    keep = active.bool() & _live(cap, n_valid, scores.device)
+    pack = torch.where(keep, torch.cumsum(keep, dim=0, dtype=i32) - 1, cap)
+    return g_new, active, dpos, ex_rel, pack, keep.sum(dtype=i32)
+
+
+def cascade_chunk_step(
+    g: torch.Tensor,
+    rows: torch.Tensor,
+    scores: torch.Tensor,
+    s: int,
+    eps_pos: torch.Tensor,
+    eps_neg: torch.Tensor,
+    col_valid: torch.Tensor,
+    n_valid=None,
+    block_n: int = DEFAULT_BLOCK_N,
+):
+    """One unfused batch stage's decide and compaction (B2's step form),
+    same contract as ``cascade_chunk_step_plain``.
+
+    ``g`` (cap + 1,) f32 holds the partial sums by buffer slot (slot
+    ``cap`` the trash slot), ``rows`` (cap,) int64 each lane's slot (the
+    kernel clamps it into [0, cap]), ``scores`` (cap, W) f32 the stage's
+    scores, ``eps_pos``/``eps_neg`` (S, W) f32 and ``col_valid`` (S, W)
+    bool the plan's tables, read in place at row ``s``; ``n_valid`` as in
+    ``cascade_chunk_kernel``.  Up to 1024 lanes it is one launch; past
+    that, one launch and ``combine_blocks`` over CTAs of ``block_n``.
+    """
+    if scores.device.type == "cpu":
+        return cascade_chunk_step_plain(
+            g, rows, scores, s, eps_pos, eps_neg, col_valid, n_valid
+        )
+    if scores.device.type != "cuda":
+        raise ValueError(f"cascade_chunk_step: unsupported device {scores.device}")
+    f32 = torch.float32
+    _build.check_cuda(
+        "cascade_chunk_step", ("scores", scores, f32), ("g", g, f32),
+        ("rows", rows, torch.int64), ("eps_pos", eps_pos, f32),
+        ("eps_neg", eps_neg, f32), ("col_valid", col_valid, torch.bool),
+    )
+    cap, W = scores.shape
+    S = eps_pos.shape[0]
+    if (
+        g.shape != (cap + 1,) or rows.shape != (cap,)
+        or eps_pos.shape != (S, W) or eps_neg.shape != (S, W)
+        or col_valid.shape != (S, W) or not 0 <= s < S
+    ):
+        raise ValueError(
+            f"cascade_chunk_step: g {tuple(g.shape)}, rows {tuple(rows.shape)}, eps "
+            f"{tuple(eps_pos.shape)}/{tuple(eps_neg.shape)}, col_valid "
+            f"{tuple(col_valid.shape)}, stage {s} do not fit scores {(cap, W)}"
+        )
+    mode, blocks, threads = lane_geometry(cap, block_n, compact=True)
+    dev = scores.device
+    i32 = torch.int32
+    g_new = torch.empty(cap, dtype=f32, device=dev)
+    act, dec, ex, pack = (torch.empty(cap, dtype=i32, device=dev) for _ in range(4))
+    count = torch.empty(() if mode == 1 else blocks, dtype=i32, device=dev)
+    if cap == 0:
+        count.zero_()
+        return g_new, act, dec, ex, pack, count
+    ep, en, cv = eps_pos[s], eps_neg[s], col_valid[s]
+    nv_ptr, nv_host = _build.n_valid_args(n_valid, cap, dev)
+    fn = _build.function("cascade_chunk", "cascade_chunk_step_launch", _STEP_ARGTYPES)
+    err = fn(
+        g.data_ptr(), rows.data_ptr(), scores.data_ptr(), ep.data_ptr(), en.data_ptr(),
+        cv.data_ptr(), nv_ptr, nv_host, cap, W, int(_vec_rows(W, (scores, ep, en), cv)),
+        mode, blocks, threads, g_new.data_ptr(), act.data_ptr(), dec.data_ptr(),
+        ex.data_ptr(), pack.data_ptr(), count.data_ptr(), _build.stream(dev),
+    )
+    _build.check("cascade_chunk", err, "cascade_chunk_step")
+    _build.LAUNCHES["cascade_chunk_step"] += 1
+    outs = (g_new, act, dec, ex, pack, count)
+    if mode == 1:
+        return outs
+    return combine_blocks(outs, cap, threads)
+
+
 def cascade_lane_plain(
     g0: torch.Tensor,
     chunk_scores: torch.Tensor,
@@ -231,6 +347,15 @@ def combine_blocks(outs, cap: int, bn: int, stop=None):
     return g, act, dec, ex, pack, cnt.sum(dtype=torch.int32)
 
 
+def _vec_rows(W: int, floats, col_valid) -> bool:
+    """Whether ``common.cuh``'s lane walk may take a lane's (W,) rows in
+    16-byte loads (its mask rows in 4-byte ones): W a multiple of 4 and
+    every float row, and mask row, aligned."""
+    return W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in floats) and (
+        col_valid is None or col_valid.data_ptr() % 4 == 0
+    )
+
+
 def _lane_launch(g0, scores, stage, eps_pos, eps_neg, col_valid, n_valid, *,
                  stop_stage: int, mode: int, blocks: int, threads: int):
     """One launch of ``csrc/cascade_lane.cu``: ``(g, active, decided_pos,
@@ -250,10 +375,7 @@ def _lane_launch(g0, scores, stage, eps_pos, eps_neg, col_valid, n_valid, *,
             count.zero_()
         return g, act, dec, ex, pack, count
     nv_ptr, nv_host = _build.n_valid_args(n_valid, cap, dev)
-    # 16-byte loads of a lane's rows where W and the alignment allow them
-    vec = W % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (scores, eps_pos, eps_neg)
-    ) and (col_valid is None or col_valid.data_ptr() % 8 == 0)
+    vec = _vec_rows(W, (scores, eps_pos, eps_neg), col_valid)
     fn = _build.function("cascade_lane", "cascade_lane_launch", _LANE_ARGTYPES)
     err = fn(
         g0.data_ptr(), scores.data_ptr(), _build.ptr(stage), eps_pos.data_ptr(),
@@ -420,6 +542,17 @@ def cascade_plain(
     return decisions.to(torch.int32), ex
 
 
+def cascade_geometry(n: int, block_n: int) -> tuple[int, int]:
+    """B1's launch: ``(blocks, threads)``, one warp of ``B1_WARP_ROWS``
+    rows a CTA, whatever ``block_n`` (the reference's row block, which
+    must lie in [1, 1024]): a warp's ring of staged tiles takes 34 KB of
+    shared memory, and N = 2000 rows spread over 63 SMs.  Neither changes
+    a result."""
+    if not 1 <= block_n <= 1024:
+        raise ValueError(f"cascade: block_n {block_n} not in [1, 1024]")
+    return -(-n // B1_WARP_ROWS), B1_WARP_ROWS
+
+
 def cascade_kernel(
     scores_ordered: torch.Tensor,
     eps_pos: torch.Tensor,
@@ -432,9 +565,11 @@ def cascade_kernel(
     (B1), same contract as ``cascade_plain``.
 
     The thresholds and beta are cast to the scores' dtype (float32), as
-    the reference casts them.  ``block_n`` is the kernel's rows per CTA,
-    ``chunk_t`` the steps between two checks of whether a warp has a row
-    left; neither changes a result.
+    the reference casts them.  ``block_n`` is the reference's row block
+    (checked; the kernel takes 32 rows a CTA, ``cascade_geometry``);
+    ``chunk_t`` is the plain version's steps between two checks of whether
+    a row is left, which the kernel makes once a staged tile of 32 columns.
+    Neither changes a result.
     """
     if scores_ordered.device.type == "cpu":
         return cascade_plain(scores_ordered, eps_pos, eps_neg, beta, chunk_t)
@@ -457,18 +592,18 @@ def cascade_kernel(
         )
     if T < 1 or chunk_t < 1:
         raise ValueError(f"cascade: T = {T} and chunk_t = {chunk_t} must be >= 1")
-    threads = -(-int(block_n) // 32) * 32  # whole warps for the vote
-    if not 32 <= threads <= 1024:
-        raise ValueError(f"cascade: block_n {block_n} not in [1, 1024]")
+    blocks, threads = cascade_geometry(n, int(block_n))
     dec = torch.empty(n, dtype=torch.int32, device=dev)
     ex = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return dec, ex
+    # tensor-map (TMA) tiles where the rows are 16-byte aligned, else
+    # 4-byte copies
+    tma = T % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (scores_ordered, ep, en))
     fn = _build.function("cascade", "cascade_launch", _CASCADE_ARGTYPES)
     err = fn(
-        scores_ordered.data_ptr(), ep.data_ptr(), en.data_ptr(), n, T,
-        int(chunk_t), float(beta), threads, dec.data_ptr(),
-        ex.data_ptr(), _build.stream(dev),
+        scores_ordered.data_ptr(), ep.data_ptr(), en.data_ptr(), n, T, float(beta), int(tma),
+        blocks, threads, dec.data_ptr(), ex.data_ptr(), _build.stream(dev),
     )
     _build.check("cascade", err, "cascade")
     _build.LAUNCHES["cascade"] += 1

@@ -24,8 +24,9 @@ only enqueues work on the card:
   one transfer to the host.  A CUDA graph of the loop is later work.
 * **Megakernel.**  With f32 ``ParamSlabs`` the stage is one fused kernel
   (B4, ``megakernel.py``); otherwise (or with ``megakernel=False``) it is
-  the scorer's kernel (B3 for trees, B5 for lattices) -> column mask ->
-  chunk decide (B2) -> cumsum pack.
+  the scorer's kernel (B3 for trees, B5 for lattices) -> B2's step form,
+  which reads the partial sums through the row ids and the stage's tables
+  in place, masks the padded columns and writes the pack positions.
   The two are bit-identical in results and in billing.  Quantised (bf16,
   int8) slabs run fused only when asked for (``megakernel=True``): their
   results are held to the f32 multi-kernel path by the tolerance oracle
@@ -78,7 +79,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels.cascade_kernel import (
     DEFAULT_BLOCK_G,
-    cascade_chunk_kernel,
+    cascade_chunk_step,
     cascade_group_kernel,
     cascade_lane_step,
     group_topk_rows,
@@ -498,26 +499,23 @@ class DeviceExecutor:
         for s in range(S):
             n_in_log[s] = n_active
             t0 = int(dp.stage_t0[s])
-            g_rows = g[rows]
             if self.megakernel:
                 # the matrix variant reads its rows of x in place
                 in_place = self.scorer.slabs.variant == "matrix"
                 g_new, active, dpos, ex_rel, pack, n_keep = mk.mega_stage(
-                    self.scorer.slabs, x if in_place else x[rows], g_rows, s, t0,
+                    self.scorer.slabs, x if in_place else x[rows], g[rows], s, t0,
                     n_active, self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
                     rows=rows if in_place else None,
                 )
             else:
+                # B2's step form reads g through rows and the stage's
+                # tables in place, masks the padded columns and writes the
+                # pack positions and the kept count
                 scores = self.scorer.fn(x, rows, t0, n_active)
-                scores = torch.where(self._col_valid[s][None, :], scores, 0.0)
-                g_new, active, dpos, ex_rel = cascade_chunk_kernel(
-                    g_rows, scores.contiguous(), self._eps_pos[s], self._eps_neg[s],
-                    0, block_n=self.block_n, n_valid=n_active,
+                g_new, active, dpos, ex_rel, pack, n_keep = cascade_chunk_step(
+                    g, rows, scores, s, self._eps_pos, self._eps_neg, self._col_valid,
+                    n_valid=n_active, block_n=self.block_n,
                 )
-                keep = active.bool() & (lane < n_active)
-                pos = torch.cumsum(keep, dim=0, dtype=i32) - 1
-                pack = torch.where(keep, pos, cap)
-                n_keep = keep.sum(dtype=i32)
             lane_valid = lane < n_active
             # exits scatter by absolute row id; retired and padding lanes
             # aim at the trash slot

@@ -3,9 +3,9 @@ parameter slabs.
 
 The counterpart of ``repro.kernels.megakernel`` (tree, matrix and lattice
 variants; B4 for the batch path, B7 for streaming admission).  One stage step of the device executor is otherwise
-three passes over the survivor buffer: the score kernel (B3 or B5) writes a
-(cap, W) score buffer, the chunk decide (B2) reads it back, and a cap-wide
-cumsum packs the survivors.  ``csrc/mega_stage.cu`` fuses them into one
+two passes over the survivor buffer: the score kernel (B3 or B5) writes a
+(cap, W) score buffer and B2's step form reads it back, walks it and
+packs the survivors.  ``csrc/mega_stage.cu`` fuses them into one
 kernel per row block: select the stage's slab, score its W models, walk
 ``threshold_step`` W times, and emit the block-local compaction prefix and
 the block's survivor count; ``combine_blocks`` turns those into pack

@@ -213,6 +213,90 @@ def test_cascade_kernel_equals_plain(dev, chunk_t):
     assert (got[1][:9] == T).all() and (got[1] < T).any()
 
 
+@pytest.mark.parametrize("kind", ["drawn", "inf"])
+@pytest.mark.parametrize("n,T,chunk_t,block_n", [
+    (2000, 500, 8, 256), (1, 1, 8, 256), (33, 7, 8, 64), (2000, 499, 7, 256),
+    (77, 37, 3, 32), (4096, 513, 8, 256), (4096, 512, 8, 64),
+])
+def test_cascade_kernel_shapes_equal_plain(dev, n, T, chunk_t, block_n, kind):
+    """B1 at the eager path's shape (2000, 500) with Filter-and-Score-like
+    thresholds (negative exits only, rows that never exit) and at ±inf
+    ("full evaluation"), and at the edges of its tiles and warps: one row
+    and one column, 33 x 7, T odd (rows not 16-byte aligned: 4-byte
+    copies), T = 499 with chunk 7, 4096 rows past one tile multiple and on
+    it (tensor-map tiles), any ``block_n``; one launch, both outputs
+    equal."""
+    rng = np.random.default_rng(n + T)
+    F = (rng.normal(scale=0.3, size=(n, T)) + rng.normal(scale=0.05, size=(n, 1))).astype(
+        np.float32)
+    F[: min(n, 5)] = np.abs(F[: min(n, 5)])  # never below a negative threshold
+    if kind == "drawn":
+        ep = np.full(T, np.inf, np.float32)
+        en = -rng.uniform(0.5, 3.0, size=T).astype(np.float32)
+    else:
+        ep, en = np.full(T, np.inf, np.float32), np.full(T, -np.inf, np.float32)
+    args = (_t(F, dev), _t(ep, dev), _t(en, dev), 0.05)
+    before = _build.LAUNCHES["cascade"]
+    got = cascade_kernel(*args, block_n=block_n, chunk_t=chunk_t)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["cascade"] == before + 1
+    want = cascade_plain(*args, chunk_t=chunk_t)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (got[1][: min(n, 5)] == T).all()
+    if kind == "inf":
+        assert (got[1] == T).all()
+
+
+@pytest.mark.parametrize("W", ["8", "8 misaligned", "3", "12"])
+@pytest.mark.parametrize("n_valid", [None, 0, "mid", "host"])
+@pytest.mark.parametrize("cap", [1, 31, 256, 1024, 1025, 1300])
+def test_cascade_chunk_step_equals_plain(dev, cap, n_valid, W):
+    """B2's step form: partial sums read through row ids from a (cap + 1,)
+    buffer (the trash slot past the live lanes, -0.0 entries), the (S, W)
+    tables at a full stage, a ±inf stage and the ragged last stage (its
+    survivors kept), a NaN score, n_valid mid-block; W 8 with the rows
+    aligned and 4 bytes off, W 3 (scalar loads) and 12 (a partial group);
+    one launch a call (one CTA up to 1024 lanes, block prefixes and a
+    combine past that), all six outputs equal (``g`` by its bits)."""
+    from repro_torch.kernels.cascade_kernel import cascade_chunk_step, cascade_chunk_step_plain
+
+    w = int(W.split()[0])
+    rng = np.random.default_rng(cap * 100 + w)
+    S = 5
+    g = rng.normal(scale=0.5, size=cap + 1).astype(np.float32)
+    g[::7] = -0.0
+    nv = {None: None, 0: 0, "mid": min(cap, cap // 2 + 5), "host": cap // 3}[n_valid]
+    live = cap if nv is None else nv
+    rows = np.full(cap, cap, np.int64)
+    rows[:live] = rng.permutation(cap)[:live]
+    scores = rng.normal(size=(cap, w)).astype(np.float32)
+    scores[rng.integers(cap), rng.integers(w)] = np.nan
+    ep = rng.uniform(0.3, 2.0, size=(S, w)).astype(np.float32)
+    en = -rng.uniform(0.3, 2.0, size=(S, w)).astype(np.float32)
+    col = np.ones((S, w), bool)
+    ep[1], en[1] = np.inf, -np.inf
+    col[S - 1, w - 2:], ep[S - 1, w - 2:], en[S - 1, w - 2:] = False, np.inf, -np.inf
+    sc = _t(scores, dev)
+    if W == "8 misaligned":
+        sc = torch.empty(cap * w + 1, device=dev)[1:].view(cap, w).copy_(sc)
+        assert sc.data_ptr() % 16 == 4
+    nv_arg = torch.tensor(nv, dtype=torch.int32, device=dev) if n_valid in (0, "mid") else nv
+    g_t, rows_t = _t(g, dev), _t(rows, dev)
+    tables = [_t(a, dev) for a in (ep, en, col)]
+    for s in (2, 1, S - 1):
+        before = _build.LAUNCHES["cascade_chunk_step"]
+        got = cascade_chunk_step(g_t, rows_t, sc, s, *tables, n_valid=nv_arg, block_n=64)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["cascade_chunk_step"] == before + 1
+        want = cascade_chunk_step_plain(g_t, rows_t, sc, s, *tables, n_valid=nv_arg)
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        for a, b in zip(got[1:], want[1:]):
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        if s == 1:
+            assert int(got[5]) == live
+
+
 @pytest.mark.parametrize("S", [1, 4, 8])
 @pytest.mark.parametrize("n_valid", [None, 0, 70])
 def test_lattice_scores_kernel_equals_plain(dev, S, n_valid):

@@ -1,6 +1,7 @@
-"""The decide kernels B8 (group decide with its top-k picks) and B6 (lane
-decide with the streaming step's compaction) of the PyTorch port against
-the JAX package on the CPU.
+"""The decide kernels B8 (group decide with its top-k picks), B6 (lane
+decide with the streaming step's compaction) and B2's step form (the
+unfused batch stage's decide with its compaction) of the PyTorch port
+against the JAX package on the CPU.
 
 Inputs are made with numpy from seeds and go through both packages.  The
 tolerance is zero: the arithmetic is f32 adds, compares and selects, so
@@ -22,10 +23,16 @@ exits, ``g``, exit steps and pack positions carry no such freedom.
   ``cascade_lane_pallas`` (interpret mode) on the scores masked by each
   lane's stage and the thresholds gathered at it, followed by the
   reference's cumsum compaction (``device_executor.py:1073-1076``).
+* B2's step form (``cascade_chunk_step`` on CPU tensors) equals the
+  reference's unfused batch stage (``device_executor.py:832-849``): each
+  lane's partial sum gathered through its row id, the scores masked by the
+  stage's column row, ``cascade_chunk_pallas`` (interpret mode), then the
+  cumsum compaction, with the last stage's survivors kept.
 * The launch geometry of both kernels, and the block-prefix combine that
-  B6 runs past 1024 lanes, as pure functions.
-* ``run_grouped`` with a NaN document and the unfused ``run_stream`` past
-  1024 lanes against the JAX package's.
+  B6 and B2's step form run past 1024 lanes, as pure functions.
+* ``run_grouped`` with a NaN document, the unfused ``run_stream`` past
+  1024 lanes and the unfused batch ``DeviceExecutor.run`` (one step-form
+  call a stage) against the JAX package's.
 """
 
 import jax.numpy as jnp
@@ -37,12 +44,18 @@ from conftest import make_scores
 from repro.core import CascadePlan as JPlan
 from repro.core import fit_qwyc as j_fit
 from repro.kernels import device_executor as jde
-from repro.kernels.cascade_kernel import cascade_group_pallas, cascade_lane_pallas
+from repro.kernels.cascade_kernel import (
+    cascade_chunk_pallas,
+    cascade_group_pallas,
+    cascade_lane_pallas,
+)
 from repro_torch.convert import qwyc_model_from_numpy
 from repro_torch.core import CascadePlan
 from repro_torch.kernels.cascade_kernel import (
     MAX_CTA_GROUPS,
     MAX_GROUP_WIDTH,
+    cascade_chunk_step,
+    cascade_chunk_step_plain,
     cascade_group_kernel,
     cascade_lane_step,
     cascade_lane_step_plain,
@@ -51,6 +64,7 @@ from repro_torch.kernels.cascade_kernel import (
     group_topk_rows,
     lane_geometry,
 )
+from repro_torch.kernels import device_executor as tde
 from repro_torch.kernels.device_executor import (
     DeviceExecutor,
     DevicePlan,
@@ -183,6 +197,72 @@ def test_cascade_lane_step_plain_matches_pallas(cap, n_live):
         t(g0), t(scores), t(stage), t(ep), t(en), t(col), nl_t)))
     if nl != 0:
         assert keep.any() and (np.asarray(jx) > 0).any()
+
+
+def _chunk_step_case(seed: int, cap: int, W: int, n_live: int):
+    """A batch stage's buffers: the (cap + 1,) partial sums by slot (the
+    trash slot at cap, -0.0 entries), row ids permuted over the first
+    n_live slots and the trash slot past them, NaN scores, and S = 5
+    stage tables: stage 1 at ±inf (never exits), stage 4 the ragged last
+    one (its padded columns ±inf and masked)."""
+    rng = np.random.default_rng(seed)
+    S = 5
+    g = rng.normal(scale=0.5, size=cap + 1).astype(np.float32)
+    g[::7] = -0.0
+    rows = np.full(cap, cap, np.int64)
+    rows[:n_live] = rng.permutation(cap)[:n_live]
+    scores = rng.normal(size=(cap, W)).astype(np.float32)
+    scores[rng.integers(cap), rng.integers(W)] = np.nan
+    ep = rng.uniform(0.3, 2.0, size=(S, W)).astype(np.float32)
+    en = -rng.uniform(0.3, 2.0, size=(S, W)).astype(np.float32)
+    ep[1], en[1] = np.inf, -np.inf
+    col = np.ones((S, W), bool)
+    col[S - 1, max(1, W - 2):] = False
+    ep[S - 1, max(1, W - 2):], en[S - 1, max(1, W - 2):] = np.inf, -np.inf
+    return g, rows, scores, ep, en, col
+
+
+@pytest.mark.parametrize("n_valid", [None, 0, "mid", "cap", "host"])
+@pytest.mark.parametrize("W", [8, 3])
+@pytest.mark.parametrize("cap", [1, 31, 256, 1025])
+def test_cascade_chunk_step_plain_matches_pallas(cap, W, n_valid):
+    """B2's step form on the CPU at a mid stage, a ±inf stage and the
+    ragged last stage: the six outputs equal the reference's unfused batch
+    stage (gather through the row ids, column mask, ``cascade_chunk_pallas``
+    in interpret mode, cumsum compaction), the last stage's survivors
+    kept; ``g`` by its bits."""
+    nl = {None: None, 0: 0, "mid": cap // 2 + 1, "cap": cap, "host": max(cap - 3, 0)}[n_valid]
+    live = cap if nl is None else min(nl, cap)
+    g, rows, scores, ep, en, col = _chunk_step_case(cap * 10 + W, cap, W, live)
+    t = torch.from_numpy
+    nl_t = torch.tensor(nl, dtype=torch.int32) if n_valid in (0, "mid", "cap") else nl
+    lane = np.arange(cap)
+    kept = 0
+    for s in (2, 1, 4):
+        masked = jnp.where(jnp.asarray(col[s])[None, :], jnp.asarray(scores), 0.0)
+        jg, ja, jd, jx = cascade_chunk_pallas(
+            jnp.take(jnp.asarray(g), jnp.asarray(rows), axis=0), masked,
+            jnp.asarray(ep[s]), jnp.asarray(en[s]), 0, block_n=64, interpret=True,
+            n_valid=None if nl is None else jnp.int32(nl),
+        )
+        keep = (np.asarray(ja) != 0) & (lane < live)
+        want_pack = np.where(keep, np.cumsum(keep.astype(np.int32)) - 1, cap)
+        got = cascade_chunk_step(t(g), t(rows), t(scores), s, t(ep), t(en), t(col),
+                                 n_valid=nl_t, block_n=64)
+        gn, act, dec, ex, pack, n_keep = (x.numpy() for x in got)
+        assert np.array_equal(_bits(gn), _bits(jg)), s
+        assert np.array_equal(act, np.asarray(ja)) and np.array_equal(dec, np.asarray(jd))
+        assert np.array_equal(ex, np.asarray(jx))
+        assert pack.dtype == np.int32 and np.array_equal(pack, want_pack)
+        assert got[5].dtype == torch.int32 and got[5].shape == () and int(n_keep) == keep.sum()
+        plain = cascade_chunk_step_plain(t(g), t(rows), t(scores), s, t(ep), t(en), t(col), nl_t)
+        assert torch.equal(got[0].view(torch.int32), plain[0].view(torch.int32))
+        assert all(torch.equal(a, b) for a, b in zip(got[1:], plain[1:]))
+        if s == 1:  # ±inf: every live lane survives (a NaN lane too)
+            assert int(n_keep) == live and not ex.any()
+        kept += int(n_keep)
+    if live > 1:
+        assert kept > 0
 
 
 @pytest.mark.parametrize("block_n", [1, 32, 64, 100, 256, 1024])
@@ -325,3 +405,47 @@ def test_run_stream_unfused_past_1024_lanes_matches_jax(mode):
         assert np.array_equal(getattr(got, key), np.asarray(getattr(want, key))), key
     assert np.array_equal(_bits(got.g_final), _bits(want.g_final))
     assert (got.steps_run, got.scores_computed) == (int(want.steps_run), int(want.scores_computed))
+
+
+@pytest.mark.parametrize("mode", ["both", "neg_only"])
+@pytest.mark.parametrize("n", [300, 1100])
+def test_device_executor_unfused_matches_jax(n, mode):
+    """The unfused batch stage loop (the matrix scorer + B2's step form,
+    one call a stage) at one CTA of lanes and past it (1100 rows: cap 1152,
+    block prefixes and a combine), a ragged last stage (T 47, chunk 6) and
+    a row of NaN scores: decisions, exits, ``g_final`` (bits) and billing
+    equal JAX's ``DeviceExecutor(megakernel=False)``."""
+    rng = np.random.default_rng(n + len(mode))
+    F = make_scores(rng, n=n, t=47)
+    jm = j_fit(F, beta=0.0, alpha=0.02, mode=mode)
+    m = qwyc_model_from_numpy(jm.order, jm.eps_pos, jm.eps_neg, jm.beta, jm.costs,
+                              jm.alpha, jm.mode)
+    x = F[:, jm.order].astype(np.float32)
+    x[5] = np.nan
+    jdplan = jde.DevicePlan.from_plan(JPlan.from_qwyc(jm, chunk_t=6))
+    dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(m, chunk_t=6))
+    jex = jde.DeviceExecutor(jdplan, jde.matrix_stage_scorer(jdplan), block_n=64,
+                             megakernel=False)
+    ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device="cpu"), block_n=64,
+                        megakernel=False, device="cpu")
+    order = rng.permutation(n)
+    want = jex.run(x, n, row_order=order)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[3])
+        return cascade_chunk_step(*args, **kw)
+
+    orig, tde.cascade_chunk_step = tde.cascade_chunk_step, counted
+    try:
+        got = ex.run(x, n, row_order=order)
+    finally:
+        tde.cascade_chunk_step = orig
+    assert calls == list(range(dplan.S))
+    np.testing.assert_array_equal(got.decisions, np.asarray(want.decisions))
+    np.testing.assert_array_equal(got.exit_step, np.asarray(want.exit_step))
+    assert np.array_equal(_bits(got.g_final), _bits(want.g_final))
+    assert [(c.n_in, c.n_exited, c.scores_computed) for c in got.chunk_stats] == [
+        (c.n_in, c.n_exited, c.scores_computed) for c in want.chunk_stats]
+    assert got.scores_computed == want.scores_computed
+    assert got.exit_step[5] == 47  # the NaN row walks every stage

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.cascade_kernel import (
     cascade_chunk_kernel,
     cascade_chunk_plain,
+    cascade_geometry,
     cascade_kernel,
     cascade_plain,
 )
@@ -187,6 +188,43 @@ def test_cascade_plain_matches_pallas_ref_and_evaluate(grid, T, chunk_t, full_ev
         ev = j_evaluate_cascade(m, F.astype(np.float64))
         np.testing.assert_array_equal(dec.astype(bool), ev["decisions"])
         np.testing.assert_array_equal(ex, ev["exit_step"])
+
+
+@pytest.mark.parametrize("chunk_t", [1, 7, 32, 33])
+@pytest.mark.parametrize("block_n", [1, 32, 64, 100, 1024])
+def test_cascade_plain_matches_pallas_every_block(block_n, chunk_t):
+    """B1's ``block_n`` and ``chunk_t`` change no result: the plain version
+    (and the wrapper on CPU tensors, which takes every ``block_n`` the
+    kernel's geometry accepts) equals ``cascade_pallas`` at the same
+    ``block_n`` and ``chunk_t``, with T odd (the kernel's unaligned rows)
+    and not a multiple of either, rows that never exit and ±inf
+    thresholds at the end."""
+    F, ep, en = _b1_case(block_n + chunk_t, 45, 37, False, 3, never_exit_rows=4)
+    args = tuple(map(torch.from_numpy, (F, ep, en)))
+    got = cascade_kernel(*args, 0.1, block_n=block_n, chunk_t=chunk_t)
+    for a, b in zip(got, cascade_plain(*args, 0.1, chunk_t=chunk_t)):
+        assert torch.equal(a, b)
+    want = cascade_pallas(
+        *map(jnp.asarray, (F, ep, en)), 0.1, block_n=block_n, chunk_t=chunk_t, interpret=True
+    )
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert (got[1][:4] == 37).all() and (got[1] < 37).any()
+
+
+@pytest.mark.parametrize("block_n", [1, 32, 33, 64, 256, 1024])
+@pytest.mark.parametrize("n", [1, 31, 33, 2000, 4096, 100_000])
+def test_cascade_geometry(n, block_n):
+    """B1's launch: a CTA of one warp of 32 rows, every row covered once,
+    whatever ``block_n`` in [1, 1024] asks for (N = 2000: 63 CTAs, not 8);
+    ``block_n`` outside it is refused."""
+    blocks, threads = cascade_geometry(n, block_n)
+    assert threads == 32 and (blocks - 1) * threads < n <= blocks * threads
+    if n == 2000:
+        assert blocks == 63
+    for bad in (0, 1025):
+        with pytest.raises(ValueError, match="block_n"):
+            cascade_geometry(n, bad)
 
 
 def test_cascade_plain_decides_survivors_with_f32_beta():
