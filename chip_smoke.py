@@ -84,7 +84,11 @@ Phases, each of which stops the run on failure:
    (B3 + B8 per stage, B8 picking each query's top k), with
    device="cpu", on the host rung and by ``run_grouped_host``: verdicts,
    exit stages and margins equal bit for bit; the margin-inf run equals
-   ``full_cascade_topk``.
+   ``full_cascade_topk``.  The server pins its operand to ``RANK_DOCS``
+   rows, so a bucket shape is one program across flushes: the first drain
+   runs each eagerly, the second captures it, the third replays it, and a
+   drain of 126 never-seen (train) queries replays the same graphs, equal
+   to ``capture=False`` and to ``run_grouped_host``.
 4e. Quantised parameter slabs: phase 4's and 4b's ensembles and fits (no
    new fit) at bf16 and int8 slabs, the test rows served by ``QWYCServer``
    (batch 256, policy ``kernel``, ``megakernel=True``: B4 at the slabs'
@@ -99,16 +103,31 @@ Phases, each of which stops the run on failure:
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
-   flush).
-5. Times, after a warm-up: the per-flush latency of both servers at batch
+   flush).  Every served path on the card runs its loop as a CUDA graph
+   (one a program key: a key's first flush or wave runs eagerly, its
+   second captures the graph and every later one replays it; a replay
+   counts the launches its capture recorded), and is held against the
+   same server with ``capture=False``: results, every flush's or wave's
+   verdicts, exits, ``g_final`` bits, live counts and timeline, billing
+   and launch counts equal; one graph a server (one a bucket shape for
+   ranking), none recaptured.
+4f. The port's billing gate (``benchmarks/torch/perf_gate.py --device
+   cuda --check``): the reference gate's fixtures on the card, every
+   reachable key (the ``*.traces`` keys among them) equal to
+   ``benchmarks/results/baseline_billing.json``, every other key pending
+   with its queue item.
+5. Times, after a warm-up, each served path captured and (beside it) with
+   ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
    flushes), the device's busy share of a batch-256 flush (profiler device
-   time over the unprofiled median flush); the streaming servers' drains
+   time over the unprofiled median flush; the profile must see as many of
+   the port's kernels as the flush launched); the streaming servers' drains
    (requests/s, wave and step wall times, steps and syncs per wave,
    PyTorch operator calls per step, one wave's busy share), fused and
    unfused (lane_fn + B6); the ranking server's drains of the test queries
-   (median and p90 wall, PyTorch calls per grouped stage, one drain's busy
-   share; no sort kernel may appear); exp1's eager path (B3 + B4
+   (the first and second drain, then median and p90 wall, PyTorch calls
+   per grouped stage, one drain's busy share; no sort kernel may appear)
+   and of 20 sets of never-seen queries (median and p90 wall); exp1's eager path (B3 + B4
    matrix: flush latency at batch 128 / 256 / 1024 and one flush's busy
    share; B3 + B7 matrix: streaming waves at both rates); the PyTorch
    calls of an unfused batch-256 flush, by stage, both cells (no cumsum
@@ -132,6 +151,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import collections
+import itertools
 import json
 import math
 import re
@@ -163,6 +183,10 @@ N_DRAINS = 5
 # phase 5's timed drains of the test queries
 RANK_GROUP_MEAN, RANK_K, RANK_ALPHA, RANK_BATCH = 16, 10, 0.05, 256
 N_RANK_DRAINS = 20
+# the ranking server's pinned operand rows (a flush of up to RANK_DOCS docs
+# runs one program a bucket shape) and the never-seen queries a drain
+# serves (train queries, as many as the test set has)
+RANK_DOCS, RANK_FRESH = 4096, 126
 # exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
@@ -315,6 +339,51 @@ def counted(launches: dict, path: str, fn):
         raise AssertionError(f"{path}: launched {got}, expected exactly {sorted(want)}")
     launches[path] = got
     return out
+
+
+def _runs_of(srv) -> list:
+    """A server's executor results: each wave of a streaming server, each
+    flush of a batch server."""
+    return srv.stream_results if hasattr(srv, "stream_results") else srv.flush_results
+
+
+def eager_twin(launches: dict, path: str, srv, res, twin, feed) -> None:
+    """Holds the captured server ``srv`` (``res = feed(srv)``, counted as
+    ``path``) against ``twin``, the same server with ``capture=False``:
+    ``feed(twin)`` counted as ``path + "/eager"``.  Results, every flush's
+    or wave's decisions, exits, g_final bits, live counts and timeline,
+    billing and the launches are equal; each executor ran one program key
+    (a server pins its capacity), the captured one holds its one graph (not
+    recaptured across the flushes or waves), the eager one none."""
+    import numpy as np
+
+    got = counted(launches, f"{path}/eager", lambda: feed(twin))
+    if got != res:
+        raise AssertionError(f"{path}: captured results != capture=False results")
+    if launches[f"{path}/eager"] != launches[path]:
+        raise AssertionError(f"{path}: captured launches {launches[path]} != capture=False "
+                             f"{launches[f'{path}/eager']}")
+    runs, twins = _runs_of(srv), _runs_of(twin)
+    if len(runs) != len(twins):
+        raise AssertionError(f"{path}: {len(runs)} captured runs, {len(twins)} eager")
+    for a, b in zip(runs, twins):
+        for k in ("decisions", "exit_step", "admit_step", "done_step", "occupancy"):
+            if hasattr(a, k) and not np.array_equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"{path}: captured {k} != capture=False")
+        if not np.array_equal(a.g_final.view(np.int32), b.g_final.view(np.int32)):
+            raise AssertionError(f"{path}: captured g_final bits != capture=False")
+        for k in ("chunk_stats", "scores_computed", "steps_run", "steps_enqueued", "syncs"):
+            if getattr(a, k, None) != getattr(b, k, None):
+                raise AssertionError(f"{path}: captured {k} != capture=False")
+    for k in ("scores_computed", "models_evaluated", "chunk_survivors", "stream_steps",
+              "latency_steps"):
+        if getattr(srv.stats, k) != getattr(twin.stats, k):
+            raise AssertionError(f"{path}: captured stats.{k} != capture=False")
+    ex, tw = srv._dev[0], twin._dev[0]
+    if not (ex.capture and not tw.capture and ex.traces == tw.traces == len(ex._graphs) == 1
+            and not tw._graphs):
+        raise AssertionError(f"{path}: traces {ex.traces} / {tw.traces}, graphs "
+                             f"{len(ex._graphs)} / {len(tw._graphs)}, expected 1")
 
 
 def device_work(prof) -> dict:
@@ -1260,24 +1329,34 @@ def phase_main_path(report: dict, launches: dict) -> dict:
 
     out, per_flush, batch_g = {}, {}, {}
 
-    def served(path, srv):
+    def served(path, srv, twin):
+        """``srv`` over the test rows, counted as ``path``, then held
+        against ``twin`` (the same server with capture=False)."""
         res = counted(launches, path, lambda: serve(srv, ds.x_test))
         n = srv.stats.n_batches
         per_flush[path] = {k: v / n for k, v in launches[path].items()}
         log(f"[phase 4] launches {path}: {launches[path]} over {n} flushes")
+        if twin is not None:
+            eager_twin(launches, path, srv, res, twin, lambda s: serve(s, ds.x_test))
+            log(f"[phase 4] {path}: one CUDA graph over {n} flushes == capture=False "
+                f"(results, g_final bits, billing, launches)")
         return res
+
+    def eager_opts(opts=None):
+        return {**(opts or {}), "capture": False}
 
     for mode in GBT_MODES:
         t = time.perf_counter()
         card = server(mode, "cuda")
-        res_card = served(f"fused/{mode}", card)
+        res_card = served(f"fused/{mode}", card, server(mode, "cuda", backend_opts=eager_opts()))
         wall = time.perf_counter() - t
         cpu = server(mode, "cpu")
-        res_cpu = served(f"cpu/{mode}", cpu)
+        res_cpu = served(f"cpu/{mode}", cpu, None)
         if res_card != res_cpu:  # verdicts, models evaluated, full scores
             raise AssertionError(f"{mode}: card results != CPU (plain) results")
         off = server(mode, "cuda", backend_opts={"megakernel": False})
-        res_off = served(f"unfused/{mode}", off)
+        res_off = served(f"unfused/{mode}", off, server(
+            mode, "cuda", backend_opts=eager_opts({"megakernel": False})))
         if res_off != res_card:
             raise AssertionError(f"{mode}: megakernel off != on")
         # the unfused stage is B2's step form once a stage, never its
@@ -1329,7 +1408,8 @@ def phase_main_path(report: dict, launches: dict) -> dict:
 
     # the eager path: the score matrix per flush through the matrix variant
     eager = server("both", "cuda", scorer=None, score_fn=score_fn)
-    res_eager = served("eager/both", eager)
+    res_eager = served("eager/both", eager, server(
+        "both", "cuda", scorer=None, score_fn=score_fn, backend_opts=eager_opts()))
     n_stages = 1 + math.ceil((500 - 1) / 8)  # a lead model, then chunks of 8
     if per_flush["eager/both"] != {"gbt_scores": 1.0, "mega_stage_matrix": float(n_stages)}:
         raise AssertionError(f"eager: launched {per_flush['eager/both']} a flush, expected one "
@@ -1430,6 +1510,10 @@ def phase_lattice_path(report: dict, launches: dict) -> dict:
         t = time.perf_counter()
         srv = srvs[path] = server(device, backend_opts=opts)
         res[path] = counted(launches, key, lambda: serve(srv, ds.x_test))
+        if device == "cuda":
+            eager_twin(launches, key, srv, res[path],
+                       server(device, backend_opts={**opts, "capture": False}),
+                       lambda s: serve(s, ds.x_test))
         nb, n_stages = srv.stats.n_batches, srv._dev[0].dplan.S
         per_flush[key] = {k: v / nb for k, v in launches[key].items()}
         want = {
@@ -1441,7 +1525,8 @@ def phase_lattice_path(report: dict, launches: dict) -> dict:
         if launches[key] != want:
             raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
         log(f"[phase 4b] serve {key}: {nb} flushes of {n_stages} stages in "
-            f"{time.perf_counter() - t:.1f}s; launches {launches[key]}")
+            f"{time.perf_counter() - t:.1f}s; launches {launches[key]}"
+            + ("; one CUDA graph == capture=False" if device == "cuda" else ""))
     if not res["lattice_fused"] == res["lattice_unfused"] == res["lattice_cpu"]:
         raise AssertionError("lattice: fused, unfused and CPU results differ")
     for k in ("scores_computed", "chunk_survivors", "models_evaluated"):
@@ -1564,9 +1649,14 @@ def phase_streaming(report: dict, launches: dict, main: dict, lmain: dict) -> di
                 }[path]
                 if launches[key] != want:
                     raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+                if device == "cuda":
+                    eager_twin(launches, key, srv, res[path],
+                               server(cell, device, {**opts, "capture": False}, eager),
+                               lambda s: stream_serve(s, x, arrivals))
                 log(f"[phase 4c] {key}: {len(waves)} waves, {srv.stats.stream_steps} steps run, "
                     f"{enq} enqueued, {sum(w.syncs for w in waves)} syncs in "
-                    f"{time.perf_counter() - t:.1f}s; launches {launches[key]}")
+                    f"{time.perf_counter() - t:.1f}s; launches {launches[key]}"
+                    + ("; one CUDA graph == capture=False" if device == "cuda" else ""))
             ref_srv = srvs["fused"]
             for path, srv in srvs.items():
                 if res[path] != res["fused"]:
@@ -1624,6 +1714,39 @@ def submit_queries(server, x, offsets) -> list[dict]:
     return server.drain()
 
 
+def rank_twin(srv):
+    """The ranking server ``srv`` again, with its executor's eager loop on
+    the card (``capture=False``)."""
+    from repro_torch.kernels.device_executor import DeviceExecutor
+    from repro_torch.ranking import GroupedRankServer
+
+    ex = srv.executor
+    eager = DeviceExecutor(ex.dplan, ex.scorer, block_n=ex.block_n, megakernel=ex.megakernel,
+                           device=ex.device, capture=False)
+    return GroupedRankServer(srv.gplan, srv.score_fn, executor=eager,
+                             batch_groups=srv.batch_groups, capacity_groups=srv.capacity_groups,
+                             capacity_docs=srv.capacity_docs, buckets=srv.buckets)
+
+
+def fresh_queries(x, n_drains: int, seed: int) -> list:
+    """``n_drains`` sets of ``RANK_FRESH`` never-seen queries over the rows
+    ``x``, as ``(rows, offsets)``: drain i cuts ``x`` into ragged queries
+    (Poisson mean ``RANK_GROUP_MEAN``, seed ``seed + i``) and takes
+    ``RANK_FRESH`` consecutive ones at a seeded start."""
+    import numpy as np
+
+    from repro_torch.launch.serve import _ragged_sizes
+    from repro_torch.ranking import group_offsets
+
+    out = []
+    for i in range(n_drains):
+        rng = np.random.default_rng(seed + i)
+        offs = group_offsets(_ragged_sizes(len(x), RANK_GROUP_MEAN, rng))
+        j = int(rng.integers(0, offs.size - 1 - RANK_FRESH))
+        out.append((x[offs[j] : offs[j + RANK_FRESH]], offs[j : j + RANK_FRESH + 1] - offs[j]))
+    return out
+
+
 def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
     """Phase 4d: query-level ranking exit on exp1_adult's GBT (no new
     ensemble, no new greedy search: phase 4's B3 calibration matrix and its
@@ -1675,10 +1798,11 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
         calls["n"] += 1
         return ops.gbt_scores(*params[x.device.type], x)
 
-    def server(backend, device):
-        return fitted.compile(backend, device=device).serve(
-            score_fn=score_fn, batch_size=RANK_BATCH
+    def server(backend, device, capture=True):
+        srv = fitted.compile(backend, device=device).serve(
+            score_fn=score_fn, batch_size=RANK_BATCH, capacity_docs=RANK_DOCS
         )
+        return srv if capture else rank_twin(srv)
 
     card = server("device", "cuda")
     res_card = counted(launches, "rank/both", lambda: submit_queries(card, ds.x_test, off))
@@ -1686,14 +1810,26 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
     want = {"gbt_scores": calls["n"], "cascade_group": st.n_waves * (gp.S + 1)}
     if launches["rank/both"] != want:
         raise AssertionError(f"rank/both: launched {launches['rank/both']}, expected {want}")
+    # the first drain runs each bucket wave's program (one a bucket shape:
+    # the operand is pinned to RANK_DOCS rows) eagerly, as capture=False does
+    twin = server("device", "cuda", capture=False)
+    res_twin = counted(launches, "rank/both/eager", lambda: submit_queries(twin, ds.x_test, off))
+    ex, tw = card.executor, twin.executor
+    if res_twin != res_card or launches["rank/both/eager"] != launches["rank/both"]:
+        raise AssertionError("ranking: captured results or launches != capture=False")
+    if not (ex.traces == tw.traces == st.n_waves and not ex._graphs and not tw._graphs):
+        raise AssertionError(f"ranking: traces {ex.traces} / {tw.traces}, graphs "
+                             f"{len(ex._graphs)}, waves {st.n_waves}")
+    log(f"[phase 4d] ranking: {ex.traces} programs (one a bucket wave), run eagerly at their "
+        f"first drain == capture=False")
     res_cpu = submit_queries(server("device", "cpu"), ds.x_test, off)
     res_host = submit_queries(server("host", "cuda"), ds.x_test, off)
     oracle = run_grouped_host(gp, F_test, sizes_te)
 
-    def fields(res):
+    def fields(res, offsets=off):
         verd = np.full((len(res), gp.k), -1, dtype=np.int64)
         for i, r in enumerate(res):
-            verd[i, : len(r["ranking"])] = np.asarray(r["ranking"]) + off[i]
+            verd[i, : len(r["ranking"])] = np.asarray(r["ranking"]) + offsets[i]
         ex = np.array([r["exit_stage"] for r in res])
         m = np.array([r["margin"] for r in res], dtype=np.float32)
         return verd, ex, m.view(np.int32)
@@ -1727,6 +1863,40 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
         f"({st.compute_fraction:.2%} of eager), NDCG@{gp.k} {ndcg:.4f} (full cascade "
         f"{ndcg_full:.4f}); card == CPU == host rung == run_grouped_host, margin-inf == "
         f"full_cascade_topk; launches {launches['rank/both']}")
+    # the second drain captures each program and replays it, the third
+    # replays them: equal results and launches, nothing recaptured
+    traces = ex.traces
+    for i, path in enumerate(("rank/both/capture", "rank/both/replay")):
+        graphs = dict(ex._graphs)
+        again = counted(launches, path, lambda: submit_queries(card, ds.x_test, off))
+        if again != res_card or launches[path] != launches["rank/both"] \
+                or ex.traces != traces or len(ex._graphs) != traces \
+                or (i and ex._graphs != graphs):
+            raise AssertionError(f"ranking: {path} differs, or a graph was recaptured")
+    log(f"[phase 4d] the second drain captures the {traces} programs, the third replays "
+        f"them: == the first, same launches")
+    # never-seen queries (the first RANK_FRESH train queries) replay the
+    # same graphs: equal to capture=False and to run_grouped_host
+    graphs = dict(ex._graphs)
+    off_tr = group_offsets(sizes_tr)
+    x_new, off_new = ds.x_train[: off_tr[RANK_FRESH]], off_tr[: RANK_FRESH + 1]
+    waves = st.n_waves
+    new = counted(launches, "rank/both/fresh", lambda: submit_queries(card, x_new, off_new))
+    new_twin = counted(launches, "rank/both/fresh/eager",
+                       lambda: submit_queries(twin, x_new, off_new))
+    oracle_new = run_grouped_host(gp, F_train[: off_tr[RANK_FRESH]], sizes_tr[:RANK_FRESH])
+    ref_new = (oracle_new.verdicts.astype(np.int64), oracle_new.exit_stage,
+               oracle_new.margin.view(np.int32))
+    if new != new_twin or launches["rank/both/fresh"] != launches["rank/both/fresh/eager"]:
+        raise AssertionError("ranking: never-seen queries, captured != capture=False")
+    if not all(np.array_equal(a, b) for a, b in zip(fields(new, off_new), ref_new)):
+        raise AssertionError("ranking: never-seen queries != run_grouped_host")
+    if any(ex._graphs.get(k) is not g for k, g in graphs.items()):
+        raise AssertionError("ranking: never-seen queries recaptured a graph")
+    new_keys = ex.traces - traces
+    log(f"[phase 4d] {RANK_FRESH} never-seen queries: {st.n_waves - waves} "
+        f"waves, {new_keys} new programs, the rest replayed == capture=False == "
+        f"run_grouped_host")
     # B8's input at the widest bucket wave's first stage, for phase 5
     b, gidx = max(pack_by_bucket(sizes_te, gp.buckets).items())
     rows, valid = bucket_layout(sizes_te[gidx], b, offsets=off[gidx])
@@ -1742,7 +1912,8 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
         g0 = g0 + torch.where(valid_t != 0, Fo[rows_t, j], 0.0)
     eps0 = torch.full((cap_g,), float(gp.eps_g[0]), device="cuda")
     return dict(
-        server=lambda: server("device", "cuda"), x=ds.x_test, offsets=off,
+        server=lambda capture=True: server("device", "cuda", capture), x=ds.x_test, offsets=off,
+        fresh=fresh_queries(ds.x_train, N_RANK_DRAINS, GROUPS_SEED + 1),
         b8=(g0, valid_t, eps0, gp.k, torch.tensor(len(gidx), dtype=torch.int32, device="cuda"),
             rows_t),
         b8_shape=f"G={cap_g} (live {len(gidx)}) B={b} k={gp.k}", S=gp.S,
@@ -1810,18 +1981,18 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
                         params=[a.cpu().numpy() for a in (lmain["theta"], lmain["feats"])]),
     }
 
-    def batch_server(c, params, quant, device):
+    def batch_server(c, params, quant, device, capture=True):
         return QWYCServer(
             c["fit"], scorer=c["make"](*params, quant=quant), exec_backend="device",
             device=device, backend="kernel", batch_size=256, chunk_t=8,
-            backend_opts={"megakernel": True},
+            backend_opts={"megakernel": True, "capture": capture},
         )
 
-    def stream_server(c, params, quant, device):
+    def stream_server(c, params, quant, device, capture=True):
         return StreamingServer(
             c["fit"], scorer=c["make"](*params, quant=quant), exec_backend="device",
             device=device, batch_size=STREAM_CAP, window=STREAM_WINDOW, chunk_t=8, block_n=64,
-            backend_opts={"megakernel": True},
+            backend_opts={"megakernel": True, "capture": capture},
         )
 
     def rows_of(results):  # per-row (decisions, exits, g bits) of flushes or waves
@@ -1870,6 +2041,9 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
                     res = counted(launches, key, lambda: serve_fn(srv))
                     waves = srv.flush_results if kind == "batch" else srv.stream_results
                     runs[kind, device] = (res, srv, rows_of(waves))
+                    if device == "cuda":
+                        eager_twin(launches, key, srv, res,
+                                   make(c, c["params"], quant, device, capture=False), serve_fn)
                 card = runs[kind, "cuda"][1]
                 if kind == "batch":
                     n_launch = card.stats.n_batches * card._dev[0].dplan.S
@@ -1931,10 +2105,10 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
     steps = np.floor(poisson_arrivals(n, STREAM_RATES[0])).astype(np.int64)
     ev = evaluate_cascade(fit, F)
 
-    def executor(quant, device):
+    def executor(quant, device, capture=True):
         dplan = DevicePlan.from_plan(plan, quant=quant)
         return DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=device), block_n=64,
-                              megakernel=True, device=device)
+                              megakernel=True, device=device, capture=capture)
 
     def batches(ex, op):
         return [ex.run(op[b0 : b0 + 256], min(256, n - b0), capacity=256)
@@ -1944,9 +2118,29 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
     for device, kb, ks in (("cuda", "q_batch_matrix_bf16/exp1", "q_stream_matrix_bf16/exp1/r256"),
                            ("cpu", "q_cpu/exp1/batch/matrix_bf16", "q_cpu/exp1/stream/matrix_bf16")):
         ex = executor("bf16", device)
+        if device == "cuda":
+            ex_card = ex
         b = counted(launches, kb, lambda: batches(ex, Fo))
         s = counted(launches, ks, lambda: [ex.run_stream(Fo, n, arrivals=steps, capacity=256)])
         runs[device] = (b, s)
+    # the captured executor (a batch graph and a streaming graph) against
+    # capture=False on the card
+    ex_c, ex_e = ex_card, executor("bf16", "cuda", capture=False)
+    be = counted(launches, "q_batch_matrix_bf16/exp1/eager", lambda: batches(ex_e, Fo))
+    se = counted(launches, "q_stream_matrix_bf16/exp1/r256/eager",
+                 lambda: [ex_e.run_stream(Fo, n, arrivals=steps, capacity=256)])
+    bc_, sc_ = runs["cuda"]
+    if not (same(rows_of(be), rows_of(bc_)) and same(rows_of(se), rows_of(sc_))
+            and [r.chunk_stats for r in be] == [r.chunk_stats for r in bc_]
+            and [(r.steps_enqueued, r.syncs, r.scores_computed) for r in se]
+            == [(r.steps_enqueued, r.syncs, r.scores_computed) for r in sc_]
+            and launches["q_batch_matrix_bf16/exp1/eager"] == launches["q_batch_matrix_bf16/exp1"]
+            and launches["q_stream_matrix_bf16/exp1/r256/eager"]
+            == launches["q_stream_matrix_bf16/exp1/r256"]):
+        raise AssertionError("matrix bf16: captured != capture=False")
+    if not (ex_c.traces == ex_e.traces == len(ex_c._graphs) == 2 and not ex_e._graphs):
+        raise AssertionError(f"matrix bf16: traces {ex_c.traces} / {ex_e.traces}, graphs "
+                             f"{len(ex_c._graphs)}")
     S = DevicePlan.from_plan(plan).S
     want = {"q_batch_matrix_bf16/exp1": {"mega_stage_matrix_bf16": len(runs["cuda"][0]) * S},
             "q_stream_matrix_bf16/exp1/r256": {
@@ -1988,42 +2182,83 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
     return dict(batch_server=batch_server, stream_server=stream_server, cells=cells)
 
 
-def flush_latency(make_server, x, label: str, megakernels=(None, False)) -> dict:
+def phase_gate(report: dict) -> None:
+    """Phase 4f: the port's billing gate (``benchmarks/torch/perf_gate.py
+    --device cuda --check``) on the card: the reference gate's fixtures
+    through the port's kernels and captured loops, every reachable key
+    equal to ``benchmarks/results/baseline_billing.json``, every other key
+    pending with its queue item."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "port_perf_gate", ROOT / "benchmarks" / "torch" / "perf_gate.py")
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    baseline = json.loads(gate.BASELINE.read_text())["counters"]
+    counters = gate.collect_counters("cuda")
+    failures = gate.compare(baseline, counters)
+    if failures:
+        raise AssertionError("perf gate: " + "; ".join(failures))
+    pending = sorted(k for k in baseline if gate.pending_reason(k) is not None)
+    traces = {k: v for k, v in counters.items() if k.endswith(".traces")}
+    report["perf_gate"] = dict(reachable=len(counters), pending=len(pending), counters=counters)
+    log(f"[phase 4f] perf gate on the card: {len(counters)} reachable keys == baseline "
+        f"(traces {traces}), {len(pending)} pending, {len(baseline)} accounted for")
+
+
+def flush_latency(make_server, x, label: str, megakernels=(None, False),
+                  captures=(True,)) -> dict:
     """Median and p90 flush latency at batch 128 / 256 / 1024, fused
     (megakernel on, the default) and unfused, or only ``megakernels``, for
-    the servers ``make_server(batch_size=, backend_opts=)`` builds."""
+    the servers ``make_server(batch_size=, backend_opts=)`` builds: the
+    captured loop (one CUDA graph a server) and, in ``captures``, the eager
+    loop (``capture=False``, keys ending in ``_eager``)."""
     lat = {}
-    for batch in (128, 256, 1024):
-        for megakernel in megakernels:
-            srv = make_server(batch_size=batch, backend_opts={"megakernel": megakernel})
-            times = []
-            for k in range(N_WARM + N_FLUSH):
-                start = (k * batch) % (x.shape[0] - batch)
-                rows = x[start : start + batch]
-                for row in rows[:-1]:
-                    srv.submit(row)
-                t = time.perf_counter()
-                srv.submit(rows[-1])  # fills the batch: one flush, ending in
-                times.append((time.perf_counter() - t) * 1e3)  # its one transfer
-            times = times[N_WARM:]
-            key = f"batch{batch}" + ("" if megakernel is None else "_unfused")
-            # p90 of 100 samples has 10 beyond it
-            lat[key] = dict(
-                median_ms=statistics.median(times),
-                p90_ms=statistics.quantiles(times, n=10)[-1],
-                min_ms=min(times), max_ms=max(times), n=len(times),
-            )
-            log(f"[phase 5] {label} flush latency batch {batch} "
-                f"({'fused' if megakernel is None else 'unfused'}): median "
-                f"{lat[key]['median_ms']:.3f} ms, p90 {lat[key]['p90_ms']:.3f} ms "
-                f"over {len(times)} flushes")
+    for batch, megakernel, capture in itertools.product((128, 256, 1024), megakernels, captures):
+        # (a tree without the option runs its eager loop: a paired bench's parent)
+        opts = {"megakernel": megakernel, **({} if capture else {"capture": False})}
+        srv = make_server(batch_size=batch, backend_opts=opts)
+        times = []
+        for k in range(N_WARM + N_FLUSH):
+            start = (k * batch) % (x.shape[0] - batch)
+            rows = x[start : start + batch]
+            for row in rows[:-1]:
+                srv.submit(row)
+            t = time.perf_counter()
+            srv.submit(rows[-1])  # fills the batch: one flush, ending in
+            times.append((time.perf_counter() - t) * 1e3)  # its one transfer
+        times = times[N_WARM:]
+        key = (f"batch{batch}" + ("" if megakernel is None else "_unfused")
+               + ("" if capture else "_eager"))
+        # p90 of 100 samples has 10 beyond it
+        lat[key] = dict(
+            median_ms=statistics.median(times),
+            p90_ms=statistics.quantiles(times, n=10)[-1],
+            min_ms=min(times), max_ms=max(times), n=len(times),
+        )
+        log(f"[phase 5] {label} flush latency batch {batch} "
+            f"({'fused' if megakernel is None else 'unfused'}, "
+            f"{'captured' if capture else 'eager loop'}): median "
+            f"{lat[key]['median_ms']:.3f} ms, p90 {lat[key]['p90_ms']:.3f} ms "
+            f"over {len(times)} flushes")
     return lat
 
 
-def busy_share(srv, x, median_ms: float, label: str) -> dict:
+def busy_share(srv, x, median_ms: float, label: str, tries: int = 3) -> dict:
     """Device busy share of one steady batch-256 flush of ``srv``: the
     profiler's device time over the unprofiled median flush ``median_ms``
-    (the profiler slows the host, so its own wall would understate it)."""
+    (the profiler slows the host, so its own wall would understate it).
+    The kernel launches of one unprofiled flush (a replayed graph's counted
+    at its capture) are checked against the port's kernels the profile
+    sees: more fails at once; fewer (the profiler lost records: 61 of 65
+    once, in one captured flush) profiles the flush again, at most
+    ``tries`` times in all, and fails if no profile sees them all."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    # a program's first flush runs eagerly, its second captures it
+    serve(srv, x[:256])
     serve(srv, x[:256])
     wall = {}
 
@@ -2036,15 +2271,41 @@ def busy_share(srv, x, median_ms: float, label: str) -> dict:
         srv.submit(x[511])  # the 256th row: one flush
         wall["us"] = (time.perf_counter() - t) * 1e6
 
-    by_name = profile_device(flush, prepare=fill)
+    # the launches of one flush, and its span on the device between two
+    # CUDA events
+    fill()
+    _build.LAUNCHES.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    flush()
+    end.record()
+    torch.cuda.synchronize()
+    launched = sum(_build.LAUNCHES.values())
+    span_us = start.elapsed_time(end) * 1e3
+    for attempt in range(tries):
+        by_name = profile_device(flush, prepare=fill)
+        events = sum(c for _, c in port_kernels(by_name).values())
+        if events > launched:
+            raise AssertionError(f"{label}: the profile saw {events} of the port's kernels "
+                                 f"for {launched} launches")
+        if events == launched:
+            break
+        log(f"[phase 5] {label}: profile {attempt + 1}/{tries} saw {events} of the port's "
+            f"kernels for {launched} launches")
+    else:
+        raise AssertionError(f"{label}: no profile of {tries} saw the flush's {launched} "
+                             f"launches")
     busy = sum(v[0] for v in by_name.values())
     wall_unprofiled_us = median_ms * 1e3
-    log(f"[phase 5] {label} one flush (batch 256, fused): device busy {busy:.0f} us = "
+    log(f"[phase 5] {label} one flush (batch 256): device busy {busy:.0f} us = "
         f"{busy / wall_unprofiled_us:.2%} of the unprofiled median flush "
-        f"{wall_unprofiled_us:.0f} us (wall under the profiler {wall['us']:.0f} us)")
+        f"{wall_unprofiled_us:.0f} us (wall under the profiler {wall['us']:.0f} us); the "
+        f"profile saw {events} of the port's kernels for {launched} launches; device span "
+        f"{span_us:.0f} us (CUDA events)")
     return dict(
         device_busy_us=busy, wall_unprofiled_median_us=wall_unprofiled_us,
         busy_share=busy / wall_unprofiled_us, wall_profiled_us=wall["us"],
+        port_events=events, launches=launched, profiles=attempt + 1, device_span_us=span_us,
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
         port=port_kernels(by_name),
     )
@@ -2193,29 +2454,42 @@ def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> 
     return out
 
 
-def rank_timing(rmain: dict) -> dict:
-    """Phase 4d's card server: ``N_RANK_DRAINS`` drains of the test queries
-    after a warm-up one (host clock, each ending in its results' transfer);
-    one drain's PyTorch operator calls per grouped stage enqueued; one
-    drain profiled for the device busy share over the unprofiled median."""
+def rank_timing(rmain: dict, capture: bool = True) -> dict:
+    """Phase 4d's card server (its eager loop with ``capture=False``),
+    host clock, each drain ending in its results' transfer: its first drain
+    of the test queries (every program's first run, eager) and its second
+    (each program captured, then replayed); ``N_RANK_DRAINS`` drains of the
+    same queries after them; one drain of each never-seen query set of
+    ``rmain["fresh"]``; one drain's PyTorch operator calls per grouped
+    stage enqueued; one drain profiled for the device busy share over the
+    unprofiled median."""
     make, x, off, S = rmain["server"], rmain["x"], rmain["offsets"], rmain["S"]
-    srv = make()
-    submit_queries(srv, x, off)  # warm-up
-    walls = []
-    for _ in range(N_RANK_DRAINS):
+    srv = make(capture)
+
+    def drain_ms(xq, oq) -> float:
         t = time.perf_counter()
-        submit_queries(srv, x, off)
-        walls.append((time.perf_counter() - t) * 1e3)
+        submit_queries(srv, xq, oq)
+        return (time.perf_counter() - t) * 1e3
+
+    first, second = drain_ms(x, off), drain_ms(x, off)
+    walls = [drain_ms(x, off) for _ in range(N_RANK_DRAINS)]
+    # (a tree without traces, timed by bench_capture.py, counts none)
+    traces = getattr(srv.executor, "traces", 0)
+    fresh = [drain_ms(xq, oq) for xq, oq in rmain["fresh"]]
+    fresh_traces = getattr(srv.executor, "traces", 0) - traces
     waves = srv.stats.n_waves
     with OpCount() as ops:
         submit_queries(srv, x, off)
     waves = srv.stats.n_waves - waves
     by_name = profile_device(lambda: submit_queries(srv, x, off))
     busy = sum(v[0] for v in by_name.values())
-    med = statistics.median(walls)
+    med, fmed = statistics.median(walls), statistics.median(fresh)
     out = dict(
         drain_median_ms=med, drain_p90_ms=statistics.quantiles(walls, n=10)[-1],
         drains=len(walls), queries=off.size - 1, waves_per_drain=waves,
+        first_drain_ms=first, second_drain_ms=second,
+        fresh_drain_median_ms=fmed, fresh_drain_p90_ms=statistics.quantiles(fresh, n=10)[-1],
+        fresh_drains=len(fresh), fresh_new_programs=fresh_traces,
         torch_ops_per_stage=ops.n / (waves * S), device_busy_us=busy,
         busy_share=busy / (med * 1e3),
         top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
@@ -2223,10 +2497,14 @@ def rank_timing(rmain: dict) -> dict:
         sort_kernels=[k for k in by_name if "sort" in k.lower()],
         sort_calls=ops.by_name["aten.sort"],
     )
-    log(f"[phase 5] ranking drain of {off.size - 1} queries ({waves} waves of {S} stages): "
-        f"median {med:.3f} ms, p90 {out['drain_p90_ms']:.3f} ms over {len(walls)} drains; "
-        f"{out['torch_ops_per_stage']:.1f} PyTorch ops per grouped stage; one drain's "
-        f"device busy {busy:.0f} us = {out['busy_share']:.2%} of the median drain")
+    log(f"[phase 5] ranking drain ({'captured' if capture else 'eager loop'}) of "
+        f"{off.size - 1} queries ({waves} waves of {S} stages): first {first:.3f} ms, second "
+        f"{second:.3f} ms, then median {med:.3f} ms, p90 {out['drain_p90_ms']:.3f} ms over "
+        f"{len(walls)} drains; never-seen queries ({len(fresh)} drains of {RANK_FRESH}, "
+        f"{fresh_traces} new programs): median {fmed:.3f} ms, p90 "
+        f"{out['fresh_drain_p90_ms']:.3f} ms; {out['torch_ops_per_stage']:.1f} PyTorch ops "
+        f"per grouped stage; one drain's device busy {busy:.0f} us = "
+        f"{out['busy_share']:.2%} of the median drain")
     return out
 
 
@@ -2303,41 +2581,49 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     from repro_torch.kernels.lattice_kernel import lattice_scores_kernel, lattice_scores_plain
     from repro_torch.kernels.tree_kernel import gbt_scores_kernel, gbt_scores_plain
 
+    # each served path captured (the default) and, beside it, its eager loop
+    # (capture=False): walls, busy shares, PyTorch calls
     ds, server = main["ds"], main["server"]
-    lat = flush_latency(lambda **kw: server("both", "cuda", **kw), ds.x_test, "exp1_adult")
+    lat = flush_latency(lambda **kw: server("both", "cuda", **kw), ds.x_test, "exp1_adult",
+                        captures=(True, False))
     report["flush_latency"] = lat
-    report["profile_flush256"] = busy_share(
-        server("both", "cuda"), ds.x_test, lat["batch256"]["median_ms"], "exp1_adult"
-    )
     lds, lserver = lmain["ds"], lmain["server"]
-    llat = flush_latency(lambda **kw: lserver("cuda", **kw), lds.x_test, "exp4_rw2_joint")
+    llat = flush_latency(lambda **kw: lserver("cuda", **kw), lds.x_test, "exp4_rw2_joint",
+                         captures=(True, False))
     report["lattice_flush_latency"] = llat
-    report["lattice_profile_flush256"] = busy_share(
-        lserver("cuda"), lds.x_test, llat["batch256"]["median_ms"], "exp4_rw2_joint"
-    )
-    # the unfused batch stage (B3 or B5, then B2's step form): its calls
-    report["unfused_calls"] = {
-        "exp1_adult": unfused_calls(server("both", "cuda", backend_opts={"megakernel": False}),
-                                    ds.x_test, "exp1_adult"),
-        "exp4_rw2_joint": unfused_calls(lserver("cuda", backend_opts={"megakernel": False}),
-                                        lds.x_test, "exp4_rw2_joint"),
-    }
-    report["stream_timing"] = {
-        cell: stream_timing(lambda c=cell: smain["server"](c, "cuda"),
-                            smain["cells"][cell]["ds"].x_test, cell)
-        for cell in smain["cells"]
-    }
-    # the unfused step (lane_fn + B6's step form), both cells at the heavy rate
-    report["stream_timing_unfused"] = {
-        cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", {"megakernel": False}),
-                            smain["cells"][cell]["ds"].x_test, f"{cell} unfused")
-        for cell in smain["cells"]
-    }
-    rt = report["rank_timing"] = rank_timing(rmain)
-    # B8 picks each group's top k: the drain sorts nothing on the card
-    if rt["sort_kernels"] or rt["sort_calls"]:
-        raise AssertionError(f"ranking drain: sort kernels {rt['sort_kernels']}, "
-                             f"{rt['sort_calls']} aten.sort calls")
+    for capture, sfx in ((True, ""), (False, "_eager")):
+        opts = {} if capture else {"capture": False}
+        label = "captured" if capture else "eager loop"
+        report[f"profile_flush256{sfx}"] = busy_share(
+            server("both", "cuda", backend_opts=opts), ds.x_test,
+            lat[f"batch256{sfx}"]["median_ms"], f"exp1_adult {label}")
+        report[f"lattice_profile_flush256{sfx}"] = busy_share(
+            lserver("cuda", backend_opts=opts), lds.x_test,
+            llat[f"batch256{sfx}"]["median_ms"], f"exp4_rw2_joint {label}")
+        # the unfused batch stage (B3 or B5, then B2's step form): its calls
+        unfused = {"megakernel": False, **opts}
+        report[f"unfused_calls{sfx}"] = {
+            "exp1_adult": unfused_calls(server("both", "cuda", backend_opts=unfused),
+                                        ds.x_test, f"exp1_adult {label}"),
+            "exp4_rw2_joint": unfused_calls(lserver("cuda", backend_opts=unfused),
+                                            lds.x_test, f"exp4_rw2_joint {label}"),
+        }
+        report[f"stream_timing{sfx}"] = {
+            cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", dict(opts)),
+                                smain["cells"][cell]["ds"].x_test, f"{cell} {label}")
+            for cell in smain["cells"]
+        }
+        # the unfused step (lane_fn + B6's step form), both cells at the heavy rate
+        report[f"stream_timing_unfused{sfx}"] = {
+            cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", dict(unfused)),
+                                smain["cells"][cell]["ds"].x_test, f"{cell} unfused {label}")
+            for cell in smain["cells"]
+        }
+        rt = report[f"rank_timing{sfx}"] = rank_timing(rmain, capture=capture)
+        # B8 picks each group's top k: the drain sorts nothing on the card
+        if rt["sort_kernels"] or rt["sort_calls"]:
+            raise AssertionError(f"ranking drain: sort kernels {rt['sort_kernels']}, "
+                                 f"{rt['sort_calls']} aten.sort calls")
     report["eager_timing"] = eager_timing(
         lambda **kw: server("both", "cuda", scorer=None, score_fn=main["score_fn"], **kw),
         lambda: smain["server"]("exp1_adult", "cuda", eager=True), ds.x_test, "exp1_adult eager",
@@ -2769,6 +3055,7 @@ def main() -> int:
     stream_ctx = timed("4c", phase_streaming, report, launches, main_ctx, lattice_ctx)
     rank_ctx = timed("4d", phase_ranking, report, launches, main_ctx)
     quant_ctx = timed("4e", phase_quant, report, launches, main_ctx, lattice_ctx)
+    timed("4f", phase_gate, report)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

@@ -67,6 +67,10 @@ class HostBackend:
             _as_cascade_plan(plan), producer, decide_fn=decide_fn, bill_block=bill_block
         )
 
+    def billing_key(self) -> str:
+        """The perf gate's counter-key fragment."""
+        return self.name
+
 
 class DeviceBackend:
     """The device stage loop (``DeviceExecutor``)."""
@@ -87,7 +91,13 @@ class DeviceBackend:
         block_n: int = DEFAULT_BLOCK_N,
         megakernel: bool | None = None,
         device="cuda",
+        capture: bool = True,
     ) -> DeviceExecutor:
         return DeviceExecutor(
-            plan, scorer, block_n=block_n, megakernel=megakernel, device=device
+            plan, scorer, block_n=block_n, megakernel=megakernel, device=device,
+            capture=capture,
         )
+
+    def billing_key(self) -> str:
+        """The perf gate's counter-key fragment."""
+        return self.name

@@ -340,6 +340,12 @@ class CompiledCascade:
     def backend_name(self) -> str:
         return self.backend.name
 
+    @property
+    def traces(self) -> int | None:
+        """The executor's program count (``DeviceExecutor.traces``; None on
+        the host backend)."""
+        return getattr(self._executor, "traces", None)
+
     def _ordered_scores(self, scores, x) -> np.ndarray:
         if scores is None:
             if x is None:

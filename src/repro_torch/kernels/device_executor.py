@@ -21,7 +21,7 @@ only enqueues work on the card:
   scatters of the stage touch only the trash slot, so a stage past the
   quit costs its launches and no work.  The number of stages that ran
   (``n_in_log > 0``) and the billing are recovered after the loop, with the
-  one transfer to the host.  A CUDA graph of the loop is later work.
+  one transfer to the host.
 * **Megakernel.**  With f32 ``ParamSlabs`` the stage is one fused kernel
   (B4, ``megakernel.py``); otherwise (or with ``megakernel=False``) it is
   the scorer's kernel (B3 for trees, B5 for lattices) -> B2's step form,
@@ -44,13 +44,38 @@ its own stage.  A step is the admission refill, one mixed-stage kernel
 which reads the stage tables in place and writes the pack positions), the
 finished rows' scatters and the repack.  Every buffer indexed by a row
 id has ``R + 1`` entries, the trash slot at ``R``.  The number of steps
-depends on the data, so the loop is enqueued in bursts: after each burst
-the live count and the ring head come back in one two-word transfer, and
-the loop stops once no lane is live and the ring is empty.  A step
-enqueued past that point is inert (every kernel retires at once, every
-scatter lands in the trash slot), and a device counter advances only on
-the steps where the reference's loop condition held, so ``steps_run``,
-``admit_step``, ``done_step`` and the occupancy equal the reference's.
+depends on the data, so the loop is enqueued in bursts of
+``STREAM_BURST`` steps: after each sync the live count and the ring head
+come back in one two-word transfer, and the loop stops once no lane is
+live and the ring is empty.  The first sync waits for the last arrival
+(``ceil(max(STREAM_BURST, arrivals[-1] + 1) / STREAM_BURST)`` bursts),
+every later one follows one burst.  The step counter and the arrival steps live on the device (a
+lane's ``arrived`` count is a ``searchsorted`` there), so a burst reads
+nothing from the host.  A step enqueued past the end is inert (every
+kernel retires at once, every scatter lands in the trash slot), and a
+device counter advances only on the steps where the reference's loop
+condition held, so ``steps_run``, ``admit_step``, ``done_step`` and the
+occupancy equal the reference's.
+
+**Compiled programs** (the reference's contract: one trace per program
+key, counted by ``DeviceExecutor.traces``).  A program's key is what
+``jax.jit`` keys the reference's program on: the shapes and dtypes of the
+loop's tensor inputs and its static arguments (``k`` for the grouped
+loop; the lane count and the ring size for streaming).  The grouped
+loop's operand is padded to a row capacity (``capacity_rows``, else the
+next power of two), so flushes with different document counts share a
+key.  ``traces`` counts the distinct keys an executor has run.  On the
+card (and ``capture=True``, the default) the first run of a key runs the
+loop eagerly; the second captures it into a ``torch.cuda.CUDAGraph`` and
+replays it, and every later run writes its inputs into the graph's static
+buffers and replays it.  A key run once (a one-off size) thus costs its
+eager loop and no capture.  The executor keeps the ``MAX_GRAPHS`` graphs
+used last (a key whose graph was dropped is captured again when it
+returns).  The eager run and the capture execute the same loop body.
+Each graph records the kernel launches its capture enqueued, and each
+replay adds them to ``_build.LAUNCHES``.  ``capture=False`` (the
+counterpart of ``jax.disable_jit``) keeps the eager loop on the card; on
+the CPU the loop is always eager.
 
 **Grouped (ranking) loop** (``run_grouped``, the reference's
 ``_grouped_program``): the batch stage loop at GROUP granularity.  The
@@ -68,7 +93,9 @@ order, so margins and verdicts equal ``run_grouped_host``'s bit for bit.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -76,6 +103,7 @@ import torch
 
 from repro_torch.core.executor import CascadePlan, ChunkStat, ExecutorResult
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels.cascade_kernel import (
     DEFAULT_BLOCK_G,
@@ -105,6 +133,8 @@ __all__ = [
 DEFAULT_BLOCK_N = 64
 # streaming steps enqueued between two reads of the loop's end condition
 STREAM_BURST = 8
+# CUDA graphs an executor keeps (the ones used last)
+MAX_GRAPHS = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -420,6 +450,48 @@ class GroupedResult:
     scores_possible: int
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One captured program: the CUDA graph, the static input tensors a
+    replay reads (each run writes its inputs into them first), what a
+    replay writes, and the kernel launches one replay makes."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    outputs: object
+    launches: collections.Counter
+
+
+@dataclasses.dataclass
+class _StreamState:
+    """The streaming program's inputs and loop state, updated in place by
+    each burst: ``x`` (R + 1, ...) the ring's rows (the last the trash
+    row), ``arr`` (R,) their nondecreasing arrival steps, ``n`` the rows in
+    the ring; ``rows``, ``stage`` and ``g`` (cap,) the lanes; ``n_live``,
+    ``head``, ``steps_run`` and ``step`` the loop's counters; ``dec``,
+    ``ex``, ``gout``, ``admit`` and ``done`` (R + 1,) the results by row id
+    (trash slot R); ``probe`` (2,) the live count and the ring head, which
+    the host reads between bursts.  Counters and ids are int32 scalars on
+    the device (``rows`` int64)."""
+
+    x: torch.Tensor
+    arr: torch.Tensor
+    n: torch.Tensor
+    rows: torch.Tensor
+    stage: torch.Tensor
+    g: torch.Tensor
+    n_live: torch.Tensor
+    head: torch.Tensor
+    steps_run: torch.Tensor
+    step: torch.Tensor
+    dec: torch.Tensor
+    ex: torch.Tensor
+    gout: torch.Tensor
+    admit: torch.Tensor
+    done: torch.Tensor
+    probe: torch.Tensor
+
+
 class DeviceExecutor:
     """Runs a ``CascadePlan`` on one device with no host sync in the stage
     loop (see the module docstring).
@@ -433,6 +505,9 @@ class DeviceExecutor:
     the tolerance oracle, not bit equality); ``False`` forces the
     multi-kernel path, which scores from the f32 params.  ``device`` defaults to the
     card; on ``"cpu"`` every kernel wrapper takes its plain version.
+    ``capture`` (default True) replays each program key's loop as a CUDA
+    graph on the card; False keeps the eager loop there.  ``traces``
+    counts the program keys run (see the module docstring).
     """
 
     def __init__(
@@ -442,6 +517,7 @@ class DeviceExecutor:
         block_n: int = DEFAULT_BLOCK_N,
         megakernel: bool | None = None,
         device="cuda",
+        capture: bool = True,
     ):
         self.dplan = plan if isinstance(plan, DevicePlan) else DevicePlan.from_plan(plan)
         if scorer.width != self.dplan.W:
@@ -456,6 +532,10 @@ class DeviceExecutor:
         self.scorer = scorer
         self.block_n = max(1, int(block_n))
         self.device = resolve_device(device)
+        self.capture = bool(capture)
+        self._keys: set[tuple] = set()
+        self._graphs: collections.OrderedDict[tuple, _Graph] = collections.OrderedDict()
+        self._pool = None  # the graphs' shared memory pool, made at the first capture
         dp, dev = self.dplan, self.device
         self._eps_pos = torch.from_numpy(dp.eps_pos).to(dev)
         self._eps_neg = torch.from_numpy(dp.eps_neg).to(dev)
@@ -481,16 +561,80 @@ class DeviceExecutor:
         b = self.block_n
         return -(-max(n, 1) // b) * b
 
-    def _program(self, x, rows, n0: int):
+    # -- compiled programs: one trace per key, a CUDA graph each on the card
+
+    @property
+    def traces(self) -> int:
+        """The program keys this executor has run (the reference's jit
+        trace count)."""
+        return len(self._keys)
+
+    def _buffers(self, key: tuple, make: Callable) -> tuple:
+        """The input tensors of program ``key``: its graph's static ones
+        when it has a graph, else ``make()``'s new ones.  The caller writes
+        the run's inputs into them."""
+        graph = self._graphs.get(key)
+        return graph.inputs if graph is not None else make()
+
+    def _execute(self, key: tuple, body: Callable, inputs: tuple):
+        """``body(*inputs)``, the loop of program ``key``.  A key's first
+        run is eager and counts a trace.  On the card with ``capture``, its
+        second run captures the body into a graph whose static inputs are
+        ``inputs`` (the executor's own buffers, never a caller's tensors),
+        and that run and every later one replay the graph, ``inputs`` being
+        its static tensors."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            if key not in self._keys or not (self.capture and self.device.type == "cuda"):
+                self._keys.add(key)
+                return body(*inputs)
+            graph = self._graphs[key] = self._capture(body, inputs)
+            if len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+        self._graphs.move_to_end(key)
+        graph.graph.replay()
+        _build.LAUNCHES.update(graph.launches)
+        return graph.outputs
+
+    def _capture(self, body: Callable, inputs: tuple) -> _Graph:
+        """Capture ``body(*inputs)`` into a CUDA graph in the executor's
+        pool (recorded, not run).  The key's eager run before it built and
+        loaded every kernel; the launchers launch on the current stream,
+        the capture stream here."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = collections.Counter(_build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(graph, pool=self._pool):
+            outputs = body(*inputs)
+        launches = _build.LAUNCHES - before
+        # the capture recorded these launches; it ran none of them
+        _build.LAUNCHES.subtract(launches)
+        return _Graph(graph, inputs, outputs, launches)
+
+    @staticmethod
+    def _write_rows(buf: torch.Tensor, x: torch.Tensor) -> None:
+        """``buf`` = the first ``len(buf)`` rows of ``x``, zero rows past them."""
+        m = min(x.shape[0], buf.shape[0])
+        buf[:m].copy_(x[:m])
+        if m < buf.shape[0]:
+            buf[m:].zero_()
+
+    # -- the batch stage loop ---------------------------------------------
+
+    def _program(self, x, rows, n0):
         """The stage loop.  ``x`` has cap + 1 rows (the last is the trash
-        row), ``rows`` (cap,) int64 holds the initial row order, trash =
-        cap.  Returns device tensors; nothing here syncs with the host."""
+        row), ``rows`` (cap,) int64 holds the initial row order (trash =
+        cap), ``n0`` (an int32 scalar on the device) the live count.
+        Returns one int32 buffer: the decisions, exit steps and ``g``'s
+        bits (cap each), the final live count and the (S,) live counts
+        entering each stage.  Nothing here syncs with the host."""
         dp, dev = self.dplan, self.device
         S, W, T = dp.S, dp.W, dp.plan.T
         cap = rows.shape[0]
         i32 = torch.int32
         lane = torch.arange(cap, device=dev)
-        n_active = torch.full((), n0, dtype=i32, device=dev)
+        n_active = n0
         g = torch.zeros(cap + 1, dtype=torch.float32, device=dev)
         dec = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
         ex = torch.full((cap + 1,), T, dtype=i32, device=dev)
@@ -527,7 +671,9 @@ class DeviceExecutor:
             n_active = n_keep
         # rows that never exited: classified by the full ensemble score
         dec[torch.where(lane < n_active, rows, cap)] = g[rows] >= self._beta
-        return dec[:cap], ex[:cap], g[:cap], n_active, n_in_log
+        return torch.cat(
+            [dec[:cap].to(i32), ex[:cap], g[:cap].view(i32), n_active[None], n_in_log]
+        )
 
     def run(
         self,
@@ -543,7 +689,8 @@ class DeviceExecutor:
         ``prepared=True``) its output already.  ``row_order`` (numpy or a
         tensor) is the initial active-set order (the sorted policy's
         permutation); results come back scattered to absolute row indices.
-        ``capacity`` pins the buffer size across flushes of varying size.
+        ``capacity`` pins the buffer size across flushes of varying size,
+        so they share one program (one graph on the card).
         """
         plan = self.dplan.plan
         T = plan.T
@@ -560,26 +707,29 @@ class DeviceExecutor:
         x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
-        if x.shape[0] > cap + 1:
-            x = x[: cap + 1]
-        x = torch.nn.functional.pad(x, (0, 0, 0, cap + 1 - x.shape[0]))
-        rows = torch.full((cap,), cap, dtype=torch.int64, device=self.device)
-        if row_order is None:
-            rows[:n] = torch.arange(n, device=self.device)
-        else:
-            order = torch.as_tensor(row_order, device=self.device).long()
+        dev = self.device
+        order = None
+        if row_order is not None:
+            order = torch.as_tensor(row_order, device=dev).long()
             if order.shape != (n,):
                 raise ValueError(f"row_order has shape {tuple(order.shape)}, expected ({n},)")
-            rows[:n] = order
-        dec, ex, g, n_f, n_in_log = self._program(x, rows, n)
+        key = ("batch", cap, tuple(x.shape[1:]), x.dtype)
+        sx, rows, n0 = self._buffers(key, lambda: (
+            torch.empty((cap + 1, *x.shape[1:]), dtype=x.dtype, device=dev),
+            torch.empty(cap, dtype=torch.int64, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev),
+        ))
+        # the operand padded to cap + 1 rows, written in place
+        self._write_rows(sx, x)
+        rows.fill_(cap)
+        rows[:n] = torch.arange(n, device=dev) if order is None else order
+        n0.fill_(n)
         # the one transfer back to the host, after the loop: every result
         # as int32 words in one buffer (g_final by its bits)
-        words = torch.cat(
-            [dec[:n].to(torch.int32), ex[:n], g[:n].view(torch.int32), n_f[None], n_in_log]
-        ).cpu().numpy()
-        dec, ex = words[:n], words[n : 2 * n].astype(np.int64)
-        g = words[2 * n : 3 * n].view(np.float32)
-        n_f, n_in_log = int(words[3 * n]), words[3 * n + 1 :]
+        words = self._execute(key, self._program, (sx, rows, n0)).cpu().numpy()
+        dec, ex = words[:n], words[cap : cap + n].astype(np.int64)
+        g = words[2 * cap : 2 * cap + n].view(np.float32)
+        n_f, n_in_log = int(words[3 * cap]), words[3 * cap + 1 :]
         s_f = int((n_in_log > 0).sum())
         stages = plan.stages
         bn, W = self._bn_bill(), self.dplan.W
@@ -607,96 +757,118 @@ class DeviceExecutor:
 
     # -- streaming admission (continuous batching) -----------------------
 
-    def _stream_program(self, x, n: int, cap: int, arr: np.ndarray):
-        """The admission-ring loop over ``n`` rows of ``x`` ((R + 1, ...),
-        the last row the trash row) with ``cap`` lanes; ``arr`` (n,) the
-        nondecreasing arrival steps.  Returns the device result buffers
-        and the host's count of steps enqueued and syncs."""
+    def _stream_state(self, cap: int, R: int, x) -> _StreamState:
+        """New buffers of the streaming program for ``cap`` lanes and a
+        ring of ``R`` rows of ``x``'s width and dtype."""
+        dev, i32 = self.device, torch.int32
+
+        def ints(*shape):
+            return torch.empty(shape, dtype=i32, device=dev)
+
+        return _StreamState(
+            x=torch.empty((R + 1, *x.shape[1:]), dtype=x.dtype, device=dev),
+            arr=ints(R), n=ints(),
+            rows=torch.empty(cap, dtype=torch.int64, device=dev), stage=ints(cap),
+            g=torch.empty(cap, dtype=torch.float32, device=dev),
+            n_live=ints(), head=ints(), steps_run=ints(), step=ints(),
+            dec=torch.empty(R + 1, dtype=torch.bool, device=dev), ex=ints(R + 1),
+            gout=torch.empty(R + 1, dtype=torch.float32, device=dev),
+            admit=ints(R + 1), done=ints(R + 1), probe=ints(2),
+        )
+
+    def _stream_reset(self, st: _StreamState, x, n: int, arr: np.ndarray) -> None:
+        """Write a run's inputs and the loop's initial state into ``st``:
+        the ring's rows (then zero rows, the last the trash row), the
+        arrival steps (int32 max past the ``n`` rows: never arrived), empty
+        lanes, zero counters and result buffers."""
+        self._write_rows(st.x, x)
+        st.arr[:n].copy_(torch.from_numpy(arr.astype(np.int32)))
+        st.arr[n:].fill_(np.iinfo(np.int32).max)
+        st.n.fill_(n)
+        st.rows.fill_(st.arr.shape[0])
+        st.ex.fill_(self.dplan.plan.T)
+        for t in (st.stage, st.g, st.n_live, st.head, st.steps_run, st.step, st.dec,
+                  st.gout, st.admit, st.done):
+            t.zero_()
+
+    def _stream_burst(self, st: _StreamState) -> None:
+        """``STREAM_BURST`` steps of the admission-ring loop, in place on
+        the loop state ``st`` (see ``_StreamState``).  Nothing here syncs
+        with the host."""
+        x, arr, n, step, steps_run = st.x, st.arr, st.n, st.step, st.steps_run
+        dec, ex, gout, admit, done = st.dec, st.ex, st.gout, st.admit, st.done
         dp, dev = self.dplan, self.device
         S, T = dp.S, dp.plan.T
         R = x.shape[0] - 1  # ring size == output size; R = trash id
+        cap = st.rows.shape[0]
         i32 = torch.int32
         lane = torch.arange(cap, device=dev)
-        rows = torch.full((cap,), R, dtype=torch.int64, device=dev)
-        stage = torch.zeros(cap, dtype=i32, device=dev)
-        g = torch.zeros(cap, dtype=torch.float32, device=dev)
-        n_live = torch.zeros((), dtype=i32, device=dev)
-        head = torch.zeros((), dtype=i32, device=dev)
-        steps_run = torch.zeros((), dtype=i32, device=dev)
-        dec = torch.zeros(R + 1, dtype=torch.bool, device=dev)
-        ex = torch.full((R + 1,), T, dtype=i32, device=dev)
-        gout = torch.zeros(R + 1, dtype=torch.float32, device=dev)
-        admit = torch.zeros(R + 1, dtype=i32, device=dev)
-        done = torch.zeros(R + 1, dtype=i32, device=dev)
-        step, syncs = 0, 0
-        # the loop runs at least until the last arrival's step: no sync before
-        burst = max(STREAM_BURST, int(arr[-1]) + 1)
-        while True:
-            for _ in range(burst):
-                # the reference's loop condition, on the device: live lanes
-                # or a non-empty ring.  Once false it stays false, and the
-                # step below is inert.
-                steps_run += (n - head + n_live).clamp_(max=1)
-                # admission refill: the free lanes at the back of the
-                # front-packed buffer take the next rows of the ring whose
-                # arrival step has come, at stage 0.  A free lane already
-                # holds stage 0 and g 0 (the repack zeroes it), and ring
-                # slot j holds row j, so a new lane's row id is head + its
-                # offset past the live lanes.
-                arrived = int(np.searchsorted(arr, step, side="right"))
-                k = torch.minimum(cap - n_live, arrived - head)
-                off = lane - n_live
-                is_new = (off >= 0) & (off < k)
-                rows = torch.where(is_new, off + head, rows)
-                admit[torch.where(is_new, rows, R)] = step
-                n_live = n_live + k
-                head = head + k
-                # the mixed-stage step: each lane at its own stage
-                stop = stage >= S - 1  # lanes running their last stage
-                t0_lane = self._stage_t0[stage]
-                if self.megakernel:
-                    g_new, active, dpos, ex_rel, pack, n_keep = mk.mega_lane(
-                        self.scorer.slabs, x, rows, g, stage, stop, n_live,
-                        self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
-                    )
-                else:
-                    # B6 reads each lane's threshold rows and column mask at
-                    # its stage, and packs the survivors (a stage further on)
-                    scores = self.scorer.lane_stage(t0_lane, rows, x, n_live)
-                    g_new, active, dpos, ex_rel, pack, n_keep = cascade_lane_step(
-                        g, scores.contiguous(), stage, self._eps_pos, self._eps_neg,
-                        self._col_valid, n_valid=n_live, block_n=self.block_n,
-                    )
-                # B6 and B7 start lanes past n_live inactive, so only live
-                # lanes exit (ex_rel > 0) or run out (still active at their
-                # last stage: decided by the full score, as the batch path's
-                # epilogue does)
-                newly = ex_rel > 0
-                fin = newly | (active.bool() & stop)
-                scat = torch.where(fin, rows, R)
-                dec[scat] = torch.where(newly, dpos.bool(), g_new >= self._beta)
-                ex[scat] = torch.where(newly, ex_rel + t0_lane, T)
-                gout[scat] = g_new
-                done[scat] = step
-                # repack: survivors to the front, freed lanes to (R, 0, 0.0)
-                pack = pack.long()
-                rows = torch.full((cap + 1,), R, dtype=torch.int64, device=dev).index_copy_(
-                    0, pack, rows
-                )[:cap]
-                stage = torch.zeros(cap + 1, dtype=i32, device=dev).index_copy_(
-                    0, pack, stage + 1
-                )[:cap]
-                g = torch.zeros(cap + 1, dtype=torch.float32, device=dev).index_copy_(
-                    0, pack, g_new
-                )[:cap]
-                n_live = n_keep
-                step += 1
-            live, taken = torch.stack([n_live, head]).tolist()
-            syncs += 1
-            if live == 0 and taken == n:
-                break
-            burst = STREAM_BURST
-        return dec[:n], ex[:n], gout[:n], admit[:n], done[:n], steps_run, step, syncs
+        lanes, stages, gl, live, hd = st.rows, st.stage, st.g, st.n_live, st.head
+        for _ in range(STREAM_BURST):
+            # the reference's loop condition, on the device: live lanes or
+            # a non-empty ring.  Once false it stays false, and the step
+            # below is inert.
+            steps_run += (n - hd + live).clamp_(max=1)
+            # admission refill: the free lanes at the back of the
+            # front-packed buffer take the next rows of the ring whose
+            # arrival step has come, at stage 0.  A free lane already holds
+            # stage 0 and g 0 (the repack zeroes it), and ring slot j holds
+            # row j, so a new lane's row id is head + its offset past the
+            # live lanes.
+            arrived = torch.searchsorted(arr, step.reshape(1), right=True, out_int32=True)[0]
+            k = torch.minimum(cap - live, arrived - hd)
+            off = lane - live
+            is_new = (off >= 0) & (off < k)
+            lanes = torch.where(is_new, off + hd, lanes)
+            admit[torch.where(is_new, lanes, R)] = step
+            live = live + k
+            hd = hd + k
+            # the mixed-stage step: each lane at its own stage
+            stop = stages >= S - 1  # lanes running their last stage
+            t0_lane = self._stage_t0[stages]
+            if self.megakernel:
+                g_new, active, dpos, ex_rel, pack, n_keep = mk.mega_lane(
+                    self.scorer.slabs, x, lanes, gl, stages, stop, live,
+                    self._eps_pos, self._eps_neg, block_n=self._bn_bill(),
+                )
+            else:
+                # B6 reads each lane's threshold rows and column mask at
+                # its stage, and packs the survivors (a stage further on)
+                scores = self.scorer.lane_stage(t0_lane, lanes, x, live)
+                g_new, active, dpos, ex_rel, pack, n_keep = cascade_lane_step(
+                    gl, scores.contiguous(), stages, self._eps_pos, self._eps_neg,
+                    self._col_valid, n_valid=live, block_n=self.block_n,
+                )
+            # B6 and B7 start lanes past n_live inactive, so only live
+            # lanes exit (ex_rel > 0) or run out (still active at their
+            # last stage: decided by the full score, as the batch path's
+            # epilogue does)
+            newly = ex_rel > 0
+            fin = newly | (active.bool() & stop)
+            scat = torch.where(fin, lanes, R)
+            dec[scat] = torch.where(newly, dpos.bool(), g_new >= self._beta)
+            ex[scat] = torch.where(newly, ex_rel + t0_lane, T)
+            gout[scat] = g_new
+            done[scat] = step
+            # repack: survivors to the front, freed lanes to (R, 0, 0.0)
+            pack = pack.long()
+            lanes = torch.full((cap + 1,), R, dtype=torch.int64, device=dev).index_copy_(
+                0, pack, lanes
+            )[:cap]
+            stages = torch.zeros(cap + 1, dtype=i32, device=dev).index_copy_(
+                0, pack, stages + 1
+            )[:cap]
+            gl = torch.zeros(cap + 1, dtype=torch.float32, device=dev).index_copy_(
+                0, pack, g_new
+            )[:cap]
+            live = n_keep
+            step += 1
+        st.rows.copy_(lanes)
+        st.stage.copy_(stages)
+        st.g.copy_(gl)
+        st.n_live.copy_(live)
+        st.head.copy_(hd)
+        st.probe.copy_(torch.stack([live, hd]))
 
     def run_stream(
         self,
@@ -714,8 +886,9 @@ class DeviceExecutor:
         everyone is already waiting).  ``capacity`` pins the lane count
         (block-padded; default all ``n`` rows at once) and
         ``ring_capacity`` the admission-ring size (default ``n``), so a
-        server's waves share one buffer geometry.  ``prepared=True`` means
-        ``batch`` is already the scorer-prepared operand.
+        server's waves share one buffer geometry (one program, one graph on
+        the card).  ``prepared=True`` means ``batch`` is already the
+        scorer-prepared operand.
         """
         plan = self.dplan.plan
         T = plan.T
@@ -752,15 +925,25 @@ class DeviceExecutor:
         x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
-        # R ring rows, then the trash row R (zeros) that free lanes read
-        x = x[: R + 1]
-        x = torch.nn.functional.pad(x, (0, 0, 0, R + 1 - x.shape[0]))
-        dec, ex, g, admit, done, steps_run, enqueued, syncs = self._stream_program(
-            x.contiguous(), n, cap, arr
-        )
+        key = ("stream", cap, R, tuple(x.shape[1:]), x.dtype)
+        (st,) = self._buffers(key, lambda: (self._stream_state(cap, R, x),))
+        self._stream_reset(st, x, n, arr)
+        # the loop runs at least until the last arrival's step: no sync before
+        bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
+        enqueued = syncs = 0
+        while True:
+            for _ in range(bursts):
+                self._execute(key, self._stream_burst, (st,))
+            enqueued += bursts * STREAM_BURST
+            live, taken = st.probe.tolist()
+            syncs += 1
+            if live == 0 and taken == n:
+                break
+            bursts = 1
         # the one transfer of the results, after the loop
         words = torch.cat(
-            [steps_run[None], dec.to(torch.int32), ex, g.view(torch.int32), admit, done]
+            [st.steps_run[None], st.dec[:n].to(torch.int32), st.ex[:n],
+             st.gout[:n].view(torch.int32), st.admit[:n], st.done[:n]]
         ).cpu().numpy()
         steps_run = int(words[0])
         dec, ex, g, admit, done = np.split(words[1:], 5)
@@ -792,19 +975,22 @@ class DeviceExecutor:
         n = max(n_groups, capacity_groups or 0, 1)
         return -(-n // bg) * bg
 
-    def _grouped_program(self, k: int, x, gids, rows2d, valid2d, n0: int, eps_g):
+    def _grouped_program(self, k: int, x, gids, rows2d, valid2d, n0, eps_g):
         """The grouped stage loop (see the module docstring).  ``gids``
         (cap_g,) are the slots' group ids (trash ``cap_g`` past the
         groups), ``rows2d``/``valid2d`` (cap_g, B) their documents' rows
-        into ``x`` and real-lane masks.  Returns device tensors; nothing
-        here syncs with the host."""
+        into ``x`` and real-lane masks, ``n0`` (an int32 scalar on the
+        device) the live group count.  Returns one int32 buffer: the
+        (cap_g, k) verdicts, the exit stages and the margins' bits (cap_g
+        each), the final live count and the (S,) live counts entering each
+        stage.  Nothing here syncs with the host."""
         dp, dev = self.dplan, self.device
         S, W = dp.S, dp.W
         cap_g, B = rows2d.shape
         L = cap_g * B
         i32 = torch.int32
         grp = torch.arange(cap_g, device=dev)
-        n_active = torch.full((), n0, dtype=i32, device=dev)
+        n_active = n0
         g2d = torch.zeros(cap_g, B, dtype=torch.float32, device=dev)
         verd = torch.full((cap_g + 1, k), -1, dtype=i32, device=dev)
         exst = torch.full((cap_g + 1,), S, dtype=i32, device=dev)
@@ -837,7 +1023,7 @@ class DeviceExecutor:
             exit_b = exit_g.bool()
             scat = torch.where(exit_b, gids, cap_g)
             verd[scat] = verdict
-            exst[scat] = s + 1
+            exst.index_fill_(0, scat, s + 1)
             marg[scat] = margin
             # whole-group compaction: survivors keep their B-lane rectangle
             keep = (grp < n_active) & ~exit_b
@@ -855,9 +1041,12 @@ class DeviceExecutor:
         )
         scat = torch.where(grp < n_active, gids, cap_g)
         verd[scat] = verdict_f
-        exst[scat] = S
+        exst.index_fill_(0, scat, S)
         marg[scat] = margin_f
-        return verd[:cap_g], exst[:cap_g], marg[:cap_g], n_active, n_in_log
+        return torch.cat([
+            verd[:cap_g].reshape(-1), exst[:cap_g], marg[:cap_g].view(i32),
+            n_active[None], n_in_log,
+        ])
 
     def run_grouped(
         self,
@@ -869,6 +1058,7 @@ class DeviceExecutor:
         k: int,
         capacity_groups: int | None = None,
         prepared: bool = False,
+        capacity_rows: int | None = None,
     ) -> GroupedResult:
         """Execute the grouped cascade for ``n_groups`` bucket-laid-out
         query groups on the device.
@@ -877,11 +1067,14 @@ class DeviceExecutor:
         into ``batch`` (padding lanes in range but masked), ``group_valid``
         (G, B) the real-lane mask, ``eps_g`` (S,) the per-stage margin
         thresholds, ``k`` the ranking depth.  One bucket width B per call:
-        ragged widths go through the bucketing layer, one run per bucket
-        shape.  ``capacity_groups`` pins the group-slot capacity across
-        flushes.  ``batch`` is what the scorer's ``prepare`` consumes (for
-        the matrix scorer, the cascade-ordered score matrix), or with
-        ``prepared=True`` its output already.
+        ragged widths go through the bucketing layer, one run (one program)
+        per bucket shape.  ``capacity_groups`` pins the group-slot capacity
+        across flushes.  The prepared operand is padded to ``max(rows,
+        capacity_rows)`` rows rounded up to a power of two, so flushes with
+        other document counts share the program.  ``batch`` is what
+        the scorer's ``prepare`` consumes (for the matrix scorer, the
+        cascade-ordered score matrix), or with ``prepared=True`` its output
+        already.
         """
         T = self.dplan.plan.T
         S = self.dplan.S
@@ -908,6 +1101,7 @@ class DeviceExecutor:
             )
         n_docs = int((group_valid[:n_groups] != 0).sum())
         B = group_rows.shape[1]
+        k = int(k)
         cap_g = self._cap_groups(n_groups, capacity_groups)
         x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
@@ -920,18 +1114,31 @@ class DeviceExecutor:
         valid_init = np.zeros((cap_g, B), dtype=np.int32)
         valid_init[:n_groups] = group_valid[:n_groups] != 0
         dev = self.device
-        verd, exst, marg, n_f, n_in_log = self._grouped_program(
-            int(k), x, torch.from_numpy(gids).to(dev), torch.from_numpy(rows_init).to(dev),
-            torch.from_numpy(valid_init).to(dev), n_groups, torch.from_numpy(eps_g).to(dev),
-        )
+        cap_x = 1 << (max(x.shape[0], capacity_rows or 0, 1) - 1).bit_length()
+        key = ("grouped", k, cap_g, B, cap_x, tuple(x.shape[1:]), x.dtype)
+        bufs = self._buffers(key, lambda: (
+            torch.empty((cap_x, *x.shape[1:]), dtype=x.dtype, device=dev),
+            torch.empty(cap_g, dtype=torch.int64, device=dev),
+            torch.empty((cap_g, B), dtype=torch.int64, device=dev),
+            torch.empty((cap_g, B), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty(S, dtype=torch.float32, device=dev),
+        ))
+        sx, gids_b, rows_b, valid_b, n0, eps_b = bufs
+        # the operand padded to cap_x rows, written in place
+        self._write_rows(sx, x)
+        for buf, host in ((gids_b, gids), (rows_b, rows_init), (valid_b, valid_init),
+                          (eps_b, eps_g)):
+            buf.copy_(torch.from_numpy(host))
+        n0.fill_(n_groups)
         # the one transfer back to the host, after the loop
-        G = n_groups
-        words = torch.cat(
-            [verd[:G].reshape(-1), exst[:G], marg[:G].view(torch.int32), n_f[None], n_in_log]
+        words = self._execute(
+            key, functools.partial(self._grouped_program, k), bufs
         ).cpu().numpy()
-        verd = words[: G * k].reshape(G, k)
-        exst, marg = words[G * k : G * k + G], words[G * k + G : G * k + 2 * G]
-        n_f, n_in_log = int(words[G * k + 2 * G]), words[G * k + 2 * G + 1 :]
+        G, Ck = n_groups, cap_g * k
+        verd = words[:Ck].reshape(cap_g, k)[:G]
+        exst, marg = words[Ck : Ck + G], words[Ck + cap_g : Ck + cap_g + G]
+        n_f, n_in_log = int(words[Ck + 2 * cap_g]), words[Ck + 2 * cap_g + 1 :]
         s_f = int((n_in_log > 0).sum())
         stages = self.dplan.plan.stages
         bn, W = self._bn_bill(), self.dplan.W

@@ -64,7 +64,9 @@ class GroupedRankServer:
     (None = ``submit`` receives score matrices directly).  ``executor`` is
     a ``DeviceExecutor`` bound to the matrix stage scorer, or None for the
     host oracle path.  ``capacity_groups`` pins the group-slot capacity
-    per bucket; ``batch_groups`` is the flush threshold.  ``device``
+    per bucket, ``capacity_docs`` the document rows of a flush's operand
+    (``run_grouped``'s ``capacity_rows``; a flush with more docs pads
+    further); ``batch_groups`` is the flush threshold.  ``device``
     defaults to the executor's device, else to the card (an error without
     one); ``"cpu"`` is used only when named.  ``streaming=True`` raises:
     the grouped admission ring is not ported (ROADMAP A12).
@@ -78,6 +80,7 @@ class GroupedRankServer:
         executor=None,
         batch_groups: int = 32,
         capacity_groups: int | None = None,
+        capacity_docs: int | None = None,
         buckets=None,
         streaming: bool = False,
         margin_inf: bool = False,
@@ -98,6 +101,7 @@ class GroupedRankServer:
         self.executor = executor
         self.batch_groups = int(batch_groups)
         self.capacity_groups = int(capacity_groups or batch_groups)
+        self.capacity_docs = capacity_docs
         self.buckets = tuple(buckets) if buckets is not None else gplan.buckets
         self.stats = RankStats()
         self._queue: list[tuple[int, np.ndarray]] = []  # (seq, docs)
@@ -203,6 +207,7 @@ class GroupedRankServer:
             res = self.executor.run_grouped(
                 x, rows, valid, len(gidx), gp.eps_g, gp.k,
                 capacity_groups=max(self.capacity_groups, len(gidx)), prepared=True,
+                capacity_rows=self.capacity_docs,
             )
             self.stats.scores_computed += res.scores_computed
             self._record(pending, gidx, res.verdicts, res.exit_stage, res.margin, offsets)

@@ -16,7 +16,7 @@ from repro_torch.core import fit_qwyc
 from repro_torch.core.executor import CascadePlan
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.ensembles.gbt import apply_gbt_scores, train_gbt
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, device_executor
 from repro_torch.ensembles.lattice import init_lattice_ensemble
 from repro_torch.kernels.cascade_kernel import (
     cascade_chunk_kernel,
@@ -1164,3 +1164,207 @@ def test_step_kernels_hold_no_stack(dev):
     # B4/B7 x f32/bf16/int8 x (tree, S 1-8), and B4/B7 matrix x f32/bf16
     assert len(steps) == 2 * 3 * (1 + 8) + 2 * 2
     assert {k: v for k, v in steps.items() if v["stack"] or v["spill"]} == {}
+
+
+# -- the captured loops: one CUDA graph per program key ----------------------
+
+# (variant, slab storage, fused): the matrix scorer's quantised storage runs
+# fused only
+CAPTURE_CASES = [
+    (v, q, fused) for v in ("tree", "lattice", "matrix") for q in ("f32", "bf16", "int8")
+    for fused in (True, False) if v != "matrix" or (q, fused) in (("f32", True), ("f32", False),
+                                                                  ("bf16", True))
+]
+
+
+def _capture_case(variant, quant, dev, n_rows):
+    """A scorer at ``quant`` on ``dev`` and ``n_rows`` rows of its input
+    (numpy, what ``prepare`` takes), over a 37-model plan."""
+    rng = np.random.default_rng(41)
+    dplan = DevicePlan.from_plan(_plan(rng, T=37, chunk_t=8, lead_t=1), quant=quant)
+    T, depth, d = 37, 5, 14
+    if variant == "tree":
+        sc = tree_stage_scorer(
+            dplan, rng.integers(0, d, size=(T, depth)), rng.uniform(size=(T, depth)),
+            rng.normal(size=(T, 1 << depth)), quant=quant, device=dev,
+        )
+        return dplan, sc, rng.uniform(size=(n_rows, d)).astype(np.float32)
+    if variant == "lattice":
+        d, S = 30, 8
+        sc = lattice_stage_scorer(
+            dplan, rng.normal(size=(T, 1 << S)),
+            np.stack([rng.choice(d, S, replace=False) for _ in range(T)]), quant=quant,
+            device=dev,
+        )
+        return dplan, sc, rng.uniform(size=(n_rows, d)).astype(np.float32)
+    sc = matrix_stage_scorer(dplan, quant=quant, device=dev)
+    return dplan, sc, rng.normal(size=(n_rows, T)).astype(np.float32)
+
+
+def _counted(fn):
+    """``fn()`` and the kernel launches it made (counts set to 0 before)."""
+    _build.LAUNCHES.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+def _assert_graphs(ex, keys: int):
+    """``keys`` program keys: a trace each, and a graph each when captured."""
+    assert ex.traces == keys
+    assert len(ex._graphs) == (keys if ex.capture else 0)
+
+
+@pytest.mark.parametrize("variant,quant,fused", CAPTURE_CASES)
+def test_captured_batch_equals_eager(dev, variant, quant, fused):
+    """The batch stage loop replayed as a CUDA graph equals the eager loop
+    on the card (``capture=False``) bit for bit over flushes of 256, 256
+    and 100 rows at a pinned capacity of 256: decisions, exits, g_final's
+    bits, the live counts, billing and each flush's launches.  One graph:
+    the first flush runs eagerly, the second captures and replays it, the
+    third replays it."""
+    dplan, sc, X = _capture_case(variant, quant, dev, 612)
+    flushes = [(0, 256), (256, 256), (512, 100)]
+    out = {}
+    for capture in (True, False):
+        rng = np.random.default_rng(5)  # the same row orders for both
+        ex = DeviceExecutor(dplan, sc, megakernel=fused, device=dev, capture=capture)
+        runs = []
+        for i, (a, n) in enumerate(flushes):
+            runs.append(_counted(lambda a=a, n=n: ex.run(
+                X[a : a + n], n, capacity=256, row_order=rng.permutation(n))))
+            if i == 0:
+                assert ex.traces == 1 and not ex._graphs  # a key's first run is eager
+            if i == 1:
+                graphs = dict(ex._graphs)
+        _assert_graphs(ex, 1)
+        assert ex._graphs == graphs  # nothing recaptured by the third flush
+        out[capture] = runs
+    for (a, la), (b, lb) in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a.decisions, b.decisions)
+        np.testing.assert_array_equal(a.exit_step, b.exit_step)
+        np.testing.assert_array_equal(a.g_final.view(np.int32), b.g_final.view(np.int32))
+        assert a.chunk_stats == b.chunk_stats and a.scores_computed == b.scores_computed
+        assert la == lb and sum(la.values()) > 0
+    # the flushes differ, so no replay returned a stale result
+    assert not np.array_equal(out[True][0][0].g_final, out[True][1][0].g_final)
+
+
+@pytest.mark.parametrize("rate", [256.0, 4.0])
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("variant", ["tree", "lattice", "matrix"])
+def test_captured_stream_equals_eager(dev, variant, fused, rate):
+    """The streaming burst replayed as a CUDA graph equals the eager loop
+    on the card in every field of every wave (two waves of one ring
+    geometry: 300 and 212 rows, 64 lanes), steps enqueued, syncs and each
+    wave's launches; one graph."""
+    dplan, sc, X = _capture_case(variant, "f32", dev, 512)
+    arr = np.floor(np.cumsum(np.random.default_rng(2028).exponential(1 / rate, size=512)))
+    waves = [(0, 300), (300, 212)]
+    out = {}
+    for capture in (True, False):
+        ex = DeviceExecutor(dplan, sc, megakernel=fused, device=dev, capture=capture)
+        out[capture] = [
+            _counted(lambda a=a, n=n: ex.run_stream(
+                X[a : a + n], n, arrivals=(arr[a : a + n] - arr[a]).astype(np.int64),
+                capacity=64, ring_capacity=300))
+            for a, n in waves
+        ]
+        _assert_graphs(ex, 1)
+    for (a, la), (b, lb) in zip(out[True], out[False]):
+        for k in ("decisions", "exit_step", "admit_step", "done_step", "occupancy"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+        np.testing.assert_array_equal(a.g_final.view(np.int32), b.g_final.view(np.int32))
+        assert (a.steps_run, a.steps_enqueued, a.syncs, a.scores_computed) == (
+            b.steps_run, b.steps_enqueued, b.syncs, b.scores_computed)
+        assert la == lb and sum(la.values()) > 0
+
+
+def test_captured_grouped_equals_eager(dev):
+    """The grouped loop replayed as CUDA graphs (one per bucket shape)
+    equals the eager loop on the card over ragged buckets, at the fitted
+    thresholds, at +inf (the same programs: captured here) and at the
+    fitted thresholds again (replayed): verdicts, exit stages, margins'
+    bits, live counts and each run's launches."""
+    from repro_torch.ranking import bucketing, fit_grouped
+
+    rng = np.random.default_rng(8)
+    sizes = rng.integers(1, 40, size=37).astype(np.int64)
+    quality = rng.exponential(1.0, size=int(sizes.sum()))
+    F = rng.normal(size=(int(sizes.sum()), 48)) * 0.15 + quality[:, None]
+    gp = fit_grouped(F, sizes, 5, alpha=0.05, chunk_t=8)
+    ordered = F.astype(np.float32)[:, gp.plan.order]
+    off = bucketing.group_offsets(sizes)
+    dplan = DevicePlan.from_plan(gp.plan)
+    packs = sorted(bucketing.pack_by_bucket(sizes, gp.buckets).items())
+    out = {}
+    for capture in (True, False):
+        ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=dev), device=dev,
+                            capture=capture)
+        out[capture] = [
+            _counted(lambda rows=rows, valid=valid, g=len(gidx), eps=eps: ex.run_grouped(
+                ordered, rows, valid, g, eps, gp.k, capacity_groups=40))
+            for eps in (gp.eps_g, np.full(gp.S, np.inf, np.float32), gp.eps_g)
+            for b, gidx in packs
+            for rows, valid in [bucketing.bucket_layout(sizes[gidx], b, offsets=off[gidx])]
+        ]
+        _assert_graphs(ex, len(packs))
+    for (a, la), (b, lb) in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a.verdicts, b.verdicts)
+        np.testing.assert_array_equal(a.exit_stage, b.exit_stage)
+        np.testing.assert_array_equal(a.margin.view(np.int32), b.margin.view(np.int32))
+        assert a.chunk_stats == b.chunk_stats and la == lb and sum(la.values()) > 0
+
+
+def test_capture_at_second_run_and_graph_bound(dev, monkeypatch):
+    """A key's first run is eager and captures nothing; its second captures
+    and replays.  Past ``MAX_GRAPHS`` graphs the one used last longest ago
+    is dropped, and its key is captured again when it returns; ``traces``
+    still counts keys.  Every run equals ``capture=False``."""
+    monkeypatch.setattr(device_executor, "MAX_GRAPHS", 2)
+    dplan, sc, X = _capture_case("matrix", "f32", dev, 300)
+    caps = [64, 64, 128, 128, 192, 192, 64, 64]
+    ex = DeviceExecutor(dplan, sc, device=dev)
+    tw = DeviceExecutor(dplan, sc, device=dev, capture=False)
+    graphs_seen = []
+    for i, cap in enumerate(caps):
+        n = cap - 7 * i
+        a = ex.run(X[:n], n, capacity=cap)
+        b = tw.run(X[:n], n, capacity=cap)
+        np.testing.assert_array_equal(a.decisions, b.decisions)
+        np.testing.assert_array_equal(a.exit_step, b.exit_step)
+        np.testing.assert_array_equal(a.g_final.view(np.int32), b.g_final.view(np.int32))
+        assert a.chunk_stats == b.chunk_stats
+        graphs_seen.append(sorted(k[1] for k in ex._graphs))
+    assert graphs_seen == [[], [64], [64], [64, 128], [64, 128], [128, 192], [64, 192],
+                           [64, 192]]
+    assert ex.traces == tw.traces == 3 and not tw._graphs
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+def test_captured_server_equals_eager(dev, small_gbt, megakernel):
+    """The sorted-kernel server (the operand padded once and written into
+    the graph's static buffer) captured against ``capture=False``: results,
+    every flush's g_final bits, billing and launches; one graph over the
+    full flushes and the partial last one."""
+    ds, g, m = small_gbt
+    out = []
+    for capture in (True, False):
+        srv = QWYCServer(m, scorer=TreeScorer(g.feats, g.thrs, g.leaves), exec_backend="device",
+                         device=dev, batch_size=64,
+                         backend_opts={"megakernel": megakernel, "capture": capture})
+
+        def serve_all(srv=srv):
+            for row in ds.x_test:
+                srv.submit(row)
+            return srv.drain()
+
+        res, launches = _counted(serve_all)
+        _assert_graphs(srv._dev[0], 1)
+        out.append((res, launches, srv))
+    (a, la, sa), (b, lb, sb) = out
+    assert a == b and la == lb
+    assert sa.stats.scores_computed == sb.stats.scores_computed
+    assert len(sa.flush_results) == len(sb.flush_results) > 2
+    for ra, rb in zip(sa.flush_results, sb.flush_results):
+        np.testing.assert_array_equal(ra.g_final.view(np.int32), rb.g_final.view(np.int32))

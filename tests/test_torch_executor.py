@@ -175,3 +175,102 @@ def test_partial_batch_and_empty_batch():
     assert res.chunk_stats[0].scores_computed == 128 * dplan.W
     empty = ex.run(np.zeros((0, m.T), np.float32), 0)
     assert empty.decisions.shape == (0,) and empty.chunk_stats == []
+
+
+# -- the compiled-program contract: DeviceExecutor.traces ----------------------
+# The reference counts one jit trace per program key; the port counts one
+# per key too (on the card, one CUDA graph each).  These hold the port's
+# count to the JAX executor's own on the same fixtures (the JAX side on its
+# multi-kernel path: its batch megakernel is dead under this jax).
+
+
+def _trace_fixture(seed=13, n=200, t=16, chunk_t=4):
+    rng = np.random.default_rng(seed)
+    F = make_scores(rng, n=n, t=t)
+    m = fit_qwyc(F, beta=0.0, alpha=0.01)
+    jm = j_fit(F, beta=0.0, alpha=0.01)
+    jdplan = jde.DevicePlan.from_plan(JPlan.from_qwyc(jm, chunk_t=chunk_t))
+    dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(m, chunk_t=chunk_t))
+    jex = jde.DeviceExecutor(jdplan, jde.matrix_stage_scorer(jdplan), block_n=64,
+                             megakernel=False)
+    return F, m, jex, dplan
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+@pytest.mark.parametrize("chunk_t", [1, 8, 100])
+@pytest.mark.parametrize("lead_t", [0, 1])
+def test_traces_one_per_run_shape_matches_jax(chunk_t, lead_t, megakernel):
+    """The reference's ``test_executor.py:187``: one run of a plan, one
+    trace, on every degenerate stage grid."""
+    rng = np.random.default_rng(12)
+    F = make_scores(rng, n=200, t=16)
+    m = fit_qwyc(F, beta=0.0, alpha=0.01)
+    jm = j_fit(F, beta=0.0, alpha=0.01)
+    jdplan = jde.DevicePlan.from_plan(
+        dataclasses.replace(JPlan.from_qwyc(jm, chunk_t=chunk_t), lead_t=lead_t))
+    dplan = DevicePlan.from_plan(
+        dataclasses.replace(CascadePlan.from_qwyc(m, chunk_t=chunk_t), lead_t=lead_t))
+    jex = jde.DeviceExecutor(jdplan, jde.matrix_stage_scorer(jdplan), block_n=64,
+                             megakernel=False)
+    ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device="cpu"), block_n=64,
+                        megakernel=megakernel, device="cpu")
+    Fo = F[:, m.order].astype(np.float32)
+    _assert_same(jex.run(Fo, F.shape[0]), ex.run(Fo, F.shape[0]))
+    assert ex.traces == jex.traces == 1
+
+
+def test_traces_empty_batch_matches_jax():
+    """``test_executor.py:207``: n = 0 runs no program."""
+    F, m, jex, dplan = _trace_fixture()
+    ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device="cpu"), device="cpu")
+    empty = np.zeros((0, m.T), dtype=np.float32)
+    jex.run(empty, 0)
+    ex.run(empty, 0)
+    ex.run_stream(empty, 0)
+    assert ex.traces == jex.traces == 0
+
+
+@pytest.mark.parametrize("megakernel", [None, False])
+def test_traces_across_flushes_and_capacities_match_jax(megakernel):
+    """``test_executor.py:297``: three runs, a permuted row order and a
+    smaller live count at the same pinned capacity share one trace; a new
+    capacity is a second program (in both packages)."""
+    F, m, jex, dplan = _trace_fixture(seed=16, n=200, t=20)
+    ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device="cpu"), block_n=64,
+                        megakernel=megakernel, device="cpu")
+    Fo = F[:, m.order].astype(np.float32)
+    n = F.shape[0]
+    perm = np.random.default_rng(7).permutation(n)
+    calls = [
+        dict(batch=Fo, n=n), dict(batch=Fo, n=n), dict(batch=Fo, n=n),
+        dict(batch=Fo, n=n, row_order=perm), dict(batch=Fo[:100], n=100, capacity=n),
+    ]
+    for kw in calls:
+        _assert_same(jex.run(**kw), ex.run(**kw))
+    assert ex.traces == jex.traces == 1
+    _assert_same(jex.run(Fo, n, capacity=512), ex.run(Fo, n, capacity=512))
+    assert ex.traces == jex.traces == 2
+
+
+def test_compiled_cascade_traces_match_jax():
+    """``test_api.py:242-266``: ``CompiledCascade.traces`` is the device
+    executor's count (one program, reused by a second evaluate) and None on
+    the host backend, as in the reference."""
+    from repro import api as japi
+    from repro_torch import api
+
+    rng = np.random.default_rng(40)
+    F = make_scores(rng, n=300, t=20)
+    fitted = api.fit(F, beta=0.0, alpha=0.01, chunk_t=4, device="cpu")
+    jfitted = japi.fit(F, beta=0.0, alpha=0.01, chunk_t=4)
+    compiled = fitted.compile("device", block_n=64, device="cpu")
+    m = fitted.model
+    jdplan = jde.DevicePlan.from_plan(jfitted.plan())
+    jex = jde.DeviceExecutor(jdplan, jde.matrix_stage_scorer(jdplan), block_n=64,
+                             megakernel=False)
+    for _ in range(2):
+        _assert_same(jex.run(F[:, m.order].astype(np.float32), F.shape[0]),
+                     compiled.evaluate(scores=F))
+        assert compiled.traces == jex.traces == 1
+    assert fitted.compile("host", device="cpu").traces is None
+    assert jfitted.compile("host").traces is None

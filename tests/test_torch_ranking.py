@@ -620,3 +620,57 @@ def test_cli_ranking_matches_jax(capsys, backend):
     assert f"NDCG@5 {ndcg:.4f}" in out
     want = "device" if backend == "auto" else "host"
     assert f"{sizes_te.size} queries / 200 docs" in out and f"({want} backend, batch)" in out
+
+
+# -- the compiled-program contract: one grouped program per bucket shape -----
+
+
+def test_grouped_traces_one_per_bucket_like_jax(bench):
+    """The reference's ``test_ranking.py:268``: a pass over the buckets at
+    the fitted thresholds and a second at +inf (eps is an input, not part of
+    the key) give one trace per bucket shape, in both packages; a new
+    group capacity is a new program for every bucket."""
+    F, sizes, _, jgp, gp = bench
+    ex, jex = _executors(gp, jgp, BLOCK_N)
+    inf = np.full(gp.S, np.inf, dtype=np.float32)
+    for eps in (None, inf):
+        got = _run_all_buckets(ex, F, sizes, gp, eps_g=eps)
+        want = _run_all_buckets(jex, F, sizes, jgp, eps_g=eps)
+        for b in got:
+            np.testing.assert_array_equal(got[b][1].verdicts, np.asarray(want[b][1].verdicts))
+            np.testing.assert_array_equal(got[b][1].exit_stage, want[b][1].exit_stage)
+    n_buckets = len(got)
+    assert n_buckets > 1
+    assert ex.traces == jex.traces == n_buckets
+    _run_all_buckets(ex, F, sizes, gp, cap=100)
+    _run_all_buckets(jex, F, sizes, jgp, cap=100)
+    assert ex.traces == jex.traces == 2 * n_buckets
+
+
+@pytest.mark.parametrize("capacity_docs", [None, 4096])
+def test_grouped_server_flushes_share_programs(bench, capacity_docs):
+    """The flushes of a ranking server hold different document counts, yet
+    share one program per bucket shape: the port pads the operand to the
+    server's ``capacity_docs`` rows (unpinned: the flush's rows rounded up
+    to a power of two), where the reference keys on each flush's own
+    operand shape.  Verdicts, exit stages, margins' bits and billing equal
+    the JAX server's."""
+    F, sizes, _, jgp, gp = bench
+    ex, jex = _executors(gp, jgp, BLOCK_N)
+    kw = dict(batch_groups=16, capacity_groups=16)
+    srv = GroupedRankServer(gp, executor=ex, device="cpu", capacity_docs=capacity_docs, **kw)
+    jsrv = JServer(jgp, executor=jex, **kw)
+    got, want = _submit_all(srv, F, sizes), _submit_all(jsrv, F, sizes)
+    assert [r["ranking"] for r in got] == [r["ranking"] for r in want]
+    assert [r["exit_stage"] for r in got] == [r["exit_stage"] for r in want]
+    assert _bits([r["margin"] for r in got]).tolist() == _bits([r["margin"] for r in want]).tolist()
+    assert vars(srv.stats) == vars(jsrv.stats)
+    keys, flush_docs = set(), set()
+    for f0 in range(0, sizes.size, kw["batch_groups"]):
+        fs = sizes[f0 : f0 + kw["batch_groups"]]
+        flush_docs.add(int(fs.sum()))
+        cap_x = 1 << (max(int(fs.sum()), capacity_docs or 0) - 1).bit_length()
+        keys |= {(b, cap_x) for b in bucketing.pack_by_bucket(fs, gp.buckets)}
+    assert len(flush_docs) > 1  # the flushes' operands differ in rows
+    assert ex.traces == len(keys) < srv.stats.n_waves
+    assert ex.traces < jex.traces

@@ -650,3 +650,58 @@ def test_cli_streams_on_cpu(capsys):
     assert line in out2
     with pytest.raises(SystemExit):
         serve.main(argv + ["--backend", "host"])
+
+
+# -- the compiled-program contract: one streaming program per ring geometry --
+
+
+@pytest.mark.parametrize("megakernel", [True, False])
+@pytest.mark.parametrize("variant", ["matrix", "tree", "lattice"])
+def test_stream_waves_share_one_trace_like_jax(ensembles, variant, megakernel):
+    """The reference's ``test_megakernel.py:226``: waves with different
+    arrival traces at one shape share one trace, in both packages; a new
+    lane capacity is a second program.  Every wave equals JAX's, and the
+    port enqueues whole bursts (the first sync after the last arrival)."""
+    case = ensembles[variant]
+    jm = case["fits"]["both"]
+    m = _port_model(jm)
+    n = case["F"].shape[0]
+    jdplan = jde.DevicePlan.from_plan(JPlan.from_qwyc(jm, chunk_t=4))
+    dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(m, chunk_t=4))
+    jex = jde.DeviceExecutor(jdplan, _jax_scorer(variant, case, jdplan, jm.order),
+                             block_n=32, megakernel=megakernel)
+    ex = DeviceExecutor(dplan, _port_scorer(variant, case, dplan, jm.order), block_n=32,
+                        megakernel=megakernel, device="cpu")
+    x = _operand(variant, case, jm.order)
+    for seed, hi in ((0, 12), (1, 12), (2, 40)):
+        arr = np.sort(np.random.default_rng(seed).integers(0, hi, size=n)).astype(np.int32)
+        want = jex.run_stream(x, n, arrivals=arr, capacity=64)
+        got = ex.run_stream(x, n, arrivals=arr, capacity=64)
+        _assert_stream_equal(got, want, g=variant != "lattice")
+        assert got.steps_enqueued % STREAM_BURST == 0
+        assert got.steps_enqueued >= arr[-1] + 1
+    assert ex.traces == jex.traces == 1
+    arr = np.zeros(n, dtype=np.int32)
+    _assert_stream_equal(ex.run_stream(x, n, arrivals=arr, capacity=32),
+                         jex.run_stream(x, n, arrivals=arr, capacity=32),
+                         g=variant != "lattice")
+    assert ex.traces == jex.traces == 2
+
+
+def test_streaming_server_one_trace_like_jax(ensembles):
+    """A server's waves (two full windows and a partial one) share one
+    program: the port's executor counts what JAX's counts."""
+    case = ensembles["tree"]
+    jm = case["fits"]["both"]
+    m = _port_model(jm)
+    p = [case[k] for k in ("feats", "thrs", "leaves")]
+    kw = dict(batch_size=32, window=64, chunk_t=4, block_n=32)
+    jsrv = JStreamingServer(jm, scorer=JTreeScorer(*p, block_n=32), exec_backend="device", **kw)
+    srv = StreamingServer(m, scorer=TreeScorer(*p, block_n=32), exec_backend="device",
+                          device="cpu", **kw)
+    X = case["x"]
+    arrivals = _poisson_steps(np.random.default_rng(66), X.shape[0], 16.0).astype(float)
+    _assert_servers_equal(srv, _stream_serve(srv, X, arrivals), jsrv,
+                          _stream_serve(jsrv, X, arrivals))
+    assert srv.stats.n_batches == 3
+    assert srv._dev[0].traces == jsrv._dev[0].traces == 1
