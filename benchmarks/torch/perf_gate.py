@@ -39,14 +39,6 @@ BASELINE = ROOT / "benchmarks" / "results" / "baseline_billing.json"
 # (ROADMAP.md, queue A) that brings each
 PENDING = (
     ("*.sharded*", "A15 (queue A item 8): the sharded and 2-D mesh executors"),
-    ("*.kernel64.*", "A6 (queue A item 4): ops.score_and_decide, the fused lazy path"),
-    ("stream.device.admitted", "A6 (queue A item 4): FunctionScorer"),
-    ("stream.device.scores", "A6 (queue A item 4): FunctionScorer"),
-    ("stream.device.steps", "A6 (queue A item 4): FunctionScorer"),
-    ("stream.device.slot_steps", "A6 (queue A item 4): FunctionScorer"),
-    ("stream.device.latency_sum", "A6 (queue A item 4): FunctionScorer"),
-    ("stream.device.traces", "A6 (queue A item 4): FunctionScorer"),
-    ("ranking.stream.device.*", "A12 (queue A item 3): grouped streaming"),
 )
 
 
@@ -65,9 +57,11 @@ def collect_counters(device: str) -> dict[str, int]:
     import torch
 
     from repro_torch.api.registry import get_backend
+    from repro_torch.api.scorers import FunctionScorer
     from repro_torch.core import CascadePlan, evaluate_cascade, fit_qwyc
     from repro_torch.core.executor import matrix_producer
-    from repro_torch.kernels.device_executor import DevicePlan, matrix_stage_scorer
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.device_executor import BoundScorer, DevicePlan, matrix_stage_scorer
     from repro_torch.ranking import (
         bucket_layout,
         fit_grouped,
@@ -75,7 +69,7 @@ def collect_counters(device: str) -> dict[str, int]:
         pack_by_bucket,
         run_grouped_host,
     )
-    from repro_torch.serving.engine import QWYCServer
+    from repro_torch.serving.engine import QWYCServer, StreamingServer
 
     dev = torch.device(device)
     HOST = get_backend("host")
@@ -102,6 +96,15 @@ def collect_counters(device: str) -> dict[str, int]:
         c[f"{p}.{hk}.scores"] = int(host.scores_computed)
         c[f"{p}.{hk}.stages"] = len(host.chunk_stats)
         c[f"{p}.{hk}.survivor_sum"] = int(sum(host.survivors_per_chunk))
+
+        # the fused lazy path on the host loop: the chunk decide (B2) at
+        # block 64, billed at its block
+        billed = ops.score_and_decide(
+            matrix_producer(F[:, m.order].astype(np.float32)), plan, n,
+            block_n=64, backend="host", torch_device=dev,
+        )
+        kk = HOST.billing_key(decide="kernel", block_n=64)
+        c[f"{p}.{kk}.scores"] = int(billed.scores_computed)
 
         Fo = F[:, m.order].astype(np.float32)
         dplan = DevicePlan.from_plan(plan)
@@ -171,6 +174,47 @@ def collect_counters(device: str) -> dict[str, int]:
     c["serve.lazy.audit_scores"] = int(srv.stats.audit_scores)
     c["serve.lazy.models"] = int(srv.stats.models_evaluated)
 
+    # streaming admission: the seed-2028 Poisson trace through the
+    # continuous-batching server on the device, scoring with a user's
+    # FunctionScorer (a matmul closure, its lanes an einsum); the counters
+    # are the work the latency percentiles derive from
+    ev_s = evaluate_cascade(ms, Fs)
+    arrivals = np.cumsum(np.random.default_rng(2028).exponential(1.0 / 32.0, size=ns))
+    Wo_t = torch.from_numpy(Wo.astype(np.float32))
+
+    def lane_factory(dplan, device):
+        Wp = torch.nn.functional.pad(Wo_t, (0, 0, 0, dplan.T_pad - ts)).to(device)
+        width = dplan.W
+
+        def fn(x, rows, t0, n_valid):
+            return x[rows] @ Wp[t0 : t0 + width].T
+
+        def lane_fn(x, rows, t0_lane, n_valid):
+            pos = t0_lane.long()[:, None] + torch.arange(width, device=x.device)
+            return torch.einsum("cd,cwd->cw", x[rows], Wp[pos])
+
+        def prepare(xb):
+            return torch.as_tensor(np.asarray(xb, dtype=np.float32)).to(device)
+
+        return BoundScorer(fn=fn, prepare=prepare, width=width, lane_fn=lane_fn)
+
+    srv3 = StreamingServer(
+        ms, batch_size=32, window=128, chunk_t=6, exec_backend=DEVICE,
+        scorer=FunctionScorer(lane_factory), audit_full_scores=False, device=dev,
+    )
+    for row, a in zip(X, arrivals):
+        srv3.submit(row, arrival=a)
+    res3 = srv3.drain()
+    assert np.array_equal(np.array([r["decision"] for r in res3]), ev_s["decisions"])
+    sk = DEVICE.billing_key()
+    sst = srv3.stats
+    c[f"stream.{sk}.admitted"] = int(sst.admitted_rows)
+    c[f"stream.{sk}.scores"] = int(sst.scores_computed)
+    c[f"stream.{sk}.steps"] = int(sst.stream_steps)
+    c[f"stream.{sk}.slot_steps"] = int(sst.stream_slot_steps)
+    c[f"stream.{sk}.latency_sum"] = int(sum(sst.latency_steps))
+    c[f"stream.{sk}.traces"] = int(srv3._dev[0].traces)
+
     # streaming megakernel identity: the same arrival trace through the
     # admission ring with the fused lane kernel on and off, identical
     # decisions, timelines and bill, one program each
@@ -215,22 +259,42 @@ def collect_counters(device: str) -> dict[str, int]:
     packs = pack_by_bucket(sizes_q, gp.buckets)
     capq = max(len(g) for g in packs.values())
     gk = DEVICE.billing_key()
+
+    def grouped_bill(ex, stream=False):
+        paid = stages = 0
+        for b, gidx in sorted(packs.items()):
+            rows_b, valid_b = bucket_layout(sizes_q[gidx], b, offsets=goff[gidx])
+            if stream:
+                r = ex.run_stream_grouped(
+                    Ford, rows_b, valid_b, len(gidx), gp.eps_g, gp.k, capacity_groups=capq
+                )
+                stages += int(r.steps_run)
+            else:
+                r = ex.run_grouped(
+                    Ford, rows_b, valid_b, len(gidx), gp.eps_g, gp.k, capacity_groups=capq
+                )
+                stages += len(r.chunk_stats)
+            assert np.array_equal(r.verdicts, ghost.verdicts[gidx])
+            assert np.array_equal(r.exit_stage, ghost.exit_stage[gidx])
+            paid += int(r.scores_computed)
+        return paid, stages
+
     gex = DEVICE.make_executor(
         gdplan, scorer=scorer(gdplan), block_n=32, megakernel=False, device=dev
     )
-    paid = stages = 0
-    for b, gidx in sorted(packs.items()):
-        rows_b, valid_b = bucket_layout(sizes_q[gidx], b, offsets=goff[gidx])
-        r = gex.run_grouped(
-            Ford, rows_b, valid_b, len(gidx), gp.eps_g, gp.k, capacity_groups=capq
-        )
-        assert np.array_equal(r.verdicts, ghost.verdicts[gidx])
-        assert np.array_equal(r.exit_stage, ghost.exit_stage[gidx])
-        paid += int(r.scores_computed)
-        stages += len(r.chunk_stats)
+    paid, stages = grouped_bill(gex)
     c[f"ranking.{gk}.scores"] = paid
     c[f"ranking.{gk}.stages"] = stages
     c[f"ranking.{gk}.traces"] = int(gex.traces)
+
+    # the grouped admission ring: one program per bucket shape
+    gex_s = DEVICE.make_executor(
+        gdplan, scorer=scorer(gdplan), block_n=32, megakernel=False, device=dev
+    )
+    paid, steps = grouped_bill(gex_s, stream=True)
+    c[f"ranking.stream.{gk}.scores"] = paid
+    c[f"ranking.stream.{gk}.steps"] = steps
+    c[f"ranking.stream.{gk}.traces"] = int(gex_s.traces)
     return c
 
 

@@ -48,7 +48,10 @@ Phases, each of which stops the run on failure:
    (its top-k picks) at B 1, 4, 31, 32, 33, 64 and 256, k 1, 10 and B + 3, on integer ties, -0.0 / +0.0 ties, -inf on valid
    lanes and groups with a valid NaN or -NaN, n_live None, a device scalar
    and a host int: picks and exits equal, margins equal by their bits (a
-   zero margin between a -0.0 and a +0.0 by value, and counted).
+   zero margin between a -0.0 and a +0.0 by value, and counted); and B8 as
+   the grouped streaming step launches it, each group's threshold its own
+   slot's stage value (S = 8 values, 0 and +inf among them, in every
+   launch), n_live a device scalar, B 4, 32 and 64, k 1 and 10.
 4. The first main path, paper experiment 1 (exp1_adult) at full width: the
    adult dataset (8000 train / 2000 test rows, D = 14), ``train_gbt`` with
    T = 500 depth-5 trees, the calibration matrix with B3, ``fit_qwyc`` at
@@ -112,10 +115,22 @@ Phases, each of which stops the run on failure:
    and launch counts equal; one graph a server (one a bucket shape for
    ranking), none recaptured.
 4f. The port's billing gate (``benchmarks/torch/perf_gate.py --device
-   cuda --check``): the reference gate's fixtures on the card, every
-   reachable key (the ``*.traces`` keys among them) equal to
-   ``benchmarks/results/baseline_billing.json``, every other key pending
-   with its queue item.
+   cuda --check``): the reference gate's fixtures on the card, the 51
+   reachable keys (the ``*.traces`` keys among them) equal to
+   ``benchmarks/results/baseline_billing.json``, the 76 others pending
+   (``*.sharded*``).
+4g. Grouped streaming: phase 4d's fit (no new fit) serves the 126 test
+   queries through ``serve(streaming=True)`` under ``skip-ahead`` and
+   ``wait``, each query at its seed-2028 Poisson arrival at 4.0 queries a
+   stage step (B3 once a flush, B8 once a step enqueued at each slot's own
+   stage threshold), equal to the same server with ``capture=False``
+   (every wave's verdicts, exit stages, margin bits, admit / done
+   timeline, bill, launches), to ``device="cpu"`` and to
+   ``run_grouped_host``; the second drain captures what the first ran
+   eagerly, the third replays and recaptures nothing; and
+   ``run_stream_grouped`` alone on the largest bucket at 8 slots (groups
+   refill freed slots mid-cascade), eager, captured and replayed, equal
+   to its CPU run and to the batch ``run_grouped``.
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
@@ -127,7 +142,9 @@ Phases, each of which stops the run on failure:
    unfused (lane_fn + B6); the ranking server's drains of the test queries
    (the first and second drain, then median and p90 wall, PyTorch calls
    per grouped stage, one drain's busy share; no sort kernel may appear)
-   and of 20 sets of never-seen queries (median and p90 wall); exp1's eager path (B3 + B4
+   and of 20 sets of never-seen queries (median and p90 wall); the
+   streaming ranking server's drains (five a loop: drain and wave walls,
+   steps run, enqueued and syncs a wave, one drain's busy share); exp1's eager path (B3 + B4
    matrix: flush latency at batch 128 / 256 / 1024 and one flush's busy
    share; B3 + B7 matrix: streaming waves at both rates); the PyTorch
    calls of an unfused batch-256 flush, by stage, both cells (no cumsum
@@ -151,6 +168,7 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import itertools
 import json
 import math
@@ -187,6 +205,11 @@ N_RANK_DRAINS = 20
 # runs one program a bucket shape) and the never-seen queries a drain
 # serves (train queries, as many as the test set has)
 RANK_DOCS, RANK_FRESH = 4096, 126
+# phase 4g's grouped streaming: the test queries' Poisson arrival rate
+# (queries a stage step, the CLI's default), the admission policies, and the
+# slot count of the executor-level run (below the largest bucket's group
+# count, so slots refill mid-cascade)
+RANK_STREAM_RATE, RANK_POLICIES, RANK_STREAM_CAP = 4.0, ("skip-ahead", "wait"), 8
 # exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
@@ -278,6 +301,10 @@ PATH_KERNELS = {
     # per wave's epilogue; rank(margin_inf=True) over precomputed scores
     "rank": {"gbt_scores", "cascade_group"},
     "rank_inf": {"cascade_group"},
+    # phase 4g, grouped streaming: score_fn's B3 matrix per flush + B8 per
+    # step enqueued; run_stream_grouped alone over a score matrix: B8
+    "rank_stream": {"gbt_scores", "cascade_group"},
+    "rank_stream_exec": {"cascade_group"},
     # phase 4e, quantised slabs: each path its own kernel at its own storage
     # (grid: the same servers on weights rounded onto the grid, f32 and quantised)
     "q_cpu": set(),
@@ -671,6 +698,50 @@ def check_group_rows(check: Check, dev, cascade_group_kernel, G: int = 37) -> No
                     n_cases += 1
     log(f"[phase 3] B8 cascade_group with rows == plain + group_topk_rows ({n_cases} cases, "
         f"{picked} picks, {zero_signs} zero margins of another sign)")
+
+
+def check_group_stages(check: Check, dev, cascade_group_kernel, G: int = 256,
+                       S: int = 8) -> None:
+    """Phase 3: B8 as the grouped streaming step launches it: each slot at
+    its own stage, so each group's threshold is ``eps_g[stage]``, gathered
+    on the card from S stage values (drawn, 0 and +inf), differing within
+    the launch; ``n_live`` a device scalar (0, 100, G); with ``rows``.
+    Picks, exits and margins' bits equal the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_group_plain, group_topk_rows
+
+    rng = np.random.default_rng(29)
+    n_cases, exits, eps_values = 0, 0, 0
+    for B in (4, 32, 64):
+        for k in (1, 10):
+            for kind in ("ties", "nan"):
+                gg, valid, rows_g = group_case(rng, G, B, kind)
+                eps_g = np.sort(rng.uniform(0.0, 2.0, size=S)).astype(np.float32)
+                eps_g[0], eps_g[-1] = 0.0, np.inf
+                stage = torch.from_numpy(rng.integers(0, S, size=G).astype(np.int32)).to(dev)
+                eps = torch.from_numpy(eps_g).to(dev)[stage]
+                eps_values = max(eps_values, int(torch.unique(eps).numel()))
+                g_t, v_t, r_t = (torch.from_numpy(a).to(dev) for a in (gg, valid, rows_g))
+                for nl in (0, 100, G):
+                    n_live = torch.tensor(nl, dtype=torch.int32, device=dev)
+                    m, e, p = cascade_group_kernel(g_t, v_t, eps, k, n_live=n_live, rows=r_t)
+                    torch.cuda.synchronize()
+                    wm, we = cascade_group_plain(g_t, v_t, eps, k, n_live=n_live)
+                    wp = group_topk_rows(g_t, v_t, r_t, k)
+                    what = f"per-slot eps B={B} k={k} {kind} n_live {nl}"
+                    check.equal("cascade_group", f"{what} picks", p, wp)
+                    check.equal("cascade_group", f"{what} exit", e, we)
+                    check.equal("cascade_group", f"{what} margin bits",
+                                m.view(torch.int32), wm.view(torch.int32))
+                    exits += int(e.sum())
+                    n_cases += 1
+    if not exits or eps_values < S:
+        raise AssertionError(f"B8 per-slot eps: {exits} exits, {eps_values} thresholds a launch")
+    log(f"[phase 3] B8 cascade_group at per-slot stage thresholds (S = {S} values, +inf "
+        f"among them, in each launch; n_live a device scalar) == plain ({n_cases} cases, "
+        f"{exits} exits)")
 
 
 def phase_kernels(check: Check) -> dict:
@@ -1258,6 +1329,7 @@ def phase_kernels(check: Check) -> dict:
         raise AssertionError("B8 check: no group exited")
     log(f"[phase 3] B8 cascade_group == plain ({n_cases} cases, {exits} exits)")
     check_group_rows(check, dev, cascade_group_kernel)
+    check_group_stages(check, dev, cascade_group_kernel)
     torch.cuda.synchronize()
     return dict(
         chunk=(g0, chunk, ep, en), forest=(feats, thrs, leaves), x_cal=x_cal,
@@ -1715,8 +1787,8 @@ def submit_queries(server, x, offsets) -> list[dict]:
 
 
 def rank_twin(srv):
-    """The ranking server ``srv`` again, with its executor's eager loop on
-    the card (``capture=False``)."""
+    """The ranking server ``srv`` (batch or streaming) again, with its
+    executor's eager loop on the card (``capture=False``)."""
     from repro_torch.kernels.device_executor import DeviceExecutor
     from repro_torch.ranking import GroupedRankServer
 
@@ -1725,7 +1797,8 @@ def rank_twin(srv):
                            device=ex.device, capture=False)
     return GroupedRankServer(srv.gplan, srv.score_fn, executor=eager,
                              batch_groups=srv.batch_groups, capacity_groups=srv.capacity_groups,
-                             capacity_docs=srv.capacity_docs, buckets=srv.buckets)
+                             capacity_docs=srv.capacity_docs, buckets=srv.buckets,
+                             streaming=srv.streaming, policy=srv.policy)
 
 
 def fresh_queries(x, n_drains: int, seed: int) -> list:
@@ -1917,7 +1990,186 @@ def phase_ranking(report: dict, launches: dict, main: dict) -> dict:
         b8=(g0, valid_t, eps0, gp.k, torch.tensor(len(gidx), dtype=torch.int32, device="cuda"),
             rows_t),
         b8_shape=f"G={cap_g} (live {len(gidx)}) B={b} k={gp.k}", S=gp.S,
+        fitted=fitted, score_fn=score_fn, calls=calls, sizes=sizes_te, F_test=F_test,
+        fields=fields,
     )
+
+
+def submit_stream(server, x, offsets, arrivals) -> list[dict]:
+    for i in range(offsets.size - 1):
+        server.submit(x[offsets[i] : offsets[i + 1]], arrival=float(arrivals[i]))
+    return server.drain()
+
+
+def same_waves(a, b, what: str, loop_counts: bool = True) -> None:
+    """Two streaming ranking servers' waves: verdicts, exit stages, margins'
+    bits, the admit / done timeline, occupancy, steps run and the bill
+    equal (with ``loop_counts`` also the steps enqueued and the syncs), and
+    their ``RankStats``."""
+    import numpy as np
+
+    ra, rb = a.stream_results, b.stream_results
+    if len(ra) != len(rb) or vars(a.stats) != vars(b.stats):
+        raise AssertionError(f"{what}: {len(ra)} / {len(rb)} waves, stats {vars(a.stats)} / "
+                             f"{vars(b.stats)}")
+    for i, (x, y) in enumerate(zip(ra, rb)):
+        for k in ("verdicts", "exit_stage", "admit_step", "done_step", "occupancy"):
+            if not np.array_equal(getattr(x, k), getattr(y, k)):
+                raise AssertionError(f"{what}: wave {i} {k} differs")
+        if not np.array_equal(x.margin.view(np.int32), y.margin.view(np.int32)):
+            raise AssertionError(f"{what}: wave {i} margin bits differ")
+        keys = ["steps_run", "scores_computed", "capacity_groups"]
+        for k in keys + (["steps_enqueued", "syncs"] if loop_counts else []):
+            if getattr(x, k) != getattr(y, k):
+                raise AssertionError(f"{what}: wave {i} {k} {getattr(x, k)} / {getattr(y, k)}")
+
+
+def phase_rank_stream(report: dict, launches: dict, rmain: dict) -> dict:
+    """Phase 4g: grouped streaming.  Phase 4d's fit (no new fit) serves
+    the test queries through ``serve(streaming=True)`` under each admission
+    policy, each query at its seed-2028 Poisson arrival at
+    ``RANK_STREAM_RATE`` queries a stage step: on the card (B3 once a
+    flush, B8 once a step enqueued, at each slot's own stage threshold),
+    held against the same server with ``capture=False`` (every wave's
+    verdicts, exit stages, margin bits, timeline, bill and the launches),
+    against ``device="cpu"`` and against ``run_grouped_host``.  A bucket
+    shape is one program: the second drain captures what the first ran
+    eagerly, the third replays it and recaptures nothing.  Then
+    ``run_stream_grouped`` alone on the largest bucket at
+    ``RANK_STREAM_CAP`` slots (slots refill mid-cascade), eager, captured
+    and replayed, equal to its CPU run and to the batch ``run_grouped``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.device_executor import DeviceExecutor, DevicePlan, matrix_stage_scorer
+    from repro_torch.ranking import bucket_layout, pack_by_bucket, run_grouped_host
+
+    fitted, score_fn, calls = rmain["fitted"], rmain["score_fn"], rmain["calls"]
+    x, off, sizes, F_test, fields = (rmain[k] for k in ("x", "offsets", "sizes", "F_test",
+                                                         "fields"))
+    gp = fitted.grouped
+    arr = poisson_arrivals(sizes.size, RANK_STREAM_RATE)
+    oracle = run_grouped_host(gp, F_test, sizes)
+    ref = (oracle.verdicts.astype(np.int64), oracle.exit_stage, oracle.margin.view(np.int32))
+
+    def server(device, policy, capture=True):
+        srv = fitted.compile("device", device=device).serve(
+            score_fn=score_fn, batch_size=RANK_BATCH, capacity_docs=RANK_DOCS,
+            streaming=True, policy=policy,
+        )
+        return srv if capture else rank_twin(srv)
+
+    def later(srv):
+        # the trace again, after every arrival the server has seen
+        return arr + math.ceil(srv._clock) + 1.0
+
+    out = {}
+    for policy in RANK_POLICIES:
+        path = f"rank_stream/{policy}"
+        card = server("cuda", policy)
+        calls["n"] = 0
+        res = counted(launches, path, lambda: submit_stream(card, x, off, arr))
+        # the first drain's stats (the server's stats go on to add the later drains')
+        st, ex = dataclasses.replace(card.stats), card.executor
+        want = {"gbt_scores": calls["n"],
+                "cascade_group": sum(w.steps_enqueued for w in card.stream_results)}
+        if launches[path] != want:
+            raise AssertionError(f"{path}: launched {launches[path]}, expected {want}")
+        twin = server("cuda", policy, capture=False)
+        res_twin = counted(launches, f"{path}/eager", lambda: submit_stream(twin, x, off, arr))
+        if res_twin != res or launches[f"{path}/eager"] != launches[path]:
+            raise AssertionError(f"{path}: captured results or launches != capture=False")
+        same_waves(card, twin, f"{path} captured vs capture=False")
+        cpu = server("cpu", policy)
+        if submit_stream(cpu, x, off, arr) != res:
+            raise AssertionError(f"{path}: card results != device='cpu'")
+        same_waves(card, cpu, f"{path} card vs CPU")
+        if len(res) != sizes.size or not all(
+            np.array_equal(a, b) for a, b in zip(fields(res), ref)
+        ):
+            raise AssertionError(f"{path}: verdicts/exit stages/margins != run_grouped_host")
+        waves = list(card.stream_results)
+        traces, graphs_first = ex.traces, len(ex._graphs)
+        # one program a bucket shape (the ring pinned to the slot count):
+        # the second drain captures each program the first ran once, the
+        # third replays every graph and captures none
+        for i, step in enumerate(("capture", "replay")):
+            graphs = dict(ex._graphs)
+            n0 = len(card.stream_results)
+            again = counted(launches, f"{path}/{step}",
+                            lambda: submit_stream(card, x, off, later(card)))
+            enq = sum(w.steps_enqueued for w in card.stream_results[n0:])
+            if again != res or launches[f"{path}/{step}"] != {"gbt_scores": 1,
+                                                                "cascade_group": enq}:
+                raise AssertionError(f"{path}: {step} drain differs: {launches[f'{path}/{step}']}")
+            if ex.traces != traces or len(ex._graphs) != traces or (
+                    i and any(ex._graphs.get(k) is not g for k, g in graphs.items())):
+                raise AssertionError(f"{path}: {step} drain: traces {ex.traces}, graphs "
+                                     f"{len(ex._graphs)} of {traces}, or a graph recaptured")
+        out[policy] = dict(
+            waves=len(waves), traces=traces, graphs_after_first_drain=graphs_first,
+            wave_groups=[int(w.verdicts.shape[0]) for w in waves],
+            steps_run=[w.steps_run for w in waves],
+            steps_enqueued=[w.steps_enqueued for w in waves],
+            syncs=[w.syncs for w in waves],
+            mean_occupancy=[w.mean_occupancy for w in waves],
+            mean_exit_stage=st.mean_exit_stage, scores_computed=st.scores_computed,
+            scores_possible=st.scores_possible, launches=launches[path],
+        )
+        log(f"[phase 4g] {policy}: {sizes.size} queries in {len(waves)} waves "
+            f"({out[policy]['wave_groups']} groups), {traces} programs; steps run "
+            f"{out[policy]['steps_run']}, enqueued {out[policy]['steps_enqueued']}, syncs "
+            f"{out[policy]['syncs']}; mean exit stage {st.mean_exit_stage:.3f}/{gp.S}, scores "
+            f"{st.scores_computed}/{st.scores_possible}; card == capture=False == CPU == "
+            f"run_grouped_host; launches {launches[path]}; the second drain captures, the "
+            f"third replays (no recapture)")
+    # the executor alone on the largest bucket, its groups all waiting for
+    # RANK_STREAM_CAP slots
+    b, gidx = max(pack_by_bucket(sizes, gp.buckets).items(), key=lambda kv: len(kv[1]))
+    n = len(gidx)
+    if n <= RANK_STREAM_CAP:
+        raise AssertionError(f"largest bucket holds {n} groups, not above {RANK_STREAM_CAP}")
+    rows, valid = bucket_layout(sizes[gidx], b, offsets=off[gidx])
+    Fo = np.ascontiguousarray(F_test.astype(np.float32)[:, gp.plan.order])
+    dplan = DevicePlan.from_plan(gp.plan)
+
+    def executor(device):
+        return DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=device), device=device)
+
+    ex_c, ex_p = executor("cuda"), executor("cpu")
+    args = (Fo, rows, valid, n, gp.eps_g, gp.k)
+    kw = dict(capacity_groups=RANK_STREAM_CAP)
+    want = ex_p.run_stream_grouped(*args, **kw)
+    for i in range(3):  # eager, captured, replayed
+        got = counted(launches, f"rank_stream_exec/{i}", lambda: ex_c.run_stream_grouped(*args, **kw))
+        for k in ("verdicts", "exit_stage", "admit_step", "done_step", "occupancy"):
+            if not np.array_equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"run_stream_grouped run {i}: card {k} != CPU")
+        if not np.array_equal(got.margin.view(np.int32), want.margin.view(np.int32)):
+            raise AssertionError(f"run_stream_grouped run {i}: card margin bits != CPU")
+        for k in ("steps_run", "scores_computed", "steps_enqueued", "syncs"):
+            if getattr(got, k) != getattr(want, k):
+                raise AssertionError(f"run_stream_grouped run {i}: card {k} != CPU")
+    if not (int(got.occupancy.max()) == got.capacity_groups == RANK_STREAM_CAP
+            and ex_c.traces == 1 and len(ex_c._graphs) == 1):
+        raise AssertionError(f"run_stream_grouped: occupancy max {got.occupancy.max()}, "
+                             f"traces {ex_c.traces}, graphs {len(ex_c._graphs)}")
+    batch = ex_c.run_grouped(*args)
+    if not (np.array_equal(got.verdicts, batch.verdicts)
+            and np.array_equal(got.exit_stage, batch.exit_stage)
+            and np.array_equal(got.margin.view(np.int32), batch.margin.view(np.int32))):
+        raise AssertionError("run_stream_grouped on the card != its batch run_grouped")
+    out["executor"] = dict(bucket=b, groups=n, capacity_groups=got.capacity_groups,
+                           steps_run=got.steps_run, steps_enqueued=got.steps_enqueued,
+                           syncs=got.syncs, mean_occupancy=got.mean_occupancy,
+                           scores_computed=got.scores_computed,
+                           batch_scores_computed=batch.scores_computed)
+    log(f"[phase 4g] run_stream_grouped, bucket {b} ({n} groups) at {RANK_STREAM_CAP} slots: "
+        f"{got.steps_run} steps ({got.steps_enqueued} enqueued, {got.syncs} syncs), occupancy "
+        f"{got.mean_occupancy:.4f}; eager, captured and replayed == CPU, == batch run_grouped "
+        f"(scores {got.scores_computed} vs {batch.scores_computed})")
+    report["rank_stream"] = out
+    return dict(server=server, x=x, offsets=off, arrivals=arr, S=gp.S)
 
 
 def grid_payload(payload, order, stages, quant: str):
@@ -2200,6 +2452,9 @@ def phase_gate(report: dict) -> None:
     if failures:
         raise AssertionError("perf gate: " + "; ".join(failures))
     pending = sorted(k for k in baseline if gate.pending_reason(k) is not None)
+    if (len(counters), len(pending)) != (51, 76):
+        raise AssertionError(f"perf gate: {len(counters)} reachable keys, {len(pending)} "
+                             "pending; expected 51 and 76")
     traces = {k: v for k, v in counters.items() if k.endswith(".traces")}
     report["perf_gate"] = dict(reachable=len(counters), pending=len(pending), counters=counters)
     log(f"[phase 4f] perf gate on the card: {len(counters)} reachable keys == baseline "
@@ -2508,6 +2763,66 @@ def rank_timing(rmain: dict, capture: bool = True) -> dict:
     return out
 
 
+def rank_stream_timing(rsmain: dict, capture: bool = True) -> dict:
+    """Phase 4g's streaming ranking server (skip-ahead; with ``capture``
+    False its eager loop), five drains of the test queries at their
+    Poisson arrivals, host clock, each ending in its results' transfer:
+    the first (every program's first run, eager), then one profiled with
+    the profiler's warm-up step as the second drain (each program
+    captured) and its recorded step as the third (replayed), then two
+    timed drains.  Each wave (one ``run_stream_grouped``) is timed too.
+    Reports the drain and wave walls, the steps run, enqueued and the
+    syncs a wave, and the profiled drain's device busy share of the timed
+    drains' median."""
+    import numpy as np
+
+    srv = rsmain["server"]("cuda", RANK_POLICIES[0], capture)
+    x, off, arr = rsmain["x"], rsmain["offsets"], rsmain["arrivals"]
+    ex = srv.executor
+    run, walls = ex.run_stream_grouped, []
+
+    def timed_wave(*a, **kw):
+        t = time.perf_counter()
+        out = run(*a, **kw)
+        walls.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    ex.run_stream_grouped = timed_wave
+
+    def drain_ms() -> float:
+        t = time.perf_counter()
+        submit_stream(srv, x, off, arr + (math.ceil(srv._clock) + 1.0 if srv._seq else 0.0))
+        return (time.perf_counter() - t) * 1e3
+
+    first = drain_ms()
+    by_name = profile_device(drain_ms)
+    walls.clear()
+    n0 = len(srv.stream_results)
+    drains = [drain_ms() for _ in range(2)]
+    waves = srv.stream_results[n0:]
+    busy = sum(v[0] for v in by_name.values())
+    med = statistics.median(drains)
+    out = dict(
+        first_drain_ms=first, drains_ms=drains, drain_median_ms=med,
+        wave_median_ms=statistics.median(walls), wave_max_ms=max(walls), waves=len(walls),
+        steps_run_per_wave=float(np.mean([w.steps_run for w in waves])),
+        steps_enqueued_per_wave=float(np.mean([w.steps_enqueued for w in waves])),
+        syncs_per_wave=float(np.mean([w.syncs for w in waves])),
+        device_busy_us=busy, busy_share=busy / (med * 1e3), traces=ex.traces,
+        graphs=len(ex._graphs), top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12],
+        port=port_kernels(by_name),
+    )
+    log(f"[phase 5] ranking streaming drain ({'captured' if capture else 'eager loop'}, "
+        f"{RANK_POLICIES[0]}, {off.size - 1} queries at {RANK_STREAM_RATE:g} a step): first "
+        f"{first:.3f} ms, then {drains[0]:.3f} / {drains[1]:.3f} ms; wave median "
+        f"{out['wave_median_ms']:.3f} ms, max {out['wave_max_ms']:.3f} ms over {len(walls)} "
+        f"waves; {out['steps_run_per_wave']:.1f} steps run, "
+        f"{out['steps_enqueued_per_wave']:.1f} enqueued, {out['syncs_per_wave']:.1f} syncs per "
+        f"wave; one drain's device busy {busy:.0f} us = {out['busy_share']:.2%} of the median "
+        f"drain; {ex.traces} programs, {len(ex._graphs)} graphs")
+    return out
+
+
 def eager_timing(make_batch, make_stream, x, label: str) -> dict:
     """exp1's eager path (``score_fn``: one B3 score matrix a flush or wave,
     then B4 matrix a stage or B7 matrix a step enqueued): the flush latency
@@ -2557,7 +2872,7 @@ def quant_timing(qmain: dict) -> dict:
 
 
 def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qmain: dict,
-                launches: dict, check: Check, report: dict) -> list:
+                rsmain: dict, launches: dict, check: Check, report: dict) -> list:
     """Phase 5: flush latency, streaming wave times, the ranking drain and
     per-kernel device times."""
     import numpy as np
@@ -2619,6 +2934,7 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
                                 smain["cells"][cell]["ds"].x_test, f"{cell} unfused {label}")
             for cell in smain["cells"]
         }
+        report[f"rank_stream_timing{sfx}"] = rank_stream_timing(rsmain, capture=capture)
         rt = report[f"rank_timing{sfx}"] = rank_timing(rmain, capture=capture)
         # B8 picks each group's top k: the drain sorts nothing on the card
         if rt["sort_kernels"] or rt["sort_calls"]:
@@ -3056,10 +3372,11 @@ def main() -> int:
     rank_ctx = timed("4d", phase_ranking, report, launches, main_ctx)
     quant_ctx = timed("4e", phase_quant, report, launches, main_ctx, lattice_ctx)
     timed("4f", phase_gate, report)
+    rank_stream_ctx = timed("4g", phase_rank_stream, report, launches, rank_ctx)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,
-                    quant_ctx, launches, check, report)
+                    quant_ctx, rank_stream_ctx, launches, check, report)
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_all
     out_dir = ROOT / "chiprun_out"

@@ -67,8 +67,12 @@ class HostBackend:
             _as_cascade_plan(plan), producer, decide_fn=decide_fn, bill_block=bill_block
         )
 
-    def billing_key(self) -> str:
-        """The perf gate's counter-key fragment."""
+    def billing_key(self, decide: str | None = None, block_n: int | None = None) -> str:
+        """The perf gate's counter-key fragment: ``kernel<block>`` for the
+        host loop with the chunk-decide kernel (B2), ``host`` with the
+        reference decide (the reference's names)."""
+        if decide == "kernel":
+            return f"kernel{block_n or 256}"
         return self.name
 
 

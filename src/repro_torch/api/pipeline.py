@@ -21,8 +21,7 @@ the CPU is named; ``"auto"`` is always the device backend, and ``host``
 runs only when named.  There is no degradation ladder: a failure raises.
 Options whose modules are not ported raise ``ValueError`` naming their
 ROADMAP item: the mesh and shard options (A15), backoff and the ladder
-(A11), a model-backed ``StageScorer`` fit (A13), and the host rung's lazy
-``scorer=`` producer (A6, ``host_producer``).
+(A11) and a model-backed ``StageScorer`` fit (A13).
 """
 
 from __future__ import annotations
@@ -34,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.registry import AUTO, backend_names, get_backend, resolve_backend
-from repro_torch.api.scorers import StageScorer
+from repro_torch.api.scorers import StageScorer, host_producer
 from repro_torch.core.executor import (
     DEFAULT_CHUNK_T,
     CascadePlan,
@@ -49,7 +48,6 @@ from repro_torch.kernels.device_executor import (
     matrix_stage_scorer,
 )
 from repro_torch.ranking import GroupedRankServer, fit_grouped, group_offsets
-from repro_torch.ranking.serving import GROUPED_STREAMING_TODO
 
 __all__ = ["FitConfig", "FittedCascade", "CompiledCascade", "fit"]
 
@@ -65,10 +63,6 @@ _SCORER_FIT_TODO = (
     "a model-backed fit (a StageScorer that scores its own calibration "
     "inputs, the neural scorer) is not ported yet (ROADMAP A13); pass a "
     "score matrix or a score function"
-)
-_HOST_PRODUCER_TODO = (
-    "the host backend's lazy scorer= producer (host_producer) is not ported "
-    "yet (ROADMAP A6); pass scores= or compile onto 'device'"
 )
 
 
@@ -254,7 +248,9 @@ class FittedCascade:
         versions.  Host-only options: ``decide`` (``"reference"``, the
         numpy oracle, or ``"kernel"``, the chunk decide B2) and
         ``bill_block``.  ``scorer``: a ``StageScorer`` template for lazy
-        scoring on the device (``evaluate(x=...)``, ``serve()``).
+        scoring (``evaluate(x=...)``; ``serve()`` on the device): the device
+        loop's scorer, or on the host the producer ``host_producer`` drives
+        on ``device``.
         """
         if mesh is not None or shards is not None or int(model_shards) > 1 or rebalance:
             raise ValueError(_SHARDED_TODO)
@@ -379,8 +375,9 @@ class CompiledCascade:
 
         ``scores``: a precomputed ``(N, T)`` matrix in ORIGINAL model order
         (every backend).  ``x``: the raw batch, fed to the compiled
-        ``scorer=`` template on the device, else scored through the
-        ``fit``-captured ``score_fn``.  ``producer(rows, t0, t1)``: a host
+        ``scorer=`` template (on the device, or through ``host_producer``
+        on the host), else scored through the ``fit``-captured
+        ``score_fn``.  ``producer(rows, t0, t1)``: a host
         lazy producer in cascade order (host backend, requires ``n``).
         ``row_order`` / ``capacity`` follow the executors' contracts.
         """
@@ -408,7 +405,11 @@ class CompiledCascade:
                 raise ValueError("producer= requires n= (batch row count)")
             p = producer
         elif self.scorer_template is not None and scores is None:
-            raise ValueError(_HOST_PRODUCER_TODO)
+            if x is None:
+                raise ValueError("compiled with scorer=: pass the scorer's batch operand via x=")
+            # the template bound onto this compile's device, driven stage by
+            # stage by the host loop
+            p, n = host_producer(self.scorer_template, self.plan, x, device=self.device)
         else:
             ordered = self._ordered_scores(scores, x)
             n = ordered.shape[0]
@@ -517,16 +518,31 @@ class CompiledCascade:
         **server_kw,
     ) -> GroupedRankServer:
         """Grouped serving: a ``GroupedRankServer`` on this backend.
-        ``batch_size`` counts QUERIES per flush.  Grouped streaming, and
-        the admission policies that only it reads, raise (ROADMAP A12)."""
-        if policy != "sorted-kernel":
-            raise NotImplementedError(GROUPED_STREAMING_TODO)
+
+        ``batch_size`` counts QUERIES per flush; ``policy`` becomes the
+        streaming admission policy (the row-level default maps to
+        ``"skip-ahead"``; pass ``"wait"`` for strict arrival order).
+        Streaming needs the device backend's grouped admission ring.
+        """
+        gp = self._grouped_plan()
+        if streaming:
+            if self._executor is None:
+                raise ValueError(
+                    "grouped streaming needs an on-device backend with the grouped "
+                    "admission ring; compile onto 'device'"
+                )
+            if not hasattr(self._executor, "run_stream_grouped"):
+                raise ValueError(
+                    f"backend {self.backend.name!r} has no grouped streaming path; "
+                    "compile onto 'device'"
+                )
         return GroupedRankServer(
-            self._grouped_plan(),
+            gp,
             score_fn=self.fitted.score_fn if score_fn is None else score_fn,
             executor=self._executor,
             batch_groups=batch_size,
             streaming=streaming,
+            policy="skip-ahead" if policy == "sorted-kernel" else policy,
             device=self.device,
             **server_kw,
         )
@@ -557,8 +573,9 @@ class CompiledCascade:
 
         A grouped fit (``fit(..., groups=)``) serves QUERIES: the call
         returns a ``ranking.GroupedRankServer`` (``batch_size`` counts
-        queries per flush; a ``policy`` other than the default would be the
-        grouped streaming ring's admission policy, and raises).
+        queries per flush; with ``streaming=True`` the grouped admission
+        ring, ``policy`` its admission policy: ``"skip-ahead"``, the
+        default's mapping, or ``"wait"``).
         """
         if self.fitted.grouped is not None:
             return self._serve_grouped(

@@ -4,8 +4,12 @@
 A ``StageScorer`` is a plan-independent template: it holds ensemble params
 in ORIGINAL order, and ``bind(dplan, device)`` applies the plan's cascade
 order and lowers it onto the device as the executors' ``BoundScorer``.
-The neural and function scorers of the reference are not ported yet
-(ROADMAP.md).
+The port's ``bind`` takes the torch device explicitly (the reference's
+binds onto JAX's default device).  Scorer families live in a registry
+(``register_scorer`` / ``get_scorer`` / ``scorer_names``), and
+``host_producer`` drives a bound scorer as the host ``ChunkedExecutor``'s
+producer.  The port's scorers are stateless; the reference's neural
+scorer and its state carry come with ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.executor import CascadePlan
 from repro_torch.kernels.device_executor import (
     DEFAULT_BLOCK_N,
     BoundScorer,
@@ -24,8 +29,19 @@ from repro_torch.kernels.device_executor import (
     matrix_stage_scorer,
     tree_stage_scorer,
 )
+from repro_torch.kernels.ops import _bucket_rows
 
-__all__ = ["StageScorer", "MatrixScorer", "TreeScorer", "LatticeScorer"]
+__all__ = [
+    "StageScorer",
+    "MatrixScorer",
+    "TreeScorer",
+    "LatticeScorer",
+    "FunctionScorer",
+    "register_scorer",
+    "get_scorer",
+    "scorer_names",
+    "host_producer",
+]
 
 
 def _numpy(a) -> np.ndarray:
@@ -35,7 +51,7 @@ def _numpy(a) -> np.ndarray:
 class StageScorer(abc.ABC):
     """A plan-independent stage-scorer template."""
 
-    #: registry name of the scorer family ("matrix"/"tree"/"lattice")
+    #: registry name of the scorer family ("matrix"/"tree"/"lattice"/...)
     name: str = "?"
 
     @abc.abstractmethod
@@ -114,3 +130,97 @@ class LatticeScorer(StageScorer):
             quant=self.quant,
             device=device,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class FunctionScorer(StageScorer):
+    """Escape hatch: wrap a ``factory(dplan, device) -> BoundScorer``
+    closure.
+
+    For custom scorers that build their own kernel-layer ``BoundScorer``
+    (tests, benchmarks, one-off experiments) without defining a full
+    ``StageScorer`` subclass.  ``bind(dplan, device)`` calls
+    ``factory(dplan, device)``: the port passes the torch device the
+    executor runs on, where the reference's ``factory(dplan)`` takes
+    JAX's default device.  Lanes and slabs are whatever the closure put
+    on the scorer.
+    """
+
+    factory: object
+    name: str = dataclasses.field(default="function", init=False)
+
+    def bind(self, dplan: DevicePlan, device="cuda") -> BoundScorer:
+        return self.factory(dplan, device)
+
+
+# -- registry ----------------------------------------------------------------
+
+_SCORERS: dict[str, type] = {
+    "matrix": MatrixScorer,
+    "tree": TreeScorer,
+    "lattice": LatticeScorer,
+    "function": FunctionScorer,
+}
+
+
+def register_scorer(name: str, cls: type) -> None:
+    """Register a ``StageScorer`` subclass under ``name``."""
+    if not (isinstance(cls, type) and issubclass(cls, StageScorer)):
+        raise TypeError(f"{cls!r} is not a StageScorer subclass")
+    _SCORERS[str(name)] = cls
+
+
+def get_scorer(name: str) -> type:
+    try:
+        return _SCORERS[name]
+    except KeyError:
+        raise KeyError(f"unknown scorer {name!r}; registered: {sorted(_SCORERS)}") from None
+
+
+def scorer_names() -> tuple[str, ...]:
+    return tuple(sorted(_SCORERS))
+
+
+# -- host adapter: StageScorer -> ChunkedExecutor producer --------------------
+
+
+def _as_device_plan(plan) -> DevicePlan:
+    if isinstance(plan, DevicePlan):
+        return plan
+    if isinstance(plan, CascadePlan):
+        return DevicePlan.from_plan(plan)
+    raise TypeError(f"expected CascadePlan or DevicePlan, got {type(plan).__name__}")
+
+
+def host_producer(scorer, plan, batch, device="cuda"):
+    """Adapt a ``StageScorer`` (bound onto ``device``) or an already-bound
+    ``BoundScorer`` to the host ``ChunkedExecutor`` producer contract ->
+    ``(producer, n)``.
+
+    The producer drives the bound scorer's ``fn`` over the requested rows
+    on the scorer's device (where its ``prepare`` put the operand): each
+    call is W wide (the scorer's uniform stage width), its rows padded to
+    the scorer's ``block_n`` as ``ops._bucket_rows`` pads them, and the
+    result is sliced back to the rows and to ``t1 - t0`` columns, as f64
+    numpy.
+    """
+    dplan = _as_device_plan(plan)
+    bound = scorer.bind(dplan, device=device) if isinstance(scorer, StageScorer) else scorer
+    if not isinstance(bound, BoundScorer):
+        raise TypeError(f"expected a StageScorer or BoundScorer, got {type(scorer).__name__}")
+    x = bound.prepare(batch)
+    n = int(x.shape[0])
+
+    def producer(rows, t0, t1):
+        m = len(rows)
+        if m == 0:
+            return np.zeros((0, t1 - t0), dtype=np.float64)
+        # the kernel-backed scorers compute at their own block_n granularity
+        rows_t, _ = _bucket_rows(
+            torch.as_tensor(np.asarray(rows, dtype=np.int64), device=x.device),
+            bound.block_n or 1,
+        )
+        scores = bound.fn(x, rows_t, int(t0), m)
+        return _numpy(scores)[:m, : t1 - t0].astype(np.float64)
+
+    return producer, n

@@ -89,6 +89,19 @@ B8 as ``n_live``.  As in the reference it always runs the scorer's stage
 function and B8 (the fused stage step has no group semantics), and the
 stage's scores are added column by column, the host oracle's f32 add
 order, so margins and verdicts equal ``run_grouped_host``'s bit for bit.
+
+**Grouped streaming** (``run_stream_grouped``, the reference's
+``_grouped_stream_program``): the streaming loop at GROUP-slot
+granularity.  ``cap_g`` slots of B lanes each, every slot at its own
+stage; a ring of ``Rg`` pending groups (ring slot j holds group j, trash
+id ``Rg``) refills freed slots in arrival order.  A step is the refill,
+the scorer's ``lane_fn`` over every lane (each slot's stage repeated over
+its B lanes), the column-by-column add, B8 at each slot's own threshold
+``eps_g[stage]`` (with the picks), the finished groups' scatters and the
+whole-group repack.  It is enqueued in bursts of ``STREAM_BURST`` steps
+with the step counter and the arrivals on the device, exactly as
+``run_stream``, and its ``steps_run``, timeline and bill equal the
+reference's.
 """
 
 from __future__ import annotations
@@ -122,6 +135,7 @@ __all__ = [
     "DeviceExecutor",
     "DevicePlan",
     "GroupedResult",
+    "GroupedStreamResult",
     "StreamResult",
     "group_topk_rows",
     "lattice_stage_scorer",
@@ -415,6 +429,15 @@ class StreamResult:
         return self.done_step - self.admit_step + 1
 
 
+def _repack(buf: torch.Tensor, pack: torch.Tensor, fill) -> torch.Tensor:
+    """Compaction by pack positions: ``buf[i]`` lands at ``pack[i]``, every
+    other slot holds ``fill``; ``pack == len(pack)`` is the trash slot,
+    dropped."""
+    n = pack.shape[0]
+    out = torch.full((n + 1, *buf.shape[1:]), fill, dtype=buf.dtype, device=buf.device)
+    return out.index_copy_(0, pack, buf)[:n]
+
+
 def stream_occupancy(
     admit_step: np.ndarray, done_step: np.ndarray, steps_run: int
 ) -> np.ndarray:
@@ -448,6 +471,39 @@ class GroupedResult:
     chunk_stats: list[ChunkStat]
     scores_computed: int
     scores_possible: int
+
+
+@dataclasses.dataclass
+class GroupedStreamResult:
+    """Result of a streaming grouped run, as the reference's: the
+    ``GroupedResult`` fields per group plus the slot timeline of
+    ``StreamResult`` at GROUP granularity (``occupancy`` counts live group
+    slots; billing multiplies by the bucket width before it
+    block-quantizes).  ``steps_enqueued`` and ``syncs`` are the port's own
+    loop accounting, as on ``StreamResult``."""
+
+    verdicts: np.ndarray  # (G, k) int32
+    exit_stage: np.ndarray  # (G,) int64
+    margin: np.ndarray  # (G,) float32
+    admit_step: np.ndarray  # (G,) int64
+    done_step: np.ndarray  # (G,) int64
+    steps_run: int
+    occupancy: np.ndarray  # (steps_run,) int64 live group slots per step
+    capacity_groups: int
+    scores_computed: int
+    scores_possible: int
+    steps_enqueued: int = 0
+    syncs: int = 0
+
+    @property
+    def mean_occupancy(self) -> float:
+        if self.steps_run == 0:
+            return 0.0
+        return float(self.occupancy.mean()) / max(self.capacity_groups, 1)
+
+    @property
+    def latency_steps(self) -> np.ndarray:
+        return self.done_step - self.admit_step + 1
 
 
 @dataclasses.dataclass
@@ -487,6 +543,42 @@ class _StreamState:
     dec: torch.Tensor
     ex: torch.Tensor
     gout: torch.Tensor
+    admit: torch.Tensor
+    done: torch.Tensor
+    probe: torch.Tensor
+
+
+@dataclasses.dataclass
+class _GroupedStreamState:
+    """The grouped streaming program's inputs and loop state, updated in
+    place by each burst: ``x`` the operand (padded rows), ``ring_rows`` /
+    ``ring_valid`` (Rg, B) the pending groups' rows and real-lane masks
+    (ring slot j holds group j), ``arr`` (Rg,) their nondecreasing arrival
+    steps (int32 max past the ``n`` groups), ``eps`` (S,) the margin
+    thresholds; ``gids``, ``rows``, ``valid``, ``stage`` and ``g`` the
+    (cap_g,) / (cap_g, B) slots; ``n_live``, ``head``, ``steps_run`` and
+    ``step`` the loop's counters; ``verd`` (Rg + 1, k), ``exst``, ``marg``,
+    ``admit`` and ``done`` (Rg + 1,) the results by group id (trash slot
+    Rg); ``probe`` (2,) the live count and the ring head."""
+
+    x: torch.Tensor
+    ring_rows: torch.Tensor
+    ring_valid: torch.Tensor
+    arr: torch.Tensor
+    n: torch.Tensor
+    eps: torch.Tensor
+    gids: torch.Tensor
+    rows: torch.Tensor
+    valid: torch.Tensor
+    stage: torch.Tensor
+    g: torch.Tensor
+    n_live: torch.Tensor
+    head: torch.Tensor
+    steps_run: torch.Tensor
+    step: torch.Tensor
+    verd: torch.Tensor
+    exst: torch.Tensor
+    marg: torch.Tensor
     admit: torch.Tensor
     done: torch.Tensor
     probe: torch.Tensor
@@ -801,7 +893,6 @@ class DeviceExecutor:
         S, T = dp.S, dp.plan.T
         R = x.shape[0] - 1  # ring size == output size; R = trash id
         cap = st.rows.shape[0]
-        i32 = torch.int32
         lane = torch.arange(cap, device=dev)
         lanes, stages, gl, live, hd = st.rows, st.stage, st.g, st.n_live, st.head
         for _ in range(STREAM_BURST):
@@ -852,15 +943,9 @@ class DeviceExecutor:
             done[scat] = step
             # repack: survivors to the front, freed lanes to (R, 0, 0.0)
             pack = pack.long()
-            lanes = torch.full((cap + 1,), R, dtype=torch.int64, device=dev).index_copy_(
-                0, pack, lanes
-            )[:cap]
-            stages = torch.zeros(cap + 1, dtype=i32, device=dev).index_copy_(
-                0, pack, stages + 1
-            )[:cap]
-            gl = torch.zeros(cap + 1, dtype=torch.float32, device=dev).index_copy_(
-                0, pack, g_new
-            )[:cap]
+            lanes = _repack(lanes, pack, R)
+            stages = _repack(stages + 1, pack, 0)
+            gl = _repack(g_new, pack, 0.0)
             live = n_keep
             step += 1
         st.rows.copy_(lanes)
@@ -999,10 +1084,6 @@ class DeviceExecutor:
         # the stage's scalar threshold for every group slot, one row a stage
         eps_b = eps_g[:, None].expand(S, cap_g).contiguous()
 
-        def repack(buf, pack, fill):
-            out = torch.full((cap_g + 1, *buf.shape[1:]), fill, dtype=buf.dtype, device=dev)
-            return out.index_copy_(0, pack, buf)[:cap_g]
-
         for s in range(S):
             n_in_log[s] = n_active
             t0 = int(dp.stage_t0[s])
@@ -1028,10 +1109,10 @@ class DeviceExecutor:
             # whole-group compaction: survivors keep their B-lane rectangle
             keep = (grp < n_active) & ~exit_b
             pack = torch.where(keep, torch.cumsum(keep, dim=0) - 1, cap_g)
-            gids = repack(gids, pack, cap_g)
-            rows2d = repack(rows2d, pack, 0)
-            valid2d = repack(valid2d, pack, 0)
-            g2d = repack(g_new, pack, 0.0)
+            gids = _repack(gids, pack, cap_g)
+            rows2d = _repack(rows2d, pack, 0)
+            valid2d = _repack(valid2d, pack, 0)
+            g2d = _repack(g_new, pack, 0.0)
             n_active = keep.sum(dtype=i32)
         # ran-out groups carry the full cascade's ranking; B8 at eps = +inf
         # gives their margins and picks
@@ -1164,4 +1245,261 @@ class DeviceExecutor:
             chunk_stats=chunk_stats,
             scores_computed=sum(c.scores_computed for c in chunk_stats),
             scores_possible=n_docs * T,
+        )
+
+    # -- grouped streaming: the admission ring at group-slot granularity --
+
+    def _grouped_stream_state(self, cap_g, Rg, B, k, cap_x, x) -> _GroupedStreamState:
+        """New buffers of the grouped streaming program: ``cap_g`` slots
+        of ``B`` lanes, a ring of ``Rg`` groups, depth ``k``, ``cap_x``
+        operand rows of ``x``'s width and dtype."""
+        dev, i32, i64, f32 = self.device, torch.int32, torch.int64, torch.float32
+
+        def ints(*shape, dtype=i32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        return _GroupedStreamState(
+            x=torch.empty((cap_x, *x.shape[1:]), dtype=x.dtype, device=dev),
+            ring_rows=ints(Rg, B, dtype=i64), ring_valid=ints(Rg, B), arr=ints(Rg),
+            n=ints(), eps=torch.empty(self.dplan.S, dtype=f32, device=dev),
+            gids=ints(cap_g, dtype=i64), rows=ints(cap_g, B, dtype=i64),
+            valid=ints(cap_g, B), stage=ints(cap_g),
+            g=torch.empty((cap_g, B), dtype=f32, device=dev),
+            n_live=ints(), head=ints(), steps_run=ints(), step=ints(),
+            verd=ints(Rg + 1, k), exst=ints(Rg + 1),
+            marg=torch.empty(Rg + 1, dtype=f32, device=dev),
+            admit=ints(Rg + 1), done=ints(Rg + 1), probe=ints(2),
+        )
+
+    def _grouped_stream_reset(self, st, x, rows, valid, n, arr, eps_g) -> None:
+        """Write a run's inputs and the loop's initial state into ``st``:
+        the operand (zero rows past it), the ring's groups (then row 0, no
+        valid lane), the arrivals (int32 max past the ``n`` groups: never
+        arrived), empty slots (trash id, row 0, stage 0, g 0), zero
+        counters, and the reference's initial results (no picks, exit stage
+        S, margin +inf)."""
+        self._write_rows(st.x, x)
+        Rg = st.arr.shape[0]
+        ring_rows = np.zeros(st.ring_rows.shape, dtype=np.int64)
+        ring_rows[:n] = rows[:n]
+        ring_valid = np.zeros(st.ring_valid.shape, dtype=np.int32)
+        ring_valid[:n] = valid[:n] != 0
+        arr_pad = np.full(Rg, np.iinfo(np.int32).max, dtype=np.int32)
+        arr_pad[:n] = arr
+        for buf, host in ((st.ring_rows, ring_rows), (st.ring_valid, ring_valid),
+                          (st.arr, arr_pad), (st.eps, eps_g)):
+            buf.copy_(torch.from_numpy(host))
+        st.n.fill_(n)
+        st.gids.fill_(Rg)
+        st.verd.fill_(-1)
+        st.exst.fill_(self.dplan.S)
+        st.marg.fill_(float("inf"))
+        for t in (st.rows, st.valid, st.stage, st.g, st.n_live, st.head, st.steps_run,
+                  st.step, st.admit, st.done):
+            t.zero_()
+
+    def _grouped_stream_burst(self, k: int, st: _GroupedStreamState) -> None:
+        """``STREAM_BURST`` steps of the grouped admission ring, in place on
+        ``st`` (see ``_GroupedStreamState``), each the reference's loop body
+        (``_grouped_stream_program``) step for step.  Nothing here syncs
+        with the host."""
+        x, arr, n, step, steps_run = st.x, st.arr, st.n, st.step, st.steps_run
+        verd, exst, marg, admit, done = st.verd, st.exst, st.marg, st.admit, st.done
+        dp, dev = self.dplan, self.device
+        S, W = dp.S, dp.W
+        Rg = arr.shape[0]  # ring size == output size; Rg = trash id
+        cap_g, B = st.rows.shape
+        L = cap_g * B
+        i32 = torch.int32
+        slot = torch.arange(cap_g, device=dev)
+        gids, rows2d, valid2d, stage, g2d = st.gids, st.rows, st.valid, st.stage, st.g
+        live, hd = st.n_live, st.head
+        for _ in range(STREAM_BURST):
+            # the reference's loop condition, on the device (see
+            # _stream_burst): once false it stays false, and the step is inert
+            steps_run += (n - hd + live).clamp_(max=1)
+            # refill: the free slots at the back take the next groups of the
+            # ring whose arrival step has come, at stage 0 with g 0 (a free
+            # slot already holds both: the repack zeroes it); ring slot j
+            # holds group j, so a new slot's group id is head + its offset
+            arrived = torch.searchsorted(arr, step.reshape(1), right=True, out_int32=True)[0]
+            kadm = torch.minimum(cap_g - live, arrived - hd)
+            off = slot - live
+            is_new = (off >= 0) & (off < kadm)
+            src = (off + hd).clamp_(0, Rg - 1)
+            gids = torch.where(is_new, src, gids)
+            rows2d = torch.where(is_new[:, None], st.ring_rows[src], rows2d)
+            valid2d = torch.where(is_new[:, None], st.ring_valid[src], valid2d)
+            admit[torch.where(is_new, gids, Rg)] = step
+            live = live + kadm
+            hd = hd + kadm
+            # mixed-stage scoring: each slot's stage over its B lanes, the
+            # padded columns and the padding lanes masked
+            stop = stage >= S - 1
+            t0_lane = self._stage_t0[stage][:, None].expand(cap_g, B).reshape(L)
+            scores = self.scorer.lane_stage(t0_lane, rows2d.reshape(L), x, live * B)
+            colmask = self._col_valid[stage][:, None, :].expand(cap_g, B, W).reshape(L, W)
+            scores = torch.where(colmask, scores, 0.0)
+            scores = torch.where(valid2d.reshape(L, 1) != 0, scores, 0.0)
+            # per-column sequential accumulate: the host oracle's f32 adds
+            g_flat = g2d.reshape(L)
+            for j in range(W):
+                g_flat = g_flat + scores[:, j]
+            g_new = g_flat.reshape(cap_g, B)
+            # B8 at each slot's own stage threshold, with the picks
+            margin, exit_g, verdict = cascade_group_kernel(
+                g_new, valid2d, st.eps[stage], k, n_live=live, rows=rows2d
+            )
+            exit_b = exit_g.bool()
+            slot_live = slot < live
+            fin = (slot_live & exit_b) | (slot_live & ~exit_b & stop)
+            scat = torch.where(fin, gids, Rg)
+            verd[scat] = verdict
+            exst[scat] = torch.where(exit_b, stage + 1, S)
+            marg[scat] = margin
+            done[scat] = step
+            # whole-group repack: survivors to the front a stage further
+            # on, freed slots to (Rg, row 0, no valid lane, stage 0, g 0)
+            keep = slot_live & ~exit_b & ~stop
+            pack = torch.where(keep, torch.cumsum(keep, dim=0) - 1, cap_g)
+            gids = _repack(gids, pack, Rg)
+            rows2d = _repack(rows2d, pack, 0)
+            valid2d = _repack(valid2d, pack, 0)
+            stage = _repack(stage + 1, pack, 0)
+            g2d = _repack(g_new, pack, 0.0)
+            live = keep.sum(dtype=i32)
+            step += 1
+        st.gids.copy_(gids)
+        st.rows.copy_(rows2d)
+        st.valid.copy_(valid2d)
+        st.stage.copy_(stage)
+        st.g.copy_(g2d)
+        st.n_live.copy_(live)
+        st.head.copy_(hd)
+        st.probe.copy_(torch.stack([live, hd]))
+
+    def run_stream_grouped(
+        self,
+        batch,
+        group_rows,
+        group_valid,
+        n_groups: int,
+        eps_g,
+        k: int,
+        arrivals=None,
+        capacity_groups: int | None = None,
+        ring_capacity: int | None = None,
+        prepared: bool = False,
+        capacity_rows: int | None = None,
+    ) -> GroupedStreamResult:
+        """Continuously stream query groups through group-slot buffers.
+
+        The grouped analogue of ``run_stream``: groups wait in an
+        arrival-order admission ring and refill freed GROUP slots (B lanes
+        each) mid-cascade; per-slot stage indices mix rookies with
+        veterans, each decided by its own stage's margin threshold through
+        B8, as the batch path's.  One bucket width B per run.
+        ``arrivals`` ((n_groups,) nondecreasing ints, None = all waiting)
+        gates admission, ``capacity_groups`` pins the slot count
+        (default: every group at once) and ``ring_capacity`` the ring size
+        (default ``n_groups``), so a server's waves share one program.  As
+        in ``run_grouped``, the prepared operand is padded to ``max(rows,
+        capacity_rows)`` rows rounded up to a power of two.  The scorer
+        needs a ``lane_fn``.
+        """
+        T, S = self.dplan.plan.T, self.dplan.S
+        if not self.scorer.has_lanes:
+            raise ValueError(
+                "run_stream_grouped needs a scorer with per-lane stage scoring (lane_fn)"
+            )
+        group_rows = np.asarray(group_rows, dtype=np.int64)
+        group_valid = np.asarray(group_valid)
+        if group_rows.ndim != 2 or group_rows.shape != group_valid.shape:
+            raise ValueError(
+                f"group_rows/group_valid must be matching (G, B) arrays, "
+                f"got {group_rows.shape} / {group_valid.shape}"
+            )
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        eps_g = np.asarray(eps_g, dtype=np.float32)
+        if eps_g.shape != (S,):
+            raise ValueError(f"eps_g has shape {eps_g.shape}, expected ({S},)")
+        if n_groups == 0:
+            return GroupedStreamResult(
+                verdicts=np.zeros((0, k), dtype=np.int32),
+                exit_stage=np.zeros(0, dtype=np.int64),
+                margin=np.zeros(0, dtype=np.float32),
+                admit_step=np.zeros(0, dtype=np.int64),
+                done_step=np.zeros(0, dtype=np.int64),
+                steps_run=0,
+                occupancy=np.zeros(0, dtype=np.int64),
+                capacity_groups=self._cap_groups(1, capacity_groups),
+                scores_computed=0,
+                scores_possible=0,
+            )
+        arr = (
+            np.zeros(n_groups, dtype=np.int64)
+            if arrivals is None
+            else np.asarray(arrivals, dtype=np.int64)
+        )
+        if arr.shape != (n_groups,):
+            raise ValueError(f"arrivals has shape {arr.shape}, expected ({n_groups},)")
+        if (np.diff(arr) < 0).any():
+            raise ValueError("arrivals must be nondecreasing")
+        n_docs = int((group_valid[:n_groups] != 0).sum())
+        B = group_rows.shape[1]
+        k = int(k)
+        # the reference's slot count: the pinned capacity when given (it may
+        # be below n_groups: slots then refill mid-cascade), else every group
+        cap_g = self._cap_groups(capacity_groups or n_groups, capacity_groups)
+        Rg = max(n_groups, int(ring_capacity or n_groups))
+        x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
+        if x.device != self.device:
+            raise ValueError(f"operand on {x.device}, executor on {self.device}")
+        cap_x = 1 << (max(x.shape[0], capacity_rows or 0, 1) - 1).bit_length()
+        key = ("grouped_stream", k, cap_g, Rg, B, cap_x, tuple(x.shape[1:]), x.dtype)
+        (st,) = self._buffers(
+            key, lambda: (self._grouped_stream_state(cap_g, Rg, B, k, cap_x, x),)
+        )
+        self._grouped_stream_reset(st, x, group_rows, group_valid, n_groups, arr, eps_g)
+        burst = functools.partial(self._grouped_stream_burst, k)
+        # the loop runs at least until the last arrival's step: no sync before
+        bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
+        enqueued = syncs = 0
+        while True:
+            for _ in range(bursts):
+                self._execute(key, burst, (st,))
+            enqueued += bursts * STREAM_BURST
+            live, taken = st.probe.tolist()
+            syncs += 1
+            if live == 0 and taken == n_groups:
+                break
+            bursts = 1
+        # the one transfer of the results, after the loop
+        G = n_groups
+        words = torch.cat([
+            st.steps_run[None], st.verd[:G].reshape(-1), st.exst[:G],
+            st.marg[:G].view(torch.int32), st.admit[:G], st.done[:G],
+        ]).cpu().numpy()
+        steps_run = int(words[0])
+        verd = words[1 : 1 + G * k].reshape(G, k)
+        exst, marg, admit, done = np.split(words[1 + G * k :], 4)
+        admit, done = admit.astype(np.int64), done.astype(np.int64)
+        occ = stream_occupancy(admit, done, steps_run)
+        # group-quantized block billing per loop step: live group slots
+        # score their full B-lane rectangles, block-guarded
+        bn, W = self._bn_bill(), self.dplan.W
+        return GroupedStreamResult(
+            verdicts=verd.astype(np.int32),
+            exit_stage=exst.astype(np.int64),
+            margin=marg.view(np.float32),
+            admit_step=admit,
+            done_step=done,
+            steps_run=steps_run,
+            occupancy=occ,
+            capacity_groups=cap_g,
+            scores_computed=int(((-(-(occ * B) // bn)) * bn * W).sum()),
+            scores_possible=n_docs * T,
+            steps_enqueued=enqueued,
+            syncs=syncs + 1,
         )

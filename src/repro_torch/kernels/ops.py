@@ -3,7 +3,9 @@
 
 Each op takes tensors on one device: on a CPU tensor the kernel wrapper
 runs its plain PyTorch version, on a CUDA tensor it launches the
-hand-written kernel.
+hand-written kernel.  ``score_and_decide`` is the fused lazy path: the
+host stage loop with the chunk decide (B2), or the device stage loop
+built through the backend registry.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.executor import CascadePlan, ExecutorResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.cascade_kernel import (
@@ -18,6 +21,7 @@ from repro_torch.kernels.cascade_kernel import (
     cascade_group_kernel,
     cascade_kernel,
 )
+from repro_torch.kernels.device_executor import BoundScorer
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
 
@@ -26,6 +30,7 @@ __all__ = [
     "cascade_chunk",
     "cascade_group",
     "kernel_decide_fn",
+    "score_and_decide",
     "lattice_scores",
     "gbt_scores",
     "ref",
@@ -79,6 +84,92 @@ def kernel_decide_fn(block_n: int = 256, device="cuda"):
 
     decide.carry_dtype = np.float32
     return decide
+
+
+# device executors of score_and_decide, one per (backend, scorer, plan,
+# block_n, torch device, opts), the reference's key with the torch device
+# in place of its interpret flag.  Strong refs on purpose: repeat calls with
+# the same plan and scorer objects reuse one executor (its programs and
+# graphs).  Bounded (FIFO), so a process building fresh plans or scorers
+# per request cannot grow it without limit.
+_DEVICE_EXECUTORS: dict = {}
+_DEVICE_EXECUTORS_MAX = 32
+
+
+def score_and_decide(
+    producer,
+    plan: CascadePlan,
+    n: int,
+    block_n: int = 256,
+    row_order=None,
+    bill_block: int | None = None,
+    device=None,
+    x=None,
+    backend=None,
+    backend_opts: dict | None = None,
+    torch_device="cuda",
+) -> ExecutorResult:
+    """Fused lazy path: chunked scoring composed with the threshold kernel.
+
+    ``backend`` names an execution backend of the registry: ``"host"``
+    (the default), ``"device"`` or ``"auto"`` (the device backend, never
+    the host); a backend instance is accepted as it is, and executors are
+    only built through it.
+
+    Host mode: each stage scores only the surviving rows for only that
+    stage's models (``producer(rows, t0, t1)``) and runs the chunk-decide
+    kernel (B2, ``kernel_decide_fn``) on ``torch_device``; survivors are
+    compacted on the host.  ``bill_block`` defaults to ``block_n``.
+
+    Device mode: ``producer`` is a ``BoundScorer`` and ``x`` the batch
+    operand its ``prepare`` consumes; the whole stage loop runs on
+    ``torch_device`` (``DeviceExecutor``).  Pass the SAME plan, scorer and
+    ``backend_opts`` values across calls to reuse the executor (at most
+    ``_DEVICE_EXECUTORS_MAX`` are kept, first in first out).
+
+    ``torch_device`` is the port's (the default card raises without one;
+    ``"cpu"`` runs the plain versions).  ``device=`` is the reference's
+    retired boolean and raises ``TypeError``, as the reference's does.
+    """
+    from repro_torch.api.registry import resolve_backend
+
+    if device is not None:
+        raise TypeError(
+            "score_and_decide(device=...) was removed after its deprecation cycle; "
+            "pass backend='device' (or 'host'/'auto' — see repro_torch.api) instead"
+        )
+    dev = resolve_device(torch_device)
+    b = resolve_backend("host" if backend is None else backend, device=dev)
+    opts = dict(backend_opts or {})
+    if b.capabilities.on_device:
+        if not isinstance(producer, BoundScorer):
+            raise TypeError(f"backend {b.name!r} requires a device_executor.BoundScorer producer")
+        if x is None:
+            raise ValueError(f"backend {b.name!r} requires the batch operand x")
+        # opts values are keyed by identity, and the entry keeps strong refs
+        # to them (with the producer and the plan), so the ids stay valid
+        key = (
+            b.name, id(producer), id(plan), block_n, str(dev),
+            tuple(sorted((k, id(v)) for k, v in opts.items())),
+        )
+        entry = _DEVICE_EXECUTORS.get(key)
+        if entry is None:
+            while len(_DEVICE_EXECUTORS) >= _DEVICE_EXECUTORS_MAX:
+                _DEVICE_EXECUTORS.pop(next(iter(_DEVICE_EXECUTORS)))
+            entry = (
+                b.make_executor(plan, scorer=producer, block_n=block_n, device=dev, **opts),
+                producer, plan, tuple(opts.values()),
+            )
+            _DEVICE_EXECUTORS[key] = entry
+        return entry[0].run(x, n, row_order=row_order)
+    ex = b.make_executor(
+        plan,
+        producer=producer,
+        decide_fn=kernel_decide_fn(block_n=block_n, device=dev),
+        bill_block=block_n if bill_block is None else bill_block,
+        **opts,
+    )
+    return ex.run(n, row_order=row_order)
 
 
 def _bucket_rows(rows: torch.Tensor, block_n: int) -> tuple[torch.Tensor, int]:

@@ -28,10 +28,12 @@ query groups (Poisson sizes around N, seed 2031), group-level exit
 thresholds are fitted for top-``--topk`` stability (``api.fit(groups=)``),
 and the test queries are served by a ``GroupedRankServer`` (B3 scores,
 the group decide B8), reporting mean exit stage, scores computed and
-NDCG@k against the test labels:
+NDCG@k against the test labels.  With ``--streaming`` the test queries
+arrive on the seed-2028 Poisson trace at ``--arrival-rate`` queries per
+stage step and stream through the grouped admission ring:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --groups 16 --topk 10 \
-        --T 500 --scale 1.0 --alpha 0.05
+        --T 500 --scale 1.0 --alpha 0.05 [--streaming]
 """
 
 from __future__ import annotations
@@ -51,7 +53,6 @@ from repro_torch.ensembles.gbt import train_gbt
 from repro_torch.ensembles.lattice import init_lattice_ensemble, train_lattice_ensemble
 from repro_torch.kernels import ops
 from repro_torch.ranking import group_offsets, ndcg_at_k
-from repro_torch.ranking.serving import GROUPED_STREAMING_TODO
 from repro_torch.serving.engine import BACKENDS as POLICIES
 from repro_torch.serving.engine import QWYCServer, StreamingServer
 
@@ -157,11 +158,23 @@ def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device) -> None:
         f"train disagreement {gp.train_disagreement:.4f} (alpha={args.alpha})"
     )
     compiled = fitted.compile(backend, device=device)
-    server = compiled.serve(score_fn=score_fn, batch_size=args.batch_size)
+    server = compiled.serve(
+        score_fn=score_fn, streaming=args.streaming, batch_size=args.batch_size
+    )
     sizes_te = _ragged_sizes(len(ds.y_test), args.groups, rng)
     offsets = group_offsets(sizes_te)
+    # streaming: each query at its seeded Poisson arrival (stage steps)
+    arrivals = np.cumsum(
+        np.random.default_rng(ARRIVAL_SEED).exponential(
+            1.0 / args.arrival_rate, size=sizes_te.size
+        )
+    )
     for i in range(sizes_te.size):
-        server.submit(ds.x_test[offsets[i] : offsets[i + 1]])
+        docs = ds.x_test[offsets[i] : offsets[i + 1]]
+        if args.streaming:
+            server.submit(docs, arrival=float(arrivals[i]))
+        else:
+            server.submit(docs)
     results = server.drain()
     st = server.stats
     # NDCG against the binary test labels as graded relevance (the
@@ -173,7 +186,8 @@ def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device) -> None:
     ndcg = ndcg_at_k(ds.y_test, verd, sizes_te, gp.k)
     print(
         f"[serve] ranking: {st.n_queries} queries / {st.n_docs} docs in "
-        f"{st.n_waves} wave(s) ({compiled.backend_name} backend, batch)\n"
+        f"{st.n_waves} wave(s) ({compiled.backend_name} backend, "
+        f"{'streaming' if args.streaming else 'batch'})\n"
         f"        mean exit stage {st.mean_exit_stage:.2f}/{gp.S}  "
         f"scores computed {st.scores_computed}/{st.scores_possible} "
         f"({st.compute_fraction:.1%} of eager)\n"
@@ -187,8 +201,6 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     backend = resolve_backend(args.backend, device=device)
     on_device = backend.capabilities.on_device
-    if args.groups is not None and args.streaming:
-        raise NotImplementedError(GROUPED_STREAMING_TODO)
     if args.streaming and not backend.capabilities.streaming:
         ap.error(
             f"--streaming needs an on-device backend (resolved {backend.name!r}; "

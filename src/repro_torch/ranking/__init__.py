@@ -1,5 +1,5 @@
 """Ranking: query-level early exit over ragged document groups, the
-counterpart of ``repro.ranking`` (batch serving).
+counterpart of ``repro.ranking`` (batch and streaming serving).
 
 QWYC's decide step is per row, but learning-to-rank traffic exits per
 QUERY: a ragged group of candidate documents stops scoring when its top-k
@@ -14,17 +14,19 @@ Strategies for Additive Ranking Ensembles").
   device path is held against, plus the full-cascade top-k oracle (the
   margin-infinity reference).
 * ``bucketing`` — host-side length-bucketed admission for ragged group
-  sizes: the pad-to-bucket layout.
+  sizes: the pad-to-bucket layout and the streaming ring's
+  ``AdmissionQueue`` (skip-ahead / wait).
 * ``metrics``   — NDCG@k.
-* ``serving``   — the bucketed flush server.
+* ``serving``   — the bucketed flush server and its streaming mode.
 
 The group decide kernel (B8) lives in ``kernels/cascade_kernel.py`` and the
-grouped stage loop on ``DeviceExecutor.run_grouped``; this package stays a
-layer above the kernels.
+grouped loops on ``DeviceExecutor.run_grouped`` / ``run_stream_grouped``;
+this package stays a layer above the kernels.
 """
 
 from repro_torch.ranking.bucketing import (
     DEFAULT_BUCKETS,
+    AdmissionQueue,
     bucket_layout,
     bucket_widths_for,
     group_offsets,
@@ -45,6 +47,7 @@ from repro_torch.ranking.serving import GroupedRankServer
 
 __all__ = [
     "DEFAULT_BUCKETS",
+    "AdmissionQueue",
     "MARGIN_INF",
     "GroupedPlan",
     "GroupedRankServer",

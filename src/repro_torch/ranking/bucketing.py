@@ -4,9 +4,9 @@ counterpart of ``repro.ranking.bucketing``).
 Device programs want rectangles.  Ragged query groups are padded to the
 smallest covering **bucket width** (powers of two by default, the
 length-bucketed batching idea from tensor2tensor's data reader), so a
-batch flush becomes one grouped device run per bucket shape.  The
-reference's admission queue for a streaming ring of such slots is ported
-with grouped streaming (ROADMAP A12's open item).
+batch flush becomes one grouped device run per bucket shape, and a
+streaming ring becomes fixed-width slots a group either fits into or must
+skip (``AdmissionQueue``).
 
 Padding lanes point at row 0 (any in-bounds row: scorers must be able
 to gather them) and carry ``valid=False``; every downstream consumer —
@@ -16,10 +16,13 @@ validity before they can touch a margin or a verdict.
 
 from __future__ import annotations
 
+from collections import deque
+
 import numpy as np
 
 __all__ = [
     "DEFAULT_BUCKETS",
+    "AdmissionQueue",
     "bucket_layout",
     "bucket_widths_for",
     "group_offsets",
@@ -100,3 +103,49 @@ def bucket_layout(
     valid = lane < sizes[:, None]
     rows = np.where(valid, off[:G, None] + lane, 0).astype(np.int32)
     return rows, valid
+
+
+class AdmissionQueue:
+    """FIFO of pending groups feeding fixed-width ring slots.
+
+    When a slot of width ``B`` frees, the head group may not fit
+    (``size > B``).  Two policies: ``"skip-ahead"`` admits the FIRST
+    pending group that fits (occupancy over admission order); ``"wait"``
+    keeps strict arrival order and leaves the slot idle until the head
+    fits elsewhere.
+    """
+
+    def __init__(self, policy: str = "skip-ahead"):
+        if policy not in ("skip-ahead", "wait"):
+            raise ValueError(f"unknown admission policy {policy!r}")
+        self.policy = policy
+        self._pending: deque[tuple[int, int]] = deque()
+
+    def push(self, gid: int, size: int) -> None:
+        if size < 1:
+            raise ValueError("group size must be >= 1")
+        self._pending.append((int(gid), int(size)))
+
+    def __len__(self) -> int:
+        return len(self._pending)
+
+    @property
+    def pending(self) -> list[tuple[int, int]]:
+        return list(self._pending)
+
+    def pop_for(self, width: int) -> int | None:
+        """Admit one group into a freed slot of ``width`` lanes, or
+        ``None`` if the policy leaves the slot empty this round."""
+        if not self._pending:
+            return None
+        if self.policy == "wait":
+            gid, size = self._pending[0]
+            if size <= width:
+                self._pending.popleft()
+                return gid
+            return None
+        for i, (gid, size) in enumerate(self._pending):
+            if size <= width:
+                del self._pending[i]
+                return gid
+        return None

@@ -1,14 +1,17 @@
 """Bucketed ranking server: ragged query groups in, ranked verdicts out
-(the counterpart of ``repro.ranking.serving``, batch mode).
+(the counterpart of ``repro.ranking.serving``).
 
 Queries (one ragged document list each) queue up; ``flush`` scores the
 queued documents once, packs the groups into rectangular per-bucket
 layouts (``ranking.bucketing``) and runs ONE grouped device wave per
 bucket shape (``DeviceExecutor.run_grouped``), or the host oracle
 (``run_grouped_host``) when there is no executor.  An empty queue
-launches nothing.  The reference's streaming mode (a grouped admission
-ring fed by an admission queue with a skip-ahead or wait policy) is
-ROADMAP A12's open item and raises here.
+launches nothing.  In streaming mode freed group slots refill
+mid-cascade through the executor's grouped admission ring
+(``run_stream_grouped``), with the host-side ``AdmissionQueue`` deciding
+what enters a wave when the queue head does not fit the wave's bucket
+width: ``skip-ahead`` admits the first fitting group (occupancy over
+order), ``wait`` keeps strict arrival order (head-of-line blocking).
 
 Verdicts come back per query in submission order as LOCAL document
 positions (0-based within the submitted group), mapped from the flat row
@@ -23,25 +26,24 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.ranking.bucketing import bucket_layout, group_offsets, pack_by_bucket
+from repro_torch.ranking.bucketing import (
+    AdmissionQueue,
+    bucket_layout,
+    bucket_widths_for,
+    group_offsets,
+    pack_by_bucket,
+)
 from repro_torch.ranking.host import run_grouped_host
 from repro_torch.ranking.plan import GroupedPlan
 
-__all__ = ["GROUPED_STREAMING_TODO", "GroupedRankServer", "RankStats"]
-
-#: what a request for grouped streaming raises with
-GROUPED_STREAMING_TODO = (
-    "grouped streaming admission (run_stream_grouped, the grouped admission "
-    "ring and its skip-ahead/wait policies) is not ported yet: ROADMAP A12, "
-    "grouped streaming; serve ranking queries batch at a time"
-)
+__all__ = ["GroupedRankServer", "RankStats"]
 
 
 @dataclasses.dataclass
 class RankStats:
     n_queries: int = 0
     n_docs: int = 0
-    n_waves: int = 0  # grouped runs (one per bucket shape per flush)
+    n_waves: int = 0  # grouped runs (one per bucket shape per flush, or per wave)
     scores_computed: int = 0  # group-quantized serving bill
     scores_possible: int = 0  # real docs x T
     stages_run: int = 0  # sum of per-query exit stages
@@ -68,8 +70,13 @@ class GroupedRankServer:
     (``run_grouped``'s ``capacity_rows``; a flush with more docs pads
     further); ``batch_groups`` is the flush threshold.  ``device``
     defaults to the executor's device, else to the card (an error without
-    one); ``"cpu"`` is used only when named.  ``streaming=True`` raises:
-    the grouped admission ring is not ported (ROADMAP A12).
+    one); ``"cpu"`` is used only when named.  ``streaming=True`` drives
+    the grouped admission ring (``run_stream_grouped``) wave by wave
+    through an ``AdmissionQueue`` with ``policy`` instead of
+    batch-at-a-time flushes; each wave's ring is pinned to the slot
+    capacity, so waves of one bucket width share a program (the reference
+    keys its ring on each wave's group count).  Each wave's
+    ``GroupedStreamResult`` is kept in ``stream_results``.
     """
 
     def __init__(
@@ -83,11 +90,12 @@ class GroupedRankServer:
         capacity_docs: int | None = None,
         buckets=None,
         streaming: bool = False,
+        policy: str = "skip-ahead",
         margin_inf: bool = False,
         device=None,
     ):
-        if streaming:
-            raise NotImplementedError(GROUPED_STREAMING_TODO)
+        if policy not in ("skip-ahead", "wait"):
+            raise ValueError(f"unknown admission policy {policy!r}")
         if executor is not None:
             if device is not None and resolve_device(device) != executor.device:
                 raise ValueError(
@@ -103,24 +111,33 @@ class GroupedRankServer:
         self.capacity_groups = int(capacity_groups or batch_groups)
         self.capacity_docs = capacity_docs
         self.buckets = tuple(buckets) if buckets is not None else gplan.buckets
+        self.streaming = bool(streaming)
+        self.policy = policy
         self.stats = RankStats()
-        self._queue: list[tuple[int, np.ndarray]] = []  # (seq, docs)
+        self.stream_results: list = []
+        self._queue: list[tuple[int, object, float]] = []  # (seq, docs, arrival)
         self._results: list[tuple[int, dict]] = []
         self._seq = 0
+        self._clock = 0.0
         self._order = None
 
-    def submit(self, docs) -> None:
+    def submit(self, docs, arrival: float | None = None) -> None:
         """Enqueue one query's ragged document list (``(m, ...)`` features
-        for ``score_fn``, or an ``(m, T)`` score matrix without one).  A
-        tensor is kept as it is, so scores already on the device stay
-        there."""
+        for ``score_fn``, or an ``(m, T)`` score matrix without one) at
+        ``arrival`` (stage-step units, nondecreasing across submits;
+        default: the last stamp seen).  A tensor is kept as it is, so
+        scores already on the device stay there."""
         if not isinstance(docs, torch.Tensor):
             docs = np.asarray(docs)
         if docs.ndim < 2 or docs.shape[0] < 1:
             raise ValueError(
                 f"a query needs a (m >= 1, ...) document array, got {docs.shape}"
             )
-        self._queue.append((self._seq, docs))
+        a = self._clock if arrival is None else float(arrival)
+        if a < self._clock:
+            raise ValueError(f"arrivals must be nondecreasing (got {a} after {self._clock})")
+        self._clock = a
+        self._queue.append((self._seq, docs, a))
         self._seq += 1
         if len(self._queue) >= self.batch_groups:
             self.flush()
@@ -128,8 +145,8 @@ class GroupedRankServer:
     def _scores(self, pending):
         """The flush's (n_docs, T) original-order scores, in one call of
         ``score_fn`` (a tensor on the device stays there), and sizes."""
-        sizes = np.array([d.shape[0] for _, d in pending], dtype=np.int64)
-        docs = [d for _, d in pending]
+        sizes = np.array([d.shape[0] for _, d, _ in pending], dtype=np.int64)
+        docs = [d for _, d, _ in pending]
         if any(isinstance(d, torch.Tensor) for d in docs):
             X = torch.cat([torch.as_tensor(d, device=self.device) for d in docs])
         else:
@@ -174,9 +191,30 @@ class GroupedRankServer:
         self.stats.scores_computed += res.scores_computed
         self._record(pending, gidx, verd, res.exit_stage, res.margin, offsets)
 
+    def _waves(self, sizes) -> list[tuple[int, np.ndarray]]:
+        """Streaming admission: (bucket, group indices) per wave.  Each
+        wave serves ONE bucket width, the covering bucket of the current
+        queue head, and draws groups through the ``AdmissionQueue`` until
+        none fit: ``skip-ahead`` scans past misfits (later small groups
+        ride along), ``wait`` stops at the first misfit."""
+        widths = bucket_widths_for(sizes, self.buckets)
+        q = AdmissionQueue(self.policy)
+        for gi, sz in enumerate(sizes):
+            q.push(gi, int(sz))
+        waves = []
+        while len(q):
+            head_size = q.pending[0][1]
+            b = next(w for w in widths if head_size <= w)
+            gids = []
+            while (g := q.pop_for(b)) is not None:
+                gids.append(g)
+            waves.append((b, np.asarray(gids, dtype=np.int64)))
+        return waves
+
     def flush(self) -> None:
-        """Serve everything queued, one grouped run per bucket shape.  An
-        empty queue launches nothing."""
+        """Serve everything queued: one grouped run per bucket shape, or in
+        streaming mode one admission-ring run per wave.  An empty queue
+        launches nothing."""
         if not self._queue:
             return
         pending, self._queue = self._queue, []
@@ -202,13 +240,31 @@ class GroupedRankServer:
         else:
             ordered = np.asarray(F, dtype=np.float32)[:, gp.plan.order]
         x = self.executor.scorer.prepare(ordered)
-        for b, gidx in packs:
+        if self.streaming:
+            # arrival steps from the flush's first stamp; admission may
+            # reorder (skip-ahead) and the ring wants a nondecreasing clock,
+            # so a wave's later-arrived picks keep their stamp and earlier
+            # ones saturate up to it
+            steps = np.floor(np.array([a for _, _, a in pending]) - pending[0][2])
+            runs = [(b, gidx, np.maximum.accumulate(steps[gidx]).astype(np.int32))
+                    for b, gidx in self._waves(sizes)]
+        else:
+            runs = [(b, gidx, None) for b, gidx in packs]
+        for b, gidx, arr in runs:
             rows, valid = bucket_layout(sizes[gidx], b, offsets=offsets[gidx])
-            res = self.executor.run_grouped(
-                x, rows, valid, len(gidx), gp.eps_g, gp.k,
-                capacity_groups=max(self.capacity_groups, len(gidx)), prepared=True,
-                capacity_rows=self.capacity_docs,
-            )
+            cap = max(self.capacity_groups, len(gidx))
+            if self.streaming:
+                res = self.executor.run_stream_grouped(
+                    x, rows, valid, len(gidx), gp.eps_g, gp.k, arrivals=arr,
+                    capacity_groups=cap, ring_capacity=cap, prepared=True,
+                    capacity_rows=self.capacity_docs,
+                )
+                self.stream_results.append(res)
+            else:
+                res = self.executor.run_grouped(
+                    x, rows, valid, len(gidx), gp.eps_g, gp.k, capacity_groups=cap,
+                    prepared=True, capacity_rows=self.capacity_docs,
+                )
             self.stats.scores_computed += res.scores_computed
             self._record(pending, gidx, res.verdicts, res.exit_stage, res.margin, offsets)
             self.stats.n_waves += 1

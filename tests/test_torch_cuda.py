@@ -1368,3 +1368,136 @@ def test_captured_server_equals_eager(dev, small_gbt, megakernel):
     assert len(sa.flush_results) == len(sb.flush_results) > 2
     for ra, rb in zip(sa.flush_results, sb.flush_results):
         np.testing.assert_array_equal(ra.g_final.view(np.int32), rb.g_final.view(np.int32))
+
+
+# -- grouped streaming: the admission ring captured, B8 at per-slot thresholds
+
+
+def _stream_fixture():
+    from repro_torch.ranking import bucketing, fit_grouped
+
+    rng = np.random.default_rng(8)
+    sizes = rng.integers(1, 40, size=70).astype(np.int64)
+    quality = rng.exponential(1.0, size=int(sizes.sum()))
+    F = rng.normal(size=(int(sizes.sum()), 48)) * 0.15 + quality[:, None]
+    gp = fit_grouped(F, sizes, 5, alpha=0.05, chunk_t=8)
+    ordered = F.astype(np.float32)[:, gp.plan.order]
+    off = bucketing.group_offsets(sizes)
+    packs = sorted(bucketing.pack_by_bucket(sizes, gp.buckets).items())
+    layouts = [(b, len(gidx), *bucketing.bucket_layout(sizes[gidx], b, offsets=off[gidx]))
+               for b, gidx in packs]
+    return gp, ordered, layouts
+
+
+@pytest.mark.parametrize("cap", [8, None], ids=["refill", "all"])
+@pytest.mark.parametrize("arrivals", ["none", "staggered"])
+def test_captured_grouped_stream_equals_eager(dev, arrivals, cap):
+    """The grouped admission ring replayed as CUDA graphs (one per bucket
+    shape: a run eager, a run captured, a run replayed) equals the eager
+    loop on the card and the loop on the CPU bit for bit: verdicts, exit
+    stages, margins' bits, the admit / done timeline, steps, the bill and
+    each run's launches (B8 once a step enqueued)."""
+    gp, ordered, layouts = _stream_fixture()
+    dplan = DevicePlan.from_plan(gp.plan)
+    out = {}
+    for name, d, capture in (("captured", dev, True), ("eager", dev, False),
+                             ("cpu", "cpu", True)):
+        ex = DeviceExecutor(dplan, matrix_stage_scorer(dplan, device=d), device=d,
+                            capture=capture)
+        runs = []
+        for _ in range(3):
+            for b, n, rows, valid in layouts:
+                arr = None if arrivals == "none" else (np.arange(n) // 3).astype(np.int32)
+                runs.append(_counted(lambda: ex.run_stream_grouped(
+                    ordered, rows, valid, n, gp.eps_g, gp.k, arrivals=arr,
+                    capacity_groups=cap)))
+        if d != "cpu":
+            _assert_graphs(ex, len(layouts))
+        out[name] = runs
+    refilled = more = 0
+    for (a, la), (b, lb), (c, _) in zip(out["captured"], out["eager"], out["cpu"]):
+        for other in (b, c):
+            for k in ("verdicts", "exit_stage", "admit_step", "done_step", "occupancy"):
+                np.testing.assert_array_equal(getattr(a, k), getattr(other, k))
+            np.testing.assert_array_equal(a.margin.view(np.int32), other.margin.view(np.int32))
+            for k in ("steps_run", "scores_computed", "steps_enqueued", "syncs"):
+                assert getattr(a, k) == getattr(other, k)
+        assert la == lb == {"cascade_group": a.steps_enqueued}
+        waited = a.capacity_groups < a.verdicts.shape[0]
+        refilled += int(waited and a.occupancy.max() == a.capacity_groups)
+        more += int(waited)
+    if cap is not None and arrivals == "none":
+        # every bucket of more groups than slots fills them at step 0
+        assert refilled == more > 0
+
+
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("B", [4, 32, 64])
+def test_group_kernel_per_slot_thresholds_equal_plain(dev, B, k):
+    """B8 as the grouped streaming step launches it: each slot's threshold
+    is its own stage's (``eps_g[stage]``, gathered on the card, +inf among
+    the stage values), ``n_live`` a device scalar, with ``rows``: picks,
+    exits and margins' bits equal the plain version."""
+    from repro_torch.kernels.cascade_kernel import cascade_group_kernel, group_topk_rows
+
+    rng = np.random.default_rng(B * 10 + k)
+    G, S = 256, 8
+    g = rng.integers(-3, 4, size=(G, B)).astype(np.float32)
+    g[1::2] += rng.normal(scale=0.3, size=(G, B))[1::2].astype(np.float32)
+    sizes = rng.integers(1, B + 1, size=G)
+    valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+    rows = _t(rng.integers(0, 1 << 30, size=(G, B)).astype(np.int64), dev)
+    eps_g = np.sort(rng.uniform(0.0, 2.0, size=S)).astype(np.float32)
+    eps_g[0], eps_g[-1] = 0.0, np.inf
+    stage = _t(rng.integers(0, S, size=G).astype(np.int32), dev)
+    eps = _t(eps_g, dev)[stage]
+    gt, vt = _t(g, dev), _t(valid, dev)
+    exits = 0
+    for nl in (0, 100, G):
+        n_live = torch.tensor(nl, dtype=torch.int32, device=dev)
+        m, e, p = cascade_group_kernel(gt, vt, eps, k, n_live=n_live, rows=rows)
+        torch.cuda.synchronize()
+        wm, we = cascade_group_plain(gt, vt, eps, k, n_live=n_live)
+        assert torch.equal(p, group_topk_rows(gt, vt, rows, k))
+        assert torch.equal(e, we) and torch.equal(m.view(torch.int32), wm.view(torch.int32))
+        exits += int(e.sum())
+    assert exits > 0
+
+
+@pytest.mark.parametrize("policy", ["skip-ahead", "wait"])
+def test_grouped_streaming_server_on_card_equals_cpu(dev, small_gbt, policy):
+    """``serve(streaming=True, policy=)`` with B3 as score_fn on the card
+    against the same on the CPU (every wave's timeline and the results)
+    and the host rung's batch results."""
+    from repro_torch import api
+    from repro_torch.launch.serve import _ragged_sizes
+    from repro_torch.ranking import group_offsets
+
+    ds, g, _ = small_gbt
+    F = apply_gbt_scores(g.stacked(), torch.from_numpy(ds.x_train)).numpy()
+    rng = np.random.default_rng(2031)
+    sizes_tr = _ragged_sizes(len(ds.y_train), 8, rng)
+    sizes_te = _ragged_sizes(len(ds.y_test), 8, rng)
+    fitted = api.fit(F, groups=sizes_tr, topk=5, alpha=0.05, beta=-g.base_score)
+    off = group_offsets(sizes_te)
+    arr = np.cumsum(np.random.default_rng(2028).exponential(0.25, size=sizes_te.size))
+    out, srvs = [], []
+    for backend, d, streaming in (("device", dev, True), ("device", "cpu", True),
+                                  ("host", "cpu", False)):
+        params = {k: v.to(d) for k, v in g.stacked().items()}
+        srv = fitted.compile(backend, device=d).serve(
+            score_fn=lambda x, p=params: apply_gbt_scores(p, x), batch_size=16,
+            streaming=streaming, policy=policy if streaming else "sorted-kernel",
+        )
+        for i in range(sizes_te.size):
+            srv.submit(ds.x_test[off[i] : off[i + 1]], arrival=float(arr[i]))
+        out.append(srv.drain())
+        srvs.append(srv)
+    assert out[0] == out[1]
+    assert [r["ranking"] for r in out[0]] == [r["ranking"] for r in out[2]]
+    assert [r["exit_stage"] for r in out[0]] == [r["exit_stage"] for r in out[2]]
+    assert vars(srvs[0].stats) == vars(srvs[1].stats)
+    for a, b in zip(srvs[0].stream_results, srvs[1].stream_results):
+        np.testing.assert_array_equal(a.admit_step, b.admit_step)
+        np.testing.assert_array_equal(a.done_step, b.done_step)
+        assert a.steps_enqueued == b.steps_enqueued and a.syncs == b.syncs

@@ -449,16 +449,6 @@ def test_grouped_rank_server_scores_with_score_fn(bench):
     assert [r["ranking"] for r in host] == [r["ranking"] for r in a]
 
 
-def test_grouped_streaming_raises_naming_roadmap(bench):
-    *_, gp = bench
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        GroupedRankServer(gp, streaming=True, device="cpu")
-    # admission policies belong to the grouped streaming ring: the batch
-    # server takes none, so a caller's policy is an error, not a no-op
-    with pytest.raises(TypeError, match="policy"):
-        GroupedRankServer(gp, policy="wait", device="cpu")
-
-
 @pytest.mark.parametrize("backend", ["host", "device"])
 def test_api_rank_matches_jax(bench, backend):
     F, sizes, rel, _, _ = bench
@@ -584,8 +574,11 @@ def test_api_unported_and_invalid_options_raise(bench):
         api.fit(F, alpha=0.05).compile("host", device="cpu").rank(scores=F, groups=sizes)
     with pytest.raises(ValueError, match="group sizes sum"):
         fitted.compile("host", device="cpu").rank(scores=F, groups=sizes[:-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        fitted.compile("device", device="cpu").serve(streaming=True)
+    # grouped streaming needs the device backend's admission ring
+    with pytest.raises(ValueError, match="on-device backend"):
+        fitted.compile("host", device="cpu").serve(streaming=True)
+    with pytest.raises(ValueError, match="unknown admission policy"):
+        fitted.compile("device", device="cpu").serve(streaming=True, policy="kernel")
 
 
 @pytest.mark.parametrize("backend", ["auto", "host"])

@@ -281,17 +281,22 @@ def test_auto_compile_never_lands_on_host(no_cuda):
     assert backends.HostBackend.capabilities.grouped
 
 
-def test_grouped_streaming_raises_naming_its_roadmap_item():
+def test_grouped_streaming_raises_without_cuda(no_cuda):
+    """Grouped streaming defaults to the card like every entry point:
+    the server, ``compile().serve(streaming=True)`` and ``serve --groups
+    --streaming`` raise without one; naming the CPU runs them."""
     from repro_torch.ranking import GroupedRankServer
 
-    fitted, _, _ = _grouped_fit()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
-        GroupedRankServer(fitted.grouped, streaming=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
-        fitted.compile("device", device="cpu").serve(streaming=True)
-    # an admission policy is the grouped streaming ring's: no batch no-op
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
-        fitted.compile("device", device="cpu").serve(policy="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12, grouped streaming"):
-        serve.main(["--device", "cpu", "--T", "4", "--scale", "0.01", "--groups", "4",
-                    "--streaming"])
+    fitted, F, sizes = _grouped_fit()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GroupedRankServer(fitted.grouped, streaming=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fitted.compile("device").serve(streaming=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--T", "4", "--scale", "0.01", "--groups", "4", "--streaming"])
+    srv = fitted.compile("device", device="cpu").serve(streaming=True, policy="wait")
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    for i in range(sizes.size):
+        srv.submit(F[off[i] : off[i + 1]], arrival=float(i))
+    assert [len(r["ranking"]) for r in srv.drain()] == [2, 2, 1, 2]
+    assert srv.streaming and srv.policy == "wait" and srv.stats.n_waves >= 1
