@@ -102,7 +102,7 @@ Phases, each of which stops the run on failure:
    weights rounded onto the grid quantised serving == f32 serving exactly;
    on the raw weights g within ``tolerance_bound`` of f32 serving wherever
    the exit did not move (moved verdicts and exits are reported).
-   In phases 4-4e the launch counts are set to 0 just before each path and
+   In phases 4-4e, 4h and 4i the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
@@ -131,6 +131,28 @@ Phases, each of which stops the run on failure:
    ``run_stream_grouped`` alone on the largest bucket at 8 slots (groups
    refill freed slots mid-cascade), eager, captured and replayed, equal
    to its CPU run and to the batch ``run_grouped``.
+4h. The paper's baselines and variants on exp1 (phase 4's trees, matrices
+   and QWYC fit): ``gbt_order``, ``random_order``, ``individual_mse_order``,
+   ``greedy_mse_order`` and the QWYC order, each with
+   ``fit_thresholds_for_order`` (the QWYC fit's own thresholds for its
+   order), the test matrix decided by B1 (equal to ``evaluate_cascade``)
+   and by the masked walk ``cascade_from_scores`` on the card (equal to
+   B1, its ``g_final`` equal to the CPU walk's bit for bit); Fan et al. on
+   the individual-MSE order; ``fit_qwyc_sharded`` on the card equal to its
+   CPU run on the first ``SWEEP_ROWS`` rows and ``SWEEP_T`` trees; and
+   ``expert_contributions`` at Qwen3-30B-A3B's MoE widths (``MOE_WIDTHS``,
+   2.4 GB of seeded f32 weights) on the card against the CPU: the same
+   experts routed, within ``1e-5 * max|c| + 1e-6``.  Mean models per
+   ordering and for Fan are printed.
+4i. Guarded serving on exp1: rows poisoned with NaN, +inf and -inf through
+   B1, B2 (both forms), B6, B4 and B7 (tree, matrix, lattice) at the main
+   paths' shapes equal the plain version on the card, their clean lanes
+   the clean call bit for bit; the captured batch-256 server over the test
+   rows with 5 % poisoned (``FaultPlan``) quarantines exactly those rows
+   and keeps phase 4's other verdicts; one injected wave fault recovers on
+   the device rung; with every device wave failing, the eager server falls
+   to the host (B3 + B2's reference form), verdicts unchanged.  Every
+   other phase fails if the ladder records any event (``LadderWatch``).
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
@@ -171,6 +193,7 @@ import collections
 import dataclasses
 import itertools
 import json
+import logging
 import math
 import re
 import statistics
@@ -210,6 +233,14 @@ RANK_DOCS, RANK_FRESH = 4096, 126
 # slot count of the executor-level run (below the largest bucket's group
 # count, so slots refill mid-cascade)
 RANK_STREAM_RATE, RANK_POLICIES, RANK_STREAM_CAP = 4.0, ("skip-ahead", "wait"), 8
+# phase 4h: the device candidate sweep's cut of exp1's calibration matrix
+# (its first rows and trees), and the MoE layer of Qwen3-30B-A3B
+# (src/repro/configs/qwen3_moe_30b_a3b.py: d_model, experts, top-k, expert
+# d_ff) over a few hundred tokens, its weights drawn from MOE_SEED
+SWEEP_ROWS, SWEEP_T = 2000, 64
+MOE_WIDTHS, MOE_SEED = (2048, 128, 8, 768, 320), 2048
+# phase 4i: the buffer rows poisoned with NaN, +inf, -inf, NaN
+GUARD_POISON_ROWS = (3, 77, 150, 201)
 # exp1's cascade modes: Filter-and-Score (neg_only) is served by the lattice
 # phase, and exp1's own neg_only fit (a host fit_qwyc of about 25 s) is left
 # out to keep the run near 300 s
@@ -308,12 +339,34 @@ PATH_KERNELS = {
     # phase 4e, quantised slabs: each path its own kernel at its own storage
     # (grid: the same servers on weights rounded onto the grid, f32 and quantised)
     "q_cpu": set(),
+    # phase 4h: B1 over each ordering's test matrix; the masked walk and the
+    # MoE contributions are PyTorch ops (no kernel of the port)
+    "orderings": {"cascade"},
+    "walk": set(),
+    "moe": set(),
+    # phase 4i: the fused server (sort key B3 + B4 tree) poisoned and with a
+    # recovered wave; the eager server fallen to the host (score_fn's B3 +
+    # B2's reference form)
+    "guard_quarantine": {"gbt_scores", "mega_stage_tree"},
+    "guard_recover": {"gbt_scores", "mega_stage_tree"},
+    "guard_fall": {"gbt_scores", "cascade_chunk"},
 }
 for _v, _q in QUANT_VARIANTS:
     PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
     PATH_KERNELS[f"q_stream_{_v}_{_q}"] = {f"mega_lane_{_v}_{_q}"}
     PATH_KERNELS[f"q_grid_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
     PATH_KERNELS[f"q_grid_f32_{_v}"] = {f"mega_stage_{_v}"}
+
+
+class LadderWatch(logging.Handler):
+    """Collects the degradation ladder's warnings (one a recorded event)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.events: list[str] = []
+
+    def emit(self, record) -> None:
+        self.events.append(record.getMessage())
 
 
 def log(msg: str) -> None:
@@ -1399,7 +1452,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             chunk_t=8, **kw,
         )
 
-    out, per_flush, batch_g = {}, {}, {}
+    out, per_flush, batch_g, results = {}, {}, {}, {}
 
     def served(path, srv, twin):
         """``srv`` over the test rows, counted as ``path``, then held
@@ -1426,6 +1479,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
         res_cpu = served(f"cpu/{mode}", cpu, None)
         if res_card != res_cpu:  # verdicts, models evaluated, full scores
             raise AssertionError(f"{mode}: card results != CPU (plain) results")
+        results[mode] = res_card
         off = server(mode, "cuda", backend_opts={"megakernel": False})
         res_off = served(f"unfused/{mode}", off, server(
             mode, "cuda", backend_opts=eager_opts({"megakernel": False})))
@@ -1497,7 +1551,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     report["launches"] = launches
     report["launches_per_flush"] = per_flush
     return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server,
-                F_train=F_train, F_test=F_test, batch_g=batch_g, beta=beta)
+                F_train=F_train, F_test=F_test, batch_g=batch_g, beta=beta, results=results)
 
 
 def phase_lattice_path(report: dict, launches: dict) -> dict:
@@ -2170,6 +2224,353 @@ def phase_rank_stream(report: dict, launches: dict, rmain: dict) -> dict:
         f"(scores {got.scores_computed} vs {batch.scores_computed})")
     report["rank_stream"] = out
     return dict(server=server, x=x, offsets=off, arrivals=arr, S=gp.S)
+
+
+def phase_baselines(report: dict, launches: dict, main: dict) -> dict:
+    """Phase 4h: the paper's baselines and variants on exp1_adult (phase 4's
+    trees, calibration and test matrices and QWYC fit; no new greedy QWYC
+    search): the fixed orderings with their Algorithm-2 thresholds decided
+    by B1, the masked walk ``cascade_from_scores`` on the card, Fan et al.,
+    the device candidate sweep on a cut matrix, and the MoE expert
+    contributions at Qwen3-MoE's layer widths."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import moe_params_from_numpy
+    from repro_torch.core import (
+        cascade_from_scores,
+        evaluate_cascade,
+        evaluate_fan,
+        expert_contributions,
+        fit_fan,
+        fit_moe_qwyc,
+        fit_thresholds_for_order,
+        gbt_order,
+        greedy_mse_order,
+        individual_mse_order,
+        random_order,
+        report_moe_qwyc,
+    )
+    from repro_torch.core.moe_qwyc import _gate
+    from repro_torch.core.qwyc_distributed import fit_qwyc_sharded
+    from repro_torch.kernels import ops
+
+    ds, F_train, F_test, beta = main["ds"], main["F_train"], main["F_test"], main["beta"]
+    qwyc = main["fits"]["both"]
+    T = F_train.shape[1]
+    t = time.perf_counter()
+    orders = {
+        "gbt": gbt_order(T), "random": random_order(T, seed=0),
+        "individual_mse": individual_mse_order(F_train, ds.y_train),
+        "greedy_mse": greedy_mse_order(F_train, ds.y_train), "qwyc": qwyc.order,
+    }
+    log(f"[phase 4h] orderings of {T} trees on {F_train.shape[0]} labelled calibration rows in "
+        f"{time.perf_counter() - t:.1f}s")
+    out: dict = {"orderings": {}}
+    walk_ms = b1_ms = None
+    for name, order in orders.items():
+        m = qwyc if name == "qwyc" else fit_thresholds_for_order(
+            F_train, order, beta=beta, alpha=0.005, mode="both")
+        ev = evaluate_cascade(m, F_test)
+        S = torch.from_numpy(np.ascontiguousarray(F_test[:, m.order], dtype=np.float32)).cuda()
+        eps = [torch.as_tensor(e, device="cuda") for e in (m.eps_pos, m.eps_neg)]
+        dec, ex = counted(launches, f"orderings/{name}",
+                          lambda: ops.cascade_decide(S, *eps, m.beta))
+        dec, ex = dec.cpu().numpy().astype(bool), ex.cpu().numpy()
+        if not (np.array_equal(dec, ev["decisions"]) and np.array_equal(ex, ev["exit_step"])):
+            raise AssertionError(f"{name}: B1 verdicts != evaluate_cascade")
+        walk = counted(launches, f"walk/{name}",
+                       lambda: cascade_from_scores(S, m.eps_pos, m.eps_neg, m.beta))
+        walk_cpu = cascade_from_scores(S.cpu(), m.eps_pos, m.eps_neg, m.beta, device="cpu")
+        if not (np.array_equal(walk.decisions.cpu().numpy(), dec)
+                and np.array_equal(walk.exit_step.cpu().numpy(), ex)):
+            raise AssertionError(f"{name}: cascade_from_scores on the card != B1")
+        if not torch.equal(walk.g_final.cpu().view(torch.int32), walk_cpu.g_final.view(torch.int32)):
+            raise AssertionError(f"{name}: cascade_from_scores g_final bits: card != CPU")
+        if name == "qwyc":
+            b1_ms = (device_time_ms(lambda: ops.cascade_decide(S, *eps, m.beta), reps=20),
+                     wall_ms(lambda: ops.cascade_decide(S, *eps, m.beta), reps=20))
+            walk_ms = wall_ms(lambda: cascade_from_scores(S, m.eps_pos, m.eps_neg, m.beta),
+                              reps=5)
+        out["orderings"][name] = dict(mean_models=float(ex.mean()), diff_rate=ev["diff_rate"],
+                                      train_mean_models=m.train_mean_models)
+        log(f"[phase 4h] order {name}: mean models {ex.mean():.3f}/{T}, diff vs full "
+            f"{ev['diff_rate']:.4f}; B1 == evaluate_cascade, walk == B1, walk g_final card == CPU")
+    fan = fit_fan(F_train, orders["individual_mse"], lam=0.01, gamma=3.0, beta=beta)
+    fe = evaluate_fan(fan, F_test)
+    out["fan"] = dict(mean_models=fe["mean_models"], diff_rate=fe["diff_rate"])
+    log(f"[phase 4h] Fan et al. (individual_mse order, lambda 0.01, gamma 3): mean models "
+        f"{fe['mean_models']:.3f}/{T}, diff vs full {fe['diff_rate']:.4f}")
+    log(f"[phase 4h] on (2000, {T}) in QWYC order: the masked walk (cascade_from_scores, "
+        f"{T} steps of PyTorch ops) {walk_ms:.3f} ms wall; B1 {b1_ms[0]:.4f} ms device, "
+        f"{b1_ms[1]:.4f} ms wall")
+    out.update(walk_ms=walk_ms, b1_ms=b1_ms)
+
+    # the device candidate sweep on a cut matrix: the first SWEEP_ROWS
+    # calibration rows and SWEEP_T trees
+    cut = F_train[:SWEEP_ROWS, :SWEEP_T]
+    t = time.perf_counter()
+    card = fit_qwyc_sharded(cut, beta=beta, alpha=0.005)
+    card_s = time.perf_counter() - t
+    cpu = fit_qwyc_sharded(cut, beta=beta, alpha=0.005, device="cpu")
+    for f in ("order", "eps_pos", "eps_neg"):
+        if not np.array_equal(getattr(card, f), getattr(cpu, f)):
+            raise AssertionError(f"fit_qwyc_sharded {f}: card != CPU")
+    if (card.train_mean_models, card.train_diff_rate) != (cpu.train_mean_models,
+                                                          cpu.train_diff_rate):
+        raise AssertionError("fit_qwyc_sharded train stats: card != CPU")
+    out["sweep"] = dict(rows=SWEEP_ROWS, T=SWEEP_T, card_s=card_s,
+                        train_mean_models=card.train_mean_models)
+    log(f"[phase 4h] fit_qwyc_sharded on {cut.shape} in {card_s:.2f}s: == CPU (order, "
+        f"thresholds, train mean models {card.train_mean_models:.3f})")
+
+    # MoE expert contributions at Qwen3-30B-A3B's layer widths, seeded weights
+    d, E, k, f, N = MOE_WIDTHS
+    t = time.perf_counter()
+    rng = np.random.default_rng(MOE_SEED)
+
+    def draw(shape, fan_in):
+        a = rng.random(shape, dtype=np.float32)
+        a *= np.float32(2.0 * np.sqrt(3.0 / fan_in))
+        a -= np.float32(np.sqrt(3.0 / fan_in))
+        return a
+
+    w = dict(router=draw((d, E), d), wi=draw((E, d, f), d), wg=draw((E, d, f), d),
+             wo=draw((E, f, d), f))
+    x = rng.standard_normal((N, d), dtype=np.float32)
+    readout = rng.standard_normal(d, dtype=np.float32)
+    draw_s = time.perf_counter() - t
+    cfg = types.SimpleNamespace(n_experts=E, top_k=k)
+    p_card = moe_params_from_numpy(**w, device="cuda")
+    c_card = counted(launches, "moe", lambda: expert_contributions(p_card, x, readout, cfg))
+    moe_ms = device_time_ms(lambda: expert_contributions(p_card, x, readout, cfg), reps=5)
+    t = time.perf_counter()
+    p_cpu = moe_params_from_numpy(**w, device="cpu")
+    c_cpu = expert_contributions(p_cpu, x, readout, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t
+    gate_card = _gate(torch.from_numpy(x).cuda(), p_card["router"], k).cpu() > 0
+    gate_cpu = _gate(torch.from_numpy(x), p_cpu["router"], k) > 0
+    if not torch.equal(gate_card, gate_cpu):
+        raise AssertionError("expert_contributions: the card routes other experts than the CPU")
+    c_card = c_card.cpu()
+    err = float((c_card - c_cpu).abs().max())
+    tol = 1e-5 * float(c_cpu.abs().max()) + 1e-6
+    if not (err <= tol and torch.isfinite(c_card).all()):
+        raise AssertionError(f"expert_contributions: card vs CPU max abs err {err} > {tol}")
+    half = N // 2
+    mq = fit_moe_qwyc(c_card[:half].double(), alpha=0.01)
+    rep = report_moe_qwyc(mq, c_card[half:].double())
+    out["moe"] = dict(widths=MOE_WIDTHS, draw_s=draw_s, card_ms=moe_ms, cpu_s=cpu_s,
+                      max_abs_err=err, tol=tol, mean_experts=rep["mean_experts"],
+                      routed=k, diff_rate=rep["diff_rate"])
+    log(f"[phase 4h] expert_contributions (d {d}, {E} experts, top {k}, d_ff {f}, {N} tokens; "
+        f"weights drawn in {draw_s:.1f}s): card {moe_ms:.2f} ms == CPU routing, max abs err "
+        f"{err:.3g} <= {tol:.3g}; QWYC over experts on {N - half} tokens: mean experts "
+        f"{rep['mean_experts']:.2f}/{E} (top {k} routed), diff {rep['diff_rate']:.4f}")
+    report["baselines"] = out
+    return out
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Host-clock time of one call of ``fn`` with the card synced around
+    ``reps`` calls, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
+def _same_or_nan(kernel: str, what: str, a, b) -> None:
+    """Kernel output ``a`` against ``b``: equal, floats by their bits, with
+    NaN where ``b`` has NaN (a NaN's payload is left open)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{kernel} {what}: {tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    if a.is_floating_point():
+        nan = torch.isnan(b)
+        if not torch.equal(torch.isnan(a), nan):
+            raise AssertionError(f"{kernel} {what}: NaN lanes differ")
+        a, b = a[~nan].view(torch.int32), b[~nan].view(torch.int32)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{kernel} {what}: outputs differ")
+
+
+def phase_guarded(report: dict, launches: dict, main: dict, ctx: dict) -> dict:
+    """Phase 4i: guarded serving on exp1_adult.  Poisoned rows (NaN, +inf,
+    -inf) through B1, B2 (both forms), B4 and B7 (tree, matrix, lattice)
+    and B6 at the main paths' shapes: each poisoned call equals the plain
+    version on the card, and its clean lanes equal the clean call bit for
+    bit.  Then exp1's batch-256 server (captured): 5 % poisoned rows are
+    exactly the quarantined ones, one injected wave fault recovers on the
+    device rung, and a lost rung falls to the host, each with phase 4's
+    verdicts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import (
+        cascade_chunk_kernel,
+        cascade_chunk_plain,
+        cascade_chunk_step,
+        cascade_chunk_step_plain,
+        cascade_kernel,
+        cascade_lane_step,
+        cascade_lane_step_plain,
+        cascade_plain,
+    )
+    from repro_torch.kernels.megakernel import (
+        mega_lane_kernel,
+        mega_lane_plain,
+        mega_stage_kernel,
+        mega_stage_plain,
+    )
+    from repro_torch.testing import FaultPlan
+
+    dev = torch.device("cuda")
+    poison_rows = torch.tensor(GUARD_POISON_ROWS, device=dev)
+    values = (float("nan"), float("inf"), float("-inf"), float("nan"))
+
+    def poisoned(x):
+        """A copy of ``x`` with each poisoned row filled with its value."""
+        x = x.clone()
+        for r, v in zip(GUARD_POISON_ROWS, values):
+            x[r] = v
+        return x
+
+    n_cases = 0
+
+    def hold(name, run, plain, clean_args, bad_args, bad_lanes):
+        """The kernel on poisoned inputs == its plain version there; its
+        per-lane outputs (g, active, decided, exit) on the clean lanes ==
+        the clean call's."""
+        nonlocal n_cases
+        clean, bad, want = run(*clean_args), run(*bad_args), plain(*bad_args)
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(bad, want)):
+            _same_or_nan(name, f"poisoned output {k}", a, b)
+        keep = ~bad_lanes
+        for k in range(4):
+            _same_or_nan(name, f"clean lanes output {k}", bad[k][keep], clean[k][keep])
+        n_cases += 1
+        return bad
+
+    rows, g_buf = ctx["rows"], ctx["g_buf"]
+    eps_pos, eps_neg = ctx["eps"]
+    lanes = ctx["lanes"]
+    nv = torch.tensor(256, dtype=torch.int32, device=dev)
+    by_row = torch.isin(rows, poison_rows)  # lanes reading a poisoned buffer row
+    by_lane = torch.isin(torch.arange(256, device=dev), poison_rows)
+    # B2, the reference's form (the host rung's decide) on a (256, 8) chunk
+    g0, chunk, ep, en = ctx["chunk"]
+    bad = hold("cascade_chunk", lambda *a: cascade_chunk_kernel(*a, 17, block_n=64),
+               lambda *a: cascade_chunk_plain(*a, 17), (g0, chunk, ep, en),
+               (g0, poisoned(chunk), ep, en), by_lane)
+    if bool(bad[3][poison_rows[::3]].ne(0).any()):
+        raise AssertionError("B2: a NaN lane exited")
+    # B2's step form (the unfused batch stage) on a stage slab of the matrix
+    F = ctx["F"]
+    t0 = int(ctx["dplan"].stage_t0[5])
+    slab, bad_slab = F[rows, t0 : t0 + 8], poisoned(F)[rows, t0 : t0 + 8]
+    gfull = torch.cat([g_buf, g_buf.new_zeros(1)])
+    step_args = (eps_pos, eps_neg, lanes["col_valid"])
+    hold("cascade_chunk_step",
+         lambda g, s: cascade_chunk_step(g, rows, s, 5, *step_args, n_valid=nv, block_n=64),
+         lambda g, s: cascade_chunk_step_plain(g, rows, s, 5, *step_args, n_valid=nv),
+         (gfull, slab), (gfull, bad_slab), by_row)
+    # B6's step form (the unfused streaming step), lanes at every stage
+    hold("cascade_lane_step",
+         lambda s: cascade_lane_step(g_buf, s, lanes["stage"], *step_args, n_valid=nv,
+                                     block_n=64),
+         lambda s: cascade_lane_step_plain(g_buf, s, lanes["stage"], *step_args, n_valid=nv),
+         (lanes["scores"],), (poisoned(lanes["scores"]),), by_lane)
+    # B4 and B7: tree and matrix on exp1's geometry, lattice on exp4's
+    for variant, slabs, xop, (ep_t, en_t) in (
+        ("tree", ctx["tree"].slabs, ctx["x_buf"], ctx["eps"]),
+        ("matrix", ctx["matrix"].slabs, F, ctx["eps"]),
+        ("lattice", ctx["lattice"].slabs, ctx["xl_buf"], ctx["leps"]),
+    ):
+        st = 5
+        t0 = int((ctx["lplan"] if variant == "lattice" else ctx["dplan"]).stage_t0[st])
+        hold(f"mega_stage_{variant}",
+             lambda x: mega_stage_kernel(slabs, x[rows], g_buf, st, t0, nv, ep_t, en_t,
+                                         block_n=64),
+             lambda x: mega_stage_plain(slabs, x[rows], g_buf, st, t0, nv, ep_t, en_t,
+                                        block_n=64),
+             (xop,), (poisoned(xop),), by_row)
+        hold(f"mega_lane_{variant}",
+             lambda x: mega_lane_kernel(slabs, x, rows, g_buf, lanes["stage"], lanes["stop"],
+                                        nv, ep_t, en_t, block_n=64),
+             lambda x: mega_lane_plain(slabs, x, rows, g_buf, lanes["stage"], lanes["stop"],
+                                       nv, ep_t, en_t, block_n=64),
+             (xop,), (poisoned(xop),), by_row)
+    # B1 on exp1's test matrix in QWYC order, rows poisoned from column 0
+    fit = main["fits"]["both"]
+    S = torch.from_numpy(np.ascontiguousarray(main["F_test"][:, fit.order], np.float32)).cuda()
+    beps = [torch.as_tensor(e, device=dev) for e in (fit.eps_pos, fit.eps_neg)]
+    clean = cascade_kernel(S, *beps, fit.beta)
+    bad_S = poisoned(S)
+    bad = cascade_kernel(bad_S, *beps, fit.beta)
+    want = cascade_plain(bad_S, *beps, fit.beta)
+    for k in range(2):
+        _same_or_nan("cascade", f"poisoned output {k}", bad[k], want[k])
+        keep = ~torch.isin(torch.arange(S.shape[0], device=dev), poison_rows)
+        _same_or_nan("cascade", f"clean rows output {k}", bad[k][keep], clean[k][keep])
+    n_cases += 1
+    nan_rows = poison_rows[::3]
+    if not (bool((bad[0][nan_rows] == 0).all()) and bool((bad[1][nan_rows] == S.shape[1]).all())):
+        raise AssertionError("B1: a NaN row exited or decided positive")
+    log(f"[phase 4i] poisoned rows (NaN, +inf, -inf) through B1, B2 (both forms), B6, B4 and "
+        f"B7 (tree, matrix, lattice): == plain on the card, clean lanes == the clean call "
+        f"({n_cases} cases)")
+
+    # the batch-256 server (TreeScorer, fused, captured), phase 4's verdicts
+    ds, server, clean_res = main["ds"], main["server"], main["results"]["both"]
+    plan = FaultPlan(seed=ARRIVAL_SEED, poison_fraction=0.05, poison_mode="mix")
+    xp, mask = plan.poison(ds.x_test)
+    srv = server("both", "cuda")
+    res = counted(launches, "guard_quarantine/both", lambda: serve(srv, xp))
+    quarantined = np.array([r.get("quarantined", False) for r in res])
+    if not np.array_equal(quarantined, mask) or srv.stats.quarantined != int(mask.sum()):
+        raise AssertionError("quarantine: the quarantined rows != the poisoned rows")
+    if [r for r, q in zip(res, mask) if not q] != [r for r, q in zip(clean_res, mask) if not q]:
+        raise AssertionError("quarantine: a clean row's verdict moved")
+    if srv.stats.degradation_events or srv._dev[0].traces != 1 or len(srv._dev[0]._graphs) != 1:
+        raise AssertionError("quarantine: events, or not one captured program")
+    out = dict(poisoned=int(mask.sum()), quarantined=srv.stats.quarantined)
+    log(f"[phase 4i] {int(mask.sum())}/{len(mask)} poisoned rows: exactly those quarantined, "
+        f"every clean verdict == phase 4's; {srv.stats.n_batches} flushes, one CUDA graph; "
+        f"launches {launches['guard_quarantine/both']}")
+
+    srv = server("both", "cuda")
+    with FaultPlan(seed=ARRIVAL_SEED, wave_failures=1) as fp:
+        res = counted(launches, "guard_recover/both", lambda: serve(srv, ds.x_test))
+    evs = [(e.kind, e.from_backend, e.to_backend, e.retries) for e in srv.stats.degradation_events]
+    if evs != [("wave", "device", "device", 1)] or srv.exec.name != "device" or res != clean_res:
+        raise AssertionError(f"recovery: events {evs}, rung {srv.exec.name}, or verdicts moved")
+    log(f"[phase 4i] one injected wave fault: one same-rung recovery {evs}, rung "
+        f"{srv.exec.name}, verdicts == phase 4's ({fp.injected['waves']} injected)")
+
+    # the eager server (score_fn) can score on the host rung: a lost device
+    # rung falls there, B3 scoring and B2's reference form deciding
+    srv = server("both", "cuda", scorer=None, score_fn=main["score_fn"])
+    with FaultPlan(seed=ARRIVAL_SEED, wave_failures=10_000) as fp:
+        res = counted(launches, "guard_fall/both", lambda: serve(srv, ds.x_test))
+    evs = [(e.kind, e.from_backend, e.to_backend, e.retries) for e in srv.stats.degradation_events]
+    if evs != [("wave", "device", "host", 2)] or srv.exec.name != "host" or res != clean_res:
+        raise AssertionError(f"fall: events {evs}, rung {srv.exec.name}, or verdicts moved")
+    out.update(recover=1, fall=evs, fall_injected=fp.injected["waves"])
+    log(f"[phase 4i] every device wave failing: fell {evs} after {fp.injected['waves']} injected "
+        f"faults, host rung verdicts == phase 4's; launches {launches['guard_fall/both']}")
+    report["guarded"] = out
+    return out
 
 
 def grid_payload(payload, order, stages, quant: str):
@@ -3352,11 +3753,18 @@ def main() -> int:
         return fail(f"step kernels: {len(steps)} built, stack or spills in {held}")
 
     phase_s = report["phase_s"] = {}
+    # every degradation the ladder records is logged at warning level: only
+    # phase 4i injects faults, so any other phase that logs one fails
+    ladder = LadderWatch()
+    logging.getLogger("repro_torch.api").addHandler(ladder)
 
     def timed(name, fn, *args):
         t = time.perf_counter()
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t
+        if name != "4i" and ladder.events:
+            raise AssertionError(f"phase {name}: degradation events {ladder.events}")
+        ladder.events.clear()
         log(f"[phase {name}] done in {phase_s[name]:.1f}s")
         return out
 
@@ -3373,6 +3781,8 @@ def main() -> int:
     quant_ctx = timed("4e", phase_quant, report, launches, main_ctx, lattice_ctx)
     timed("4f", phase_gate, report)
     rank_stream_ctx = timed("4g", phase_rank_stream, report, launches, rank_ctx)
+    timed("4h", phase_baselines, report, launches, main_ctx)
+    timed("4i", phase_guarded, report, launches, main_ctx, ctx)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

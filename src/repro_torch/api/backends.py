@@ -4,13 +4,26 @@ ported slice.
 Each backend declares its capabilities, says whether it can run here, and
 constructs its executor.  ``host`` is the per-stage host loop
 (``ChunkedExecutor``, numpy control flow); ``device`` is the stage loop on
-the device with no host sync (``DeviceExecutor``).  There is no
-degradation ladder in the port: a failure raises.
+the device with no host sync (``DeviceExecutor``).
+
+The runtime degradation ladder (``DegradationLadder``): when a rung's
+executor construction or a device wave fails with an injected fault
+(``testing.faults``), the caller retries with capped exponential backoff,
+then falls one rung (device -> host, ``LADDER_ORDER``) and records a
+``DegradationEvent``, logged at warning level.  ``CompiledCascade`` and the
+serving engines use it.  Unlike the reference, only injected faults
+(``FaultInjected``, ``WaveFailure``) are retried or fallen on (ROADMAP
+C11): every other error, a CUDA error above all, propagates, so the ladder
+never hides a fault of the card.  ``"auto"`` and ``negotiate`` never land
+on the host (``registry.py``): the ladder is the only way down.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
+from typing import Any, Callable
 
 import torch
 
@@ -20,9 +33,29 @@ from repro_torch.kernels.device_executor import (
     BoundScorer,
     DeviceExecutor,
     DevicePlan,
+    WaveFailure,
 )
+from repro_torch.testing import faults
 
-__all__ = ["BackendCapabilities", "HostBackend", "DeviceBackend"]
+__all__ = [
+    "BackendCapabilities",
+    "HostBackend",
+    "DeviceBackend",
+    "BackoffPolicy",
+    "DegradationEvent",
+    "DegradationLadder",
+    "LADDER_ORDER",
+    "RETRYABLE",
+    "fallback_rung",
+]
+
+log = logging.getLogger("repro_torch.api")
+
+# the runtime ladder's rungs, top to bottom (the reference's negotiation
+# order without its sharded rung, ROADMAP A15)
+LADDER_ORDER = ("device", "host")
+# the errors the ladder retries and falls on: injected faults only
+RETRYABLE = (faults.FaultInjected, WaveFailure)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +86,9 @@ class HostBackend:
     capabilities = BackendCapabilities(on_device=False, grouped=True)
 
     def available(self) -> tuple[bool, str]:
-        return True, "host stage loop runs anywhere (numpy control flow)"
+        return faults.on_available(
+            self.name, True, "host stage loop runs anywhere (numpy control flow)"
+        )
 
     def make_executor(
         self,
@@ -63,6 +98,7 @@ class HostBackend:
         decide_fn=None,
         bill_block: int = 1,
     ) -> ChunkedExecutor:
+        faults.on_make_executor(self.name)
         return ChunkedExecutor(
             _as_cascade_plan(plan), producer, decide_fn=decide_fn, bill_block=bill_block
         )
@@ -84,7 +120,9 @@ class DeviceBackend:
 
     def available(self) -> tuple[bool, str]:
         if torch.cuda.is_available():
-            return True, f"{torch.cuda.device_count()} CUDA device(s)"
+            return faults.on_available(
+                self.name, True, f"{torch.cuda.device_count()} CUDA device(s)"
+            )
         return False, "no CUDA device (torch.cuda.is_available() is False)"
 
     def make_executor(
@@ -96,12 +134,126 @@ class DeviceBackend:
         megakernel: bool | None = None,
         device="cuda",
         capture: bool = True,
+        check_finite: bool = False,
     ) -> DeviceExecutor:
+        faults.on_make_executor(self.name)
         return DeviceExecutor(
             plan, scorer, block_n=block_n, megakernel=megakernel, device=device,
-            capture=capture,
+            capture=capture, check_finite=check_finite,
         )
 
     def billing_key(self) -> str:
         """The perf gate's counter-key fragment."""
         return self.name
+
+
+# -- graceful degradation ------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradationEvent:
+    """One recorded degradation: a same-rung recovery (``to_backend ==
+    from_backend``) or a fall to the next rung."""
+
+    kind: str  # "construct" (make_executor failed) | "wave" (run failed)
+    from_backend: str
+    to_backend: str
+    error: str
+    retries: int  # failed attempts on from_backend before this resolution
+
+
+@dataclasses.dataclass(frozen=True)
+class BackoffPolicy:
+    """Capped exponential backoff: ``retries`` extra attempts after the
+    first failure, waiting ``base_delay * factor**i`` (capped at
+    ``max_delay``) before attempt i+1.  Delays are data, not clock reads,
+    so a test's fake ``sleep`` sees the exact schedule."""
+
+    retries: int = 2
+    base_delay: float = 0.05
+    factor: float = 2.0
+    max_delay: float = 1.0
+
+    def delays(self) -> tuple[float, ...]:
+        return tuple(
+            min(self.base_delay * self.factor**i, self.max_delay)
+            for i in range(max(0, int(self.retries)))
+        )
+
+
+def fallback_rung(name: str, accept: Callable | None = None):
+    """The first AVAILABLE backend strictly below ``name`` in
+    ``LADDER_ORDER`` (optionally also satisfying ``accept(backend)``), or
+    None at the floor.  A backend outside the ladder may fall to any
+    rung."""
+    from repro_torch.api.registry import get_backend
+
+    start = LADDER_ORDER.index(name) + 1 if name in LADDER_ORDER else 0
+    for lower in LADDER_ORDER[start:]:
+        b = get_backend(lower)
+        ok, _ = b.available()
+        if ok and (accept is None or accept(b)):
+            return b
+    return None
+
+
+class DegradationLadder:
+    """Retry-then-fall loop shared by ``CompiledCascade`` and the
+    serving engines.
+
+    ``attempt`` runs one callable with same-rung retries under the
+    backoff policy; ``fall`` resolves the next usable rung (recording the
+    event) or re-raises when the floor is reached.  Only ``RETRYABLE``
+    errors (injected faults) are retried: a CUDA error, a caller bug
+    (``ValueError`` / ``TypeError``) and every other error propagate
+    untouched, with no event.
+    """
+
+    def __init__(
+        self,
+        backoff: BackoffPolicy | None = None,
+        sleep: Callable[[float], None] | None = None,
+        events: list | None = None,
+    ):
+        self.backoff = backoff or BackoffPolicy()
+        self.sleep = time.sleep if sleep is None else sleep
+        self.events: list[DegradationEvent] = events if events is not None else []
+
+    def _record(self, ev: DegradationEvent) -> None:
+        self.events.append(ev)
+        what = "recovered on" if ev.from_backend == ev.to_backend else "fell to"
+        log.warning(
+            "%s %s %r after %d failed attempt(s) on %r: %s",
+            ev.kind, what, ev.to_backend, ev.retries, ev.from_backend, ev.error,
+        )
+
+    def attempt(self, kind: str, backend_name: str, fn: Callable[[], Any]):
+        """``fn()`` with capped-backoff retries on the SAME rung.  A retry
+        that succeeds records a same-rung recovery event; exhausted retries
+        re-raise the last error for ``fall`` to resolve."""
+        delays = self.backoff.delays()
+        err: BaseException | None = None
+        for i in range(len(delays) + 1):
+            try:
+                out = fn()
+            except RETRYABLE as e:
+                err = e
+                if i < len(delays):
+                    self.sleep(delays[i])
+                continue
+            if i:
+                self._record(DegradationEvent(kind, backend_name, backend_name, str(err), i))
+            return out
+        raise err
+
+    def fall(self, kind: str, from_name: str, error: BaseException, accept: Callable | None = None):
+        """Next usable rung below ``from_name``; records the fall.  At the
+        floor the original ``error`` is re-raised: degradation never
+        swallows a failure it cannot route around."""
+        nxt = fallback_rung(from_name, accept=accept)
+        if nxt is None:
+            raise error
+        self._record(
+            DegradationEvent(kind, from_name, nxt.name, str(error), self.backoff.retries)
+        )
+        return nxt

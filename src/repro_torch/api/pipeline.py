@@ -18,10 +18,13 @@ grouped fit, a ``GroupedRankServer``) on the same backend.
 
 ``compile`` defaults to ``device="cuda"`` and raises without a card unless
 the CPU is named; ``"auto"`` is always the device backend, and ``host``
-runs only when named.  There is no degradation ladder: a failure raises.
-Options whose modules are not ported raise ``ValueError`` naming their
-ROADMAP item: the mesh and shard options (A15), backoff and the ladder
-(A11) and a model-backed ``StageScorer`` fit (A13).
+runs only when named or reached down the runtime degradation ladder
+(``api.backends.DegradationLadder``): an injected construction or wave
+fault is retried with backoff, then falls device -> host, each step
+recorded on ``CompiledCascade.degradation_events``.  Any other error
+propagates (ROADMAP C11).  Options whose modules are not ported raise
+``ValueError`` naming their ROADMAP item: the mesh and shard options (A15)
+and a model-backed ``StageScorer`` fit (A13).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.api.backends import RETRYABLE, BackoffPolicy, DegradationLadder
 from repro_torch.api.registry import AUTO, backend_names, get_backend, resolve_backend
 from repro_torch.api.scorers import StageScorer, host_producer
 from repro_torch.core.executor import (
@@ -54,10 +58,6 @@ __all__ = ["FitConfig", "FittedCascade", "CompiledCascade", "fit"]
 _SHARDED_TODO = (
     "mesh/shards/model_shards/rebalance need the sharded executors, not "
     "ported yet (ROADMAP A15)"
-)
-_LADDER_TODO = (
-    "backoff/sleep tune the degradation ladder, not ported yet (ROADMAP "
-    "A11); the port raises on a failed wave"
 )
 _SCORER_FIT_TODO = (
     "a model-backed fit (a StageScorer that scores its own calibration "
@@ -236,7 +236,7 @@ class FittedCascade:
         shards: int | None = None,
         model_shards: int = 1,
         rebalance: bool = False,
-        backoff=None,
+        backoff: BackoffPolicy | None = None,
         sleep=None,
     ) -> "CompiledCascade":
         """Bind the cascade to an execution backend.
@@ -250,12 +250,11 @@ class FittedCascade:
         ``bill_block``.  ``scorer``: a ``StageScorer`` template for lazy
         scoring (``evaluate(x=...)``; ``serve()`` on the device): the device
         loop's scorer, or on the host the producer ``host_producer`` drives
-        on ``device``.
+        on ``device``.  ``backoff`` / ``sleep`` tune the runtime
+        degradation ladder (``sleep`` is injectable so tests never wait).
         """
         if mesh is not None or shards is not None or int(model_shards) > 1 or rebalance:
             raise ValueError(_SHARDED_TODO)
-        if backoff is not None or sleep is not None:
-            raise ValueError(_LADDER_TODO)
         if scorer is not None and not isinstance(scorer, StageScorer):
             raise TypeError(
                 f"scorer= must be a repro_torch StageScorer, got {type(scorer).__name__}"
@@ -284,6 +283,7 @@ class FittedCascade:
         return CompiledCascade(
             fitted=self, backend=b, plan=self.plan(chunk_t), device=dev,
             block_n=block_n, decide=decide, bill_block=bill_block, scorer=scorer,
+            backoff=backoff, sleep=sleep,
         )
 
 
@@ -292,7 +292,8 @@ class CompiledCascade:
 
     On-device backends construct their executor here; the host backend
     binds a fresh ``ChunkedExecutor`` per call.  ``serve`` builds a server
-    on the same backend and device.
+    on the same backend and device.  An injected construction fault is
+    retried, then falls a rung (``degradation_events``).
     """
 
     def __init__(
@@ -306,6 +307,8 @@ class CompiledCascade:
         decide: str | None = None,
         bill_block: int | None = None,
         scorer: StageScorer | None = None,
+        backoff: BackoffPolicy | None = None,
+        sleep=None,
     ):
         self.fitted = fitted
         self.backend = backend
@@ -318,23 +321,55 @@ class CompiledCascade:
         self.bill_block = bill_block
         self.scorer_template = scorer
         self.last_rank_stats = None
+        self.ladder = DegradationLadder(backoff=backoff, sleep=sleep)
         self._executor = None
-        if backend.capabilities.on_device:
-            dplan = DevicePlan.from_plan(plan)
-            self.scorer = (
-                scorer.bind(dplan, device=self.device)
-                if scorer is not None
-                else matrix_stage_scorer(dplan, device=self.device)
-            )
-            self._executor = backend.make_executor(
-                dplan, scorer=self.scorer,
-                block_n=DEFAULT_BLOCK_N if block_n is None else block_n,
-                device=self.device,
-            )
+        try:
+            self._bind_backend(backend)
+        except RETRYABLE as e:
+            self._fall_and_rebind("construct", e)
+
+    def _fall_and_rebind(self, kind: str, error, accept=None):
+        """Fall down the ladder until a backend binds (or the ladder runs
+        out and re-raises the last error)."""
+        err = error
+        while True:
+            nxt = self.ladder.fall(kind, self.backend.name, err, accept=accept)
+            try:
+                self._bind_backend(nxt)
+                return nxt
+            except RETRYABLE as e:
+                err = e
+
+    def _bind_backend(self, backend) -> None:
+        """(Re)build the executor for one rung; the host rung binds at
+        ``evaluate`` time."""
+        self.backend = backend
+        if not backend.capabilities.on_device:
+            self._executor = None
+            return
+        dplan = DevicePlan.from_plan(self.plan)
+        template = self.scorer_template
+        self.scorer = (
+            template.bind(dplan, device=self.device)
+            if template is not None
+            else matrix_stage_scorer(dplan, device=self.device)
+        )
+        bn = DEFAULT_BLOCK_N if self.block_n is None else self.block_n
+        self._executor = self.ladder.attempt(
+            "construct", backend.name,
+            lambda: backend.make_executor(
+                dplan, scorer=self.scorer, block_n=bn, device=self.device
+            ),
+        )
 
     @property
     def backend_name(self) -> str:
         return self.backend.name
+
+    @property
+    def degradation_events(self) -> list:
+        """The ladder's history: same-rung recoveries and rung falls."""
+        return self.ladder.events
 
     @property
     def traces(self) -> int | None:
@@ -380,24 +415,44 @@ class CompiledCascade:
         ``score_fn``.  ``producer(rows, t0, t1)``: a host
         lazy producer in cascade order (host backend, requires ``n``).
         ``row_order`` / ``capacity`` follow the executors' contracts.
+
+        An injected wave fault is retried on the same rung with backoff,
+        then falls a rung and re-runs; the host floor is accepted only if
+        this call can score there (precomputed ``scores``, a
+        ``fit``-captured ``score_fn``, or ``scorer=`` with ``x``).
         """
-        if not self.backend.capabilities.on_device:
-            return self._evaluate_host(scores, x, producer, n, row_order)
-        if producer is not None:
-            raise ValueError(
-                "producer= is a host-backend option; compile with scorer= for "
-                "lazy scoring on the device"
-            )
-        if self.scorer_template is not None:
-            if x is None:
+        while True:
+            if not self.backend.capabilities.on_device:
+                return self._evaluate_host(scores, x, producer, n, row_order)
+            if producer is not None:
                 raise ValueError(
-                    "compiled with scorer=: pass the scorer's batch operand via x="
+                    "producer= is a host-backend option; compile with scorer= for "
+                    "lazy scoring on the device"
                 )
-            operand, run_n = x, int(np.shape(x)[0]) if n is None else n
-        else:
-            operand = self._ordered_scores(scores, x)
-            run_n = operand.shape[0]
-        return self._executor.run(operand, run_n, row_order=row_order, capacity=capacity)
+            if self.scorer_template is not None:
+                if x is None:
+                    raise ValueError(
+                        "compiled with scorer=: pass the scorer's batch operand via x="
+                    )
+                operand, run_n = x, int(np.shape(x)[0]) if n is None else n
+            else:
+                operand = self._ordered_scores(scores, x)
+                run_n = operand.shape[0]
+            ex = self._executor
+            try:
+                return self.ladder.attempt(
+                    "wave", self.backend.name,
+                    lambda: ex.run(operand, run_n, row_order=row_order, capacity=capacity),
+                )
+            except RETRYABLE as e:
+                can_host = (
+                    scores is not None
+                    or self.fitted.score_fn is not None
+                    or (self.scorer_template is not None and x is not None)
+                )
+                self._fall_and_rebind(
+                    "wave", e, accept=lambda b: b.capabilities.on_device or can_host
+                )
 
     def _evaluate_host(self, scores, x, producer, n, row_order) -> ExecutorResult:
         if producer is not None:

@@ -20,6 +20,7 @@ __all__ = [
     "gbt_params_from_numpy",
     "grouped_plan_from_numpy",
     "lattice_params_from_numpy",
+    "moe_params_from_numpy",
     "param_slabs_from_numpy",
     "qwyc_model_from_numpy",
 ]
@@ -124,3 +125,19 @@ def param_slabs_from_numpy(
         scale=torch.from_numpy(scale).to(device),
         eps_position=np.asarray(eps_position, dtype=np.float64), W=int(W), S=int(S),
     )
+
+
+def moe_params_from_numpy(router, wi, wg, wo, device="cuda") -> dict:
+    """A routed MoE layer's weights -> the float32 tensors
+    ``core.moe_qwyc.expert_contributions`` takes: ``router`` (d, E), ``wi``
+    and ``wg`` (E, d, f), ``wo`` (E, f, d), on ``device``."""
+    out = {}
+    for name, a in (("router", router), ("wi", wi), ("wg", wg), ("wo", wo)):
+        out[name] = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    E, d = out["router"].shape[1], out["router"].shape[0]
+    f = out["wi"].shape[2]
+    want = {"wi": (E, d, f), "wg": (E, d, f), "wo": (E, f, d)}
+    for name, shape in want.items():
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(out[name].shape)}, expected {shape}")
+    return out

@@ -127,6 +127,7 @@ from repro_torch.kernels.cascade_kernel import (
 )
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
+from repro_torch.testing import faults
 
 __all__ = [
     "DEFAULT_BLOCK_N",
@@ -137,7 +138,10 @@ __all__ = [
     "GroupedResult",
     "GroupedStreamResult",
     "StreamResult",
+    "WaveFailure",
+    "check_batch_finite",
     "group_topk_rows",
+    "launch_wave",
     "lattice_stage_scorer",
     "matrix_stage_scorer",
     "stream_occupancy",
@@ -149,6 +153,57 @@ DEFAULT_BLOCK_N = 64
 STREAM_BURST = 8
 # CUDA graphs an executor keeps (the ones used last)
 MAX_GRAPHS = 16
+
+
+class WaveFailure(RuntimeError):
+    """A device wave (one ``run`` / ``run_stream`` / ``run_grouped`` /
+    ``run_stream_grouped`` launch) failed with an injected fault
+    (``testing.faults``), the one retryable signal of the degradation
+    ladder.  Unlike the reference, the port turns no other error into
+    this type (ROADMAP C11): a CUDA launch error, a build or load failure,
+    an illegal address or an out-of-memory error propagates untouched,
+    since a CUDA error is sticky on the card and a fall to the host would
+    hide a kernel fault."""
+
+
+def launch_wave(executor_name: str, fn):
+    """Run one device wave under the wave fault contract: the injection
+    point fires first, before ``fn`` writes any input (a captured graph's
+    static buffers included), and an injected fault comes out as
+    ``WaveFailure``; everything else ``fn`` raises passes through."""
+    try:
+        faults.on_wave(executor_name)
+        return fn()
+    except faults.FaultInjected as e:
+        raise WaveFailure(str(e)) from e
+
+
+def check_batch_finite(batch, n: int) -> None:
+    """Reject non-finite rows before they reach a device program (the
+    executors' ``check_finite=True``; the servers' quarantine normally
+    catches them at admission).  ``batch`` is an array or a tensor (one
+    transfer of a row mask from the card).  Raises ``ValueError`` (not
+    retryable: a poisoned batch does not heal with backoff) naming the
+    offending rows."""
+    if isinstance(batch, torch.Tensor):
+        if not batch.is_floating_point():
+            return
+        x = batch[:n]
+        bad = ~torch.isfinite(x).reshape(x.shape[0], -1).all(1).cpu().numpy()
+    else:
+        arr = np.asarray(batch)[:n]
+        if not np.issubdtype(arr.dtype, np.floating):
+            return
+        finite = np.isfinite(arr)
+        bad = ~(finite if arr.ndim == 1 else finite.all(axis=tuple(range(1, arr.ndim))))
+    if bad.any():
+        rows = np.flatnonzero(bad)
+        head = ", ".join(map(str, rows[:8]))
+        more = f", ... ({rows.size} total)" if rows.size > 8 else ""
+        raise ValueError(
+            f"non-finite values in batch rows [{head}{more}]; quarantine "
+            "poisoned rows before submission"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -600,6 +655,9 @@ class DeviceExecutor:
     ``capture`` (default True) replays each program key's loop as a CUDA
     graph on the card; False keeps the eager loop there.  ``traces``
     counts the program keys run (see the module docstring).
+    ``check_finite`` rejects a batch holding a non-finite value before its
+    wave (``check_batch_finite``).  Every wave goes through
+    ``launch_wave`` under the executor name ``"device"``.
     """
 
     def __init__(
@@ -610,6 +668,7 @@ class DeviceExecutor:
         megakernel: bool | None = None,
         device="cuda",
         capture: bool = True,
+        check_finite: bool = False,
     ):
         self.dplan = plan if isinstance(plan, DevicePlan) else DevicePlan.from_plan(plan)
         if scorer.width != self.dplan.W:
@@ -622,6 +681,7 @@ class DeviceExecutor:
             raise ValueError("megakernel=True needs a scorer with ParamSlabs")
         self.megakernel = bool(megakernel)
         self.scorer = scorer
+        self.check_finite = bool(check_finite)
         self.block_n = max(1, int(block_n))
         self.device = resolve_device(device)
         self.capture = bool(capture)
@@ -658,7 +718,17 @@ class DeviceExecutor:
     @property
     def traces(self) -> int:
         """The program keys this executor has run (the reference's jit
-        trace count)."""
+        trace count).
+
+        One divergence, by design (ROADMAP C10): the streaming
+        ``GroupedRankServer`` pins each wave's ring to the slot capacity
+        (``ring_capacity=cap``), so its waves of one bucket width share one
+        ``run_stream_grouped`` key, where the reference passes no ring
+        capacity and keys on each wave's group count.  Over waves of one
+        width with different group counts this count is below the
+        reference's; verdicts, margins and the bill are the same
+        (``tests/test_torch_grouped_stream.py::
+        test_streaming_server_traces_two_waves_one_width``)."""
         return len(self._keys)
 
     def _buffers(self, key: tuple, make: Callable) -> tuple:
@@ -795,6 +865,8 @@ class DeviceExecutor:
                 scores_computed=0,
                 scores_possible=0,
             )
+        if self.check_finite:
+            check_batch_finite(batch, n)
         cap = self._cap(max(n, capacity or 0))
         x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
@@ -806,19 +878,23 @@ class DeviceExecutor:
             if order.shape != (n,):
                 raise ValueError(f"row_order has shape {tuple(order.shape)}, expected ({n},)")
         key = ("batch", cap, tuple(x.shape[1:]), x.dtype)
-        sx, rows, n0 = self._buffers(key, lambda: (
-            torch.empty((cap + 1, *x.shape[1:]), dtype=x.dtype, device=dev),
-            torch.empty(cap, dtype=torch.int64, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev),
-        ))
-        # the operand padded to cap + 1 rows, written in place
-        self._write_rows(sx, x)
-        rows.fill_(cap)
-        rows[:n] = torch.arange(n, device=dev) if order is None else order
-        n0.fill_(n)
-        # the one transfer back to the host, after the loop: every result
-        # as int32 words in one buffer (g_final by its bits)
-        words = self._execute(key, self._program, (sx, rows, n0)).cpu().numpy()
+
+        def wave():
+            sx, rows, n0 = self._buffers(key, lambda: (
+                torch.empty((cap + 1, *x.shape[1:]), dtype=x.dtype, device=dev),
+                torch.empty(cap, dtype=torch.int64, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev),
+            ))
+            # the operand padded to cap + 1 rows, written in place
+            self._write_rows(sx, x)
+            rows.fill_(cap)
+            rows[:n] = torch.arange(n, device=dev) if order is None else order
+            n0.fill_(n)
+            # the one transfer back to the host, after the loop: every
+            # result as int32 words in one buffer (g_final by its bits)
+            return self._execute(key, self._program, (sx, rows, n0)).cpu().numpy()
+
+        words = launch_wave("device", wave)
         dec, ex = words[:n], words[cap : cap + n].astype(np.int64)
         g = words[2 * cap : 2 * cap + n].view(np.float32)
         n_f, n_in_log = int(words[3 * cap]), words[3 * cap + 1 :]
@@ -1007,29 +1083,37 @@ class DeviceExecutor:
             raise ValueError(f"arrivals has shape {arr.shape}, expected ({n},)")
         if (np.diff(arr) < 0).any():
             raise ValueError("arrivals must be nondecreasing")
+        if self.check_finite:
+            check_batch_finite(batch, n)
         x = self._cast_operand(batch if prepared else self.scorer.prepare(batch))
         if x.device != self.device:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
         key = ("stream", cap, R, tuple(x.shape[1:]), x.dtype)
-        (st,) = self._buffers(key, lambda: (self._stream_state(cap, R, x),))
-        self._stream_reset(st, x, n, arr)
-        # the loop runs at least until the last arrival's step: no sync before
-        bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
-        enqueued = syncs = 0
-        while True:
-            for _ in range(bursts):
-                self._execute(key, self._stream_burst, (st,))
-            enqueued += bursts * STREAM_BURST
-            live, taken = st.probe.tolist()
-            syncs += 1
-            if live == 0 and taken == n:
-                break
-            bursts = 1
-        # the one transfer of the results, after the loop
-        words = torch.cat(
-            [st.steps_run[None], st.dec[:n].to(torch.int32), st.ex[:n],
-             st.gout[:n].view(torch.int32), st.admit[:n], st.done[:n]]
-        ).cpu().numpy()
+
+        def wave():
+            (st,) = self._buffers(key, lambda: (self._stream_state(cap, R, x),))
+            self._stream_reset(st, x, n, arr)
+            # the loop runs at least until the last arrival's step: no sync
+            # before
+            bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
+            enqueued = syncs = 0
+            while True:
+                for _ in range(bursts):
+                    self._execute(key, self._stream_burst, (st,))
+                enqueued += bursts * STREAM_BURST
+                live, taken = st.probe.tolist()
+                syncs += 1
+                if live == 0 and taken == n:
+                    break
+                bursts = 1
+            # the one transfer of the results, after the loop
+            words = torch.cat(
+                [st.steps_run[None], st.dec[:n].to(torch.int32), st.ex[:n],
+                 st.gout[:n].view(torch.int32), st.admit[:n], st.done[:n]]
+            ).cpu().numpy()
+            return words, enqueued, syncs
+
+        words, enqueued, syncs = launch_wave("device", wave)
         steps_run = int(words[0])
         dec, ex, g, admit, done = np.split(words[1:], 5)
         admit, done = admit.astype(np.int64), done.astype(np.int64)
@@ -1180,6 +1264,8 @@ class DeviceExecutor:
                 scores_computed=0,
                 scores_possible=0,
             )
+        if self.check_finite:
+            check_batch_finite(batch, batch.shape[0])
         n_docs = int((group_valid[:n_groups] != 0).sum())
         B = group_rows.shape[1]
         k = int(k)
@@ -1197,25 +1283,29 @@ class DeviceExecutor:
         dev = self.device
         cap_x = 1 << (max(x.shape[0], capacity_rows or 0, 1) - 1).bit_length()
         key = ("grouped", k, cap_g, B, cap_x, tuple(x.shape[1:]), x.dtype)
-        bufs = self._buffers(key, lambda: (
-            torch.empty((cap_x, *x.shape[1:]), dtype=x.dtype, device=dev),
-            torch.empty(cap_g, dtype=torch.int64, device=dev),
-            torch.empty((cap_g, B), dtype=torch.int64, device=dev),
-            torch.empty((cap_g, B), dtype=torch.int32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev),
-            torch.empty(S, dtype=torch.float32, device=dev),
-        ))
-        sx, gids_b, rows_b, valid_b, n0, eps_b = bufs
-        # the operand padded to cap_x rows, written in place
-        self._write_rows(sx, x)
-        for buf, host in ((gids_b, gids), (rows_b, rows_init), (valid_b, valid_init),
-                          (eps_b, eps_g)):
-            buf.copy_(torch.from_numpy(host))
-        n0.fill_(n_groups)
-        # the one transfer back to the host, after the loop
-        words = self._execute(
-            key, functools.partial(self._grouped_program, k), bufs
-        ).cpu().numpy()
+
+        def wave():
+            bufs = self._buffers(key, lambda: (
+                torch.empty((cap_x, *x.shape[1:]), dtype=x.dtype, device=dev),
+                torch.empty(cap_g, dtype=torch.int64, device=dev),
+                torch.empty((cap_g, B), dtype=torch.int64, device=dev),
+                torch.empty((cap_g, B), dtype=torch.int32, device=dev),
+                torch.empty((), dtype=torch.int32, device=dev),
+                torch.empty(S, dtype=torch.float32, device=dev),
+            ))
+            sx, gids_b, rows_b, valid_b, n0, eps_b = bufs
+            # the operand padded to cap_x rows, written in place
+            self._write_rows(sx, x)
+            for buf, host in ((gids_b, gids), (rows_b, rows_init), (valid_b, valid_init),
+                              (eps_b, eps_g)):
+                buf.copy_(torch.from_numpy(host))
+            n0.fill_(n_groups)
+            # the one transfer back to the host, after the loop
+            return self._execute(
+                key, functools.partial(self._grouped_program, k), bufs
+            ).cpu().numpy()
+
+        words = launch_wave("device", wave)
         G, Ck = n_groups, cap_g * k
         verd = words[:Ck].reshape(cap_g, k)[:G]
         exst, marg = words[Ck : Ck + G], words[Ck + cap_g : Ck + cap_g + G]
@@ -1446,6 +1536,8 @@ class DeviceExecutor:
             raise ValueError(f"arrivals has shape {arr.shape}, expected ({n_groups},)")
         if (np.diff(arr) < 0).any():
             raise ValueError("arrivals must be nondecreasing")
+        if self.check_finite:
+            check_batch_finite(batch, batch.shape[0])
         n_docs = int((group_valid[:n_groups] != 0).sum())
         B = group_rows.shape[1]
         k = int(k)
@@ -1458,29 +1550,35 @@ class DeviceExecutor:
             raise ValueError(f"operand on {x.device}, executor on {self.device}")
         cap_x = 1 << (max(x.shape[0], capacity_rows or 0, 1) - 1).bit_length()
         key = ("grouped_stream", k, cap_g, Rg, B, cap_x, tuple(x.shape[1:]), x.dtype)
-        (st,) = self._buffers(
-            key, lambda: (self._grouped_stream_state(cap_g, Rg, B, k, cap_x, x),)
-        )
-        self._grouped_stream_reset(st, x, group_rows, group_valid, n_groups, arr, eps_g)
-        burst = functools.partial(self._grouped_stream_burst, k)
-        # the loop runs at least until the last arrival's step: no sync before
-        bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
-        enqueued = syncs = 0
-        while True:
-            for _ in range(bursts):
-                self._execute(key, burst, (st,))
-            enqueued += bursts * STREAM_BURST
-            live, taken = st.probe.tolist()
-            syncs += 1
-            if live == 0 and taken == n_groups:
-                break
-            bursts = 1
-        # the one transfer of the results, after the loop
         G = n_groups
-        words = torch.cat([
-            st.steps_run[None], st.verd[:G].reshape(-1), st.exst[:G],
-            st.marg[:G].view(torch.int32), st.admit[:G], st.done[:G],
-        ]).cpu().numpy()
+
+        def wave():
+            (st,) = self._buffers(
+                key, lambda: (self._grouped_stream_state(cap_g, Rg, B, k, cap_x, x),)
+            )
+            self._grouped_stream_reset(st, x, group_rows, group_valid, n_groups, arr, eps_g)
+            burst = functools.partial(self._grouped_stream_burst, k)
+            # the loop runs at least until the last arrival's step: no sync
+            # before
+            bursts = -(-max(STREAM_BURST, int(arr[-1]) + 1) // STREAM_BURST)
+            enqueued = syncs = 0
+            while True:
+                for _ in range(bursts):
+                    self._execute(key, burst, (st,))
+                enqueued += bursts * STREAM_BURST
+                live, taken = st.probe.tolist()
+                syncs += 1
+                if live == 0 and taken == n_groups:
+                    break
+                bursts = 1
+            # the one transfer of the results, after the loop
+            words = torch.cat([
+                st.steps_run[None], st.verd[:G].reshape(-1), st.exst[:G],
+                st.marg[:G].view(torch.int32), st.admit[:G], st.done[:G],
+            ]).cpu().numpy()
+            return words, enqueued, syncs
+
+        words, enqueued, syncs = launch_wave("device", wave)
         steps_run = int(words[0])
         verd = words[1 : 1 + G * k].reshape(G, k)
         exst, marg, admit, done = np.split(words[1 + G * k :], 4)

@@ -34,11 +34,21 @@ stage step and stream through the grouped admission ring:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --groups 16 --topk 10 \
         --T 500 --scale 1.0 --alpha 0.05 [--streaming]
+
+Guarded serving: ``--chaos-seed S`` arms a seeded ``FaultPlan`` around the
+serving loop (``--chaos-poison F`` poisons that fraction of the test rows,
+which the quarantine answers; ``--chaos-wave-failures K`` fails the first
+K device waves, which the degradation ladder retries, then falls to the
+host), ``--watchdog`` runs the drift watchdog over the audit stream, and
+``--no-quarantine`` turns the admission guard off.  A SIGINT or SIGTERM
+during the submit loop stops admission, drains the queue and still prints
+the final stats.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 
 import numpy as np
 import torch
@@ -55,6 +65,7 @@ from repro_torch.kernels import ops
 from repro_torch.ranking import group_offsets, ndcg_at_k
 from repro_torch.serving.engine import BACKENDS as POLICIES
 from repro_torch.serving.engine import QWYCServer, StreamingServer
+from repro_torch.testing import FaultPlan
 
 # row-block size for the lazy chunked score kernels: survivors are padded
 # up to a multiple of this (billed honestly via score_block_n below)
@@ -127,6 +138,38 @@ def build_parser() -> argparse.ArgumentParser:
         "--topk", type=int, default=10,
         help="ranking depth k for --groups serving (default 10)",
     )
+    # guarded serving
+    ap.add_argument(
+        "--chaos-seed", type=int, default=None,
+        help="arm a deterministic fault-injection plan (repro_torch.testing."
+        "faults) around the serving loop; combine with the other --chaos-* "
+        "flags to pick the faults",
+    )
+    ap.add_argument(
+        "--chaos-poison", type=float, default=0.0,
+        help="fraction of test rows poisoned with non-finite values under "
+        "--chaos-seed (quarantine should catch every one)",
+    )
+    ap.add_argument(
+        "--chaos-wave-failures", type=int, default=0,
+        help="number of device waves to fail under --chaos-seed (exercises the "
+        "retry/degradation ladder)",
+    )
+    ap.add_argument(
+        "--chaos-drop-device", action="store_true",
+        help="report a mesh device of the sharded backend as lost (not "
+        "ported: raises, ROADMAP A15)",
+    )
+    ap.add_argument(
+        "--watchdog", action="store_true",
+        help="run the sequential drift watchdog over the audit stream and "
+        "widen the thresholds on alarm (implies --audit)",
+    )
+    ap.add_argument(
+        "--no-quarantine", dest="quarantine", action="store_false",
+        help="disable the submit-time validation guard (bad rows then raise "
+        "instead of draining with a quarantined verdict)",
+    )
     return ap
 
 
@@ -198,6 +241,18 @@ def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device) -> None:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
+    chaos = None
+    if args.chaos_seed is not None:
+        # every fault derives from --chaos-seed, so a run reproduces
+        chaos = FaultPlan(
+            seed=args.chaos_seed,
+            poison_fraction=args.chaos_poison,
+            poison_mode="mix",
+            wave_failures=args.chaos_wave_failures,
+            drop_device=args.chaos_drop_device,
+        )
+    elif args.chaos_drop_device:
+        FaultPlan(drop_device=True)  # raises, naming its ROADMAP item
     device = resolve_device(args.device)
     backend = resolve_backend(args.backend, device=device)
     on_device = backend.capabilities.on_device
@@ -278,7 +333,7 @@ def main(argv=None) -> None:
     if on_device and not args.eager:
         # fully lazy device path; chunk_score_fn stays as the audit reader
         producer_kw["scorer"] = make_scorer()
-    audit = args.audit or args.eager
+    audit = args.audit or args.eager or args.watchdog
     common_kw = dict(
         batch_size=args.batch_size,
         chunk_t=args.chunk_t,
@@ -286,6 +341,8 @@ def main(argv=None) -> None:
         score_block_n=1 if args.eager else SCORE_BLOCK_N,
         exec_backend=backend,
         device=device,
+        quarantine=args.quarantine,
+        watchdog=True if args.watchdog else None,
         **producer_kw,
     )
     if args.streaming:
@@ -301,15 +358,51 @@ def main(argv=None) -> None:
     else:
         server = QWYCServer(qwyc, backend=args.policy, **common_kw)
         arrivals = None
-    for i in range(len(ds.y_test)):
-        if arrivals is None:
-            server.submit(ds.x_test[i])
-        else:
-            server.submit(ds.x_test[i], arrival=arrivals[i])
-    results = server.drain()
+    x_test = ds.x_test
+    if chaos is not None:
+        if args.chaos_poison > 0:
+            x_test, poisoned = chaos.poison(x_test)
+            print(
+                f"[serve] chaos seed {args.chaos_seed}: poisoned "
+                f"{int(poisoned.sum())}/{len(x_test)} rows"
+            )
+        chaos.__enter__()
+
+    # a SIGINT/SIGTERM during the submit loop stops admission, drains the
+    # queue (partial final flush) and still prints the final ServeStats
+    stop: dict = {}
+    prev_handlers = {}
+
+    def _on_signal(signum, frame):
+        stop["sig"] = signal.Signals(signum).name
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        try:
+            prev_handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread: run unguarded
+            pass
+    try:
+        for i in range(len(ds.y_test)):
+            if stop:
+                print(
+                    f"[serve] caught {stop['sig']} after {i} submit(s): "
+                    "draining queued requests"
+                )
+                break
+            if arrivals is None:
+                server.submit(x_test[i])
+            else:
+                server.submit(x_test[i], arrival=arrivals[i])
+        results = server.drain()
+    finally:
+        for sig, h in prev_handlers.items():
+            signal.signal(sig, h)
+        if chaos is not None:
+            chaos.__exit__(None, None, None)
 
     st = server.stats
-    acc = np.mean([r["decision"] == bool(y) for r, y in zip(results, ds.y_test)])
+    served = [(r, y) for r, y in zip(results, ds.y_test) if not r.get("quarantined", False)]
+    acc = np.mean([r["decision"] == bool(y) for r, y in served]) if served else float("nan")
     if args.streaming:
         print(
             f"[serve] streaming: {st.admitted_rows} admitted over "
@@ -333,6 +426,34 @@ def main(argv=None) -> None:
         + (f"{st.diff_rate:.4f}" if audit else "n/a (pass --audit)")
         + f" (alpha={args.alpha})  test acc {acc:.4f}"
     )
+    # guarded-serving counters (outside the billing gate's keys)
+    guard_bits = []
+    if st.quarantined:
+        guard_bits.append(f"quarantined {st.quarantined}")
+    if st.degradation_events:
+        falls = [
+            f"{e.from_backend}->{e.to_backend}"
+            for e in st.degradation_events
+            if e.from_backend != e.to_backend
+        ]
+        recoveries = len(st.degradation_events) - len(falls)
+        guard_bits.append(
+            "ladder "
+            + ", ".join(falls + ([f"{recoveries} same-rung recovery(ies)"] if recoveries else []))
+        )
+    if args.watchdog:
+        guard_bits.append(
+            f"watchdog {st.watchdog_state} (alarms {st.watchdog_alarms}, "
+            f"llr {st.watchdog_stat:.2f}"
+            + (
+                f", recovered at flush {st.watchdog_recovery_step}"
+                if st.watchdog_recovery_step is not None
+                else ""
+            )
+            + ")"
+        )
+    if guard_bits:
+        print("[serve] guards: " + "  |  ".join(guard_bits))
 
 
 if __name__ == "__main__":

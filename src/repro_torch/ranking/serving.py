@@ -254,6 +254,8 @@ class GroupedRankServer:
             rows, valid = bucket_layout(sizes[gidx], b, offsets=offsets[gidx])
             cap = max(self.capacity_groups, len(gidx))
             if self.streaming:
+                # the ring pinned to the slot capacity: one program a
+                # bucket width (ROADMAP C10, ``DeviceExecutor.traces``)
                 res = self.executor.run_stream_grouped(
                     x, rows, valid, len(gidx), gp.eps_g, gp.k, arrivals=arr,
                     capacity_groups=cap, ring_capacity=cap, prepared=True,

@@ -1,7 +1,6 @@
 """Batched-request QWYC serving engine, the counterpart of
-``repro.serving.engine`` (``QWYCServer`` and ``StreamingServer``; the
-admission quarantine, the drift watchdog, the mesh and the degradation
-ladder are later slices, ROADMAP.md).
+``repro.serving.engine`` (``QWYCServer`` and ``StreamingServer``, with
+guarded serving; the mesh is a later slice, ROADMAP A15).
 
 Requests (feature vectors) arrive one at a time; the server micro-batches
 them and runs the cascade through an execution backend:
@@ -32,6 +31,18 @@ requests wait in an arrival-order queue, and each window of them streams
 through the device executor's admission ring (``run_stream``), which
 refills freed survivor lanes mid-cascade.  Per-request latency (in stage
 steps) and lane occupancy land in ``ServeStats``.
+
+Guarded serving: ``quarantine`` (default on) validates every ``submit``
+(float32-convertible, the shape of the first accepted row, all finite) and
+answers a rejected row at drain time with ``{"quarantined": True,
+"decision": None}`` at its submission position, so one poisoned row never
+reaches a device batch.  ``watchdog`` runs the sequential drift test over
+the audit stream (``serving/watchdog.py``) and widens the thresholds of
+the next flushes on alarm.  A wave that fails with an injected fault is
+retried with backoff, then falls device -> host
+(``api.backends.DegradationLadder``), recorded in
+``ServeStats.degradation_events``; any other error propagates (ROADMAP
+C11).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.api.backends import RETRYABLE, BackoffPolicy, DegradationLadder
 from repro_torch.api.registry import resolve_backend
 from repro_torch.api.scorers import StageScorer
 from repro_torch.core.executor import CascadePlan, matrix_producer
@@ -50,6 +62,7 @@ from repro_torch.core.qwyc import QWYCModel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.device_executor import DevicePlan, matrix_stage_scorer
+from repro_torch.serving.watchdog import DriftWatchdog, WatchdogConfig, widen_plan
 
 __all__ = ["ServeStats", "QWYCServer", "StreamingServer", "BACKENDS"]
 
@@ -82,6 +95,15 @@ class ServeStats:
     stream_cap_steps: int = 0  # sum over steps of slot capacity
     latency_steps: list[int] = dataclasses.field(default_factory=list)
     # latency_steps[i] = enqueue->decision latency of request i, in steps
+    # guarded-serving accounting, outside the billing gate's keys
+    quarantined: int = 0  # rows rejected at admission (never batched)
+    degradation_events: list = dataclasses.field(default_factory=list)
+    # DegradationEvent per ladder action: same-rung recovery or rung fall
+    watchdog_alarms: int = 0
+    watchdog_state: str = "off"  # off | ok | alarmed | recovering
+    watchdog_stat: float = 0.0  # current sequential llr
+    watchdog_margin: float = 0.0  # threshold widening in force next flush
+    watchdog_recovery_step: int | None = None  # flush index of last recovery
 
     @property
     def mean_models(self) -> float:
@@ -147,6 +169,10 @@ class QWYCServer:
         exec_backend="auto",
         backend_opts: dict | None = None,
         device="cuda",
+        quarantine: bool = True,
+        watchdog: bool | WatchdogConfig | DriftWatchdog | None = None,
+        backoff: BackoffPolicy | None = None,
+        sleep: Callable[[float], None] | None = None,
     ):
         """At least one of ``score_fn`` (x -> (N, T) scores in ORIGINAL
         model order, eager), ``chunk_score_fn`` (x, rows, t0, t1 -> scores
@@ -162,6 +188,17 @@ class QWYCServer:
         (``megakernel=``) to the backend's ``make_executor``.  ``device``
         defaults to the card and raises without one; ``"cpu"`` runs every
         kernel's plain version.
+
+        Guarded serving: ``quarantine`` (default on) validates every
+        ``submit``, and rejected rows come back from ``drain`` with an
+        explicit ``quarantined`` verdict.  ``watchdog`` (True, a
+        ``WatchdogConfig`` or a ``DriftWatchdog``) runs the drift test over
+        the audit stream and widens the thresholds on alarm; it needs an
+        audited configuration (``score_fn``, or ``chunk_score_fn`` with
+        ``audit_full_scores=True``).  ``backoff`` / ``sleep`` tune the
+        degradation ladder that retries a wave failed by an injected fault
+        and falls device -> host (``sleep`` is injectable so tests never
+        wait); its history lands in ``ServeStats.degradation_events``.
         """
         if scorer is not None and not isinstance(scorer, StageScorer):
             raise TypeError(
@@ -198,16 +235,78 @@ class QWYCServer:
         self._queue: list[np.ndarray] = []
         self._qseqs: list[int] = []  # submission seq of each queued row
         self._results: list[tuple[int, dict]] = []  # (seq, result)
+        self._quarantined: list[tuple[int, dict]] = []
         self._seq = 0
-        self._dev: tuple | None = None
+        self._dev: tuple | None = None  # the ACTIVE device-executor state
+        # executor state per (rung, watchdog margin): a widened plan is
+        # another program, and a rung fall another executor
+        self._dev_cache: dict[tuple, tuple] = {}
         # the executor result of every flush, in order (per-row g_final,
         # billing); StreamingServer keeps its waves' in stream_results
         self.flush_results: list = []
+        self.quarantine = bool(quarantine)
+        self._row_shape: tuple | None = None  # admission shape lock
+        self.ladder = DegradationLadder(
+            backoff=backoff, sleep=sleep, events=self.stats.degradation_events
+        )
+        if watchdog is True:
+            watchdog = WatchdogConfig(p0=float(getattr(qwyc, "alpha", 0.0) or 0.0))
+        if isinstance(watchdog, WatchdogConfig):
+            watchdog = DriftWatchdog(watchdog)
+        self._watchdog: DriftWatchdog | None = watchdog or None
+        self._wd_margin = 0.0
+        if self._watchdog is not None:
+            audited = (chunk_score_fn is not None and audit_full_scores) or (
+                score_fn is not None and scorer is None
+            )
+            if not audited:
+                raise ValueError(
+                    "watchdog needs the per-flush audit signal: pass score_fn, "
+                    "or chunk_score_fn with audit_full_scores=True"
+                )
+            self.stats.watchdog_state = self._watchdog.state
+
+    def _admit(self, x) -> tuple[int, np.ndarray | None]:
+        """Admission guard: (seq, float32 row) for a clean request, or
+        (seq, None) after quarantining a poisoned one.
+
+        The guard runs before admission, so one poisoned row never NaNs a
+        whole device batch; the row still gets a ``drain`` entry
+        (``quarantined: True, decision: None``) at its submission position.
+        With ``quarantine=False`` a conversion error raises.
+        """
+        seq = self._seq
+        self._seq += 1
+        if not self.quarantine:
+            return seq, np.asarray(x, dtype=np.float32)
+        reason = None
+        row = None
+        try:
+            row = np.asarray(x, dtype=np.float32)
+        except (TypeError, ValueError) as e:
+            reason = f"not convertible to float32: {e}"
+        if reason is None:
+            if self._row_shape is None:
+                self._row_shape = row.shape
+            elif row.shape != self._row_shape:
+                reason = f"shape {row.shape} != locked request shape {self._row_shape}"
+        if reason is None and not np.isfinite(row).all():
+            reason = "non-finite feature value (NaN/inf)"
+        if reason is None:
+            return seq, row
+        self._quarantined.append(
+            (seq, {"quarantined": True, "decision": None,
+                   "models_evaluated": 0, "reason": reason})
+        )
+        self.stats.quarantined += 1
+        return seq, None
 
     def submit(self, x) -> None:
-        self._queue.append(np.asarray(x, dtype=np.float32))
-        self._qseqs.append(self._seq)
-        self._seq += 1
+        seq, row = self._admit(x)
+        if row is None:
+            return
+        self._queue.append(row)
+        self._qseqs.append(seq)
         if len(self._queue) >= self.flush_size:
             self.flush()
 
@@ -228,13 +327,17 @@ class QWYCServer:
         return matrix_producer(ordered), ordered
 
     def _device_state(self):
-        """(executor, scorer, eager_matrix, key_fn), built once per server:
-        the device plan (with its lead stage under ``sorted-kernel``) is
-        fixed at construction, and partial final flushes are padded up to
-        ``flush_size`` via ``run(capacity=...)``."""
-        if self._dev is not None:
-            return self._dev
-        plan = self.plan
+        """(executor, scorer, eager_matrix, key_fn) of the active rung and
+        watchdog margin, built once each: the device plan (with its lead
+        stage under ``sorted-kernel``) is fixed per key, and partial final
+        flushes are padded up to ``flush_size`` via ``run(capacity=...)``.
+        ``self._dev`` holds the active one."""
+        key = (self.exec.name, self._wd_margin)
+        cached = self._dev_cache.get(key)
+        if cached is not None:
+            self._dev = cached
+            return cached
+        plan = widen_plan(self.plan, self._wd_margin)
         if self.backend == "sorted-kernel":
             plan = dataclasses.replace(plan, lead_t=1)
         dplan = DevicePlan.from_plan(plan)
@@ -258,7 +361,7 @@ class QWYCServer:
             def key_fn(x, n):
                 return scorer.fn(x, rows_all, 0, n)[:, 0]
 
-        self._dev = (executor, scorer, eager_matrix, key_fn)
+        self._dev = self._dev_cache[key] = (executor, scorer, eager_matrix, key_fn)
         return self._dev
 
     def _eager_or_raw(self, xb: np.ndarray, eager_matrix: bool):
@@ -302,6 +405,27 @@ class QWYCServer:
         billed = n * self.qwyc.T if eager_matrix else res.scores_computed + key_scores
         return res, ordered, billed
 
+    def _fall_rung(self, error, *, streaming: bool = False) -> None:
+        """Fall one rung after a failed wave and drop the executor state;
+        re-raises ``error`` when no acceptable rung remains."""
+
+        def accept(b):
+            caps = b.capabilities
+            if streaming and not caps.streaming:
+                return False
+            if caps.on_device:
+                return self.scorer_template is not None or self.score_fn is not None
+            # the host floor needs a host-side score source
+            return self.score_fn is not None or self.chunk_score_fn is not None
+
+        nxt = self.ladder.fall("wave", self.exec.name, error, accept=accept)
+        self.exec = nxt
+        self.on_device = nxt.capabilities.on_device
+        if not self.on_device:
+            self.scorer_template = None
+        self._dev = None
+        self._dev_cache.clear()
+
     def flush(self) -> list[dict]:
         if not self._queue:
             return []
@@ -311,14 +435,25 @@ class QWYCServer:
         self._queue = []
         self._qseqs = []
         n = xb.shape[0]
-        if self.on_device:
-            res, ordered, device_billed = self._run_device(xb, n)
-            # the host chunk producer doubles as the unbilled audit path
-            audit_read = (
-                self._producers(xb)[0] if self.chunk_score_fn is not None else None
-            )
-        else:
-            res, ordered, audit_read, device_billed = self._run_host(xb, n)
+        # the wave ladder: retry the rung with backoff, then fall one rung
+        # and re-run the SAME batch, so no request is lost to a fault
+        while True:
+            try:
+                if self.on_device:
+                    res, ordered, device_billed = self.ladder.attempt(
+                        "wave", self.exec.name, lambda: self._run_device(xb, n)
+                    )
+                    # the host chunk producer doubles as the unbilled audit path
+                    audit_read = (
+                        self._producers(xb)[0] if self.chunk_score_fn is not None else None
+                    )
+                else:
+                    res, ordered, audit_read, device_billed = self.ladder.attempt(
+                        "wave", self.exec.name, lambda: self._run_host(xb, n)
+                    )
+                break
+            except RETRYABLE as e:
+                self._fall_rung(e)
         self.flush_results.append(res)
         return self._finish_flush(
             t_start, xb, n, res, ordered, audit_read, device_billed, seqs
@@ -327,7 +462,7 @@ class QWYCServer:
     def _run_host(self, xb: np.ndarray, n: int):
         """Host stage-loop path for one batch ->
         (result, ordered|None, audit_read, billed=None)."""
-        plan = self.plan
+        plan = widen_plan(self.plan, self._wd_margin)
         producer, ordered = self._producers(xb)
         audit_read = producer  # unbilled access path for diff auditing
         row_order = None
@@ -411,14 +546,26 @@ class QWYCServer:
                 st.chunk_survivors.append(0)
             st.chunk_survivors[k] += s.n_in
         if full_score is not None:
-            st.diffs_vs_full += int((dec != (full_score >= m.beta)).sum())
+            diffs = int((dec != (full_score >= m.beta)).sum())
+            st.diffs_vs_full += diffs
+            if self._watchdog is not None:
+                # fold this flush into the sequential drift statistic; the
+                # returned margin widens the NEXT flush's thresholds
+                self._wd_margin = self._watchdog.observe(n, diffs)
+                st.watchdog_alarms = self._watchdog.alarms
+                st.watchdog_state = self._watchdog.state
+                st.watchdog_stat = self._watchdog.llr
+                st.watchdog_margin = self._wd_margin
+                st.watchdog_recovery_step = self._watchdog.recovery_step
         st.wall_s += time.time() - t_start
         return out
 
     def _merge_results(self) -> list[dict]:
-        """Every result not drained yet, in submission order."""
-        merged = sorted(self._results, key=lambda t: t[0])
+        """Every result not drained yet, the flushed and the quarantined,
+        in submission order."""
+        merged = sorted(self._results + self._quarantined, key=lambda t: t[0])
         self._results = []
+        self._quarantined = []
         return [d for _, d in merged]
 
     def drain(self) -> list[dict]:
@@ -452,8 +599,9 @@ class StreamingServer(QWYCServer):
     Streaming admission replaces the sorting policy (the ring is the
     arrival order), so only the ``kernel`` policy is accepted, and the
     execution backend needs the ``streaming`` capability (the device
-    backend; the host loop has no lanes to refill).  There is no
-    degradation ladder: a failed wave raises.
+    backend; the host loop has no lanes to refill), so a wave failed by an
+    injected fault retries on its rung and has no rung to fall to.
+    Quarantine keeps submission order.
     """
 
     def __init__(
@@ -499,8 +647,10 @@ class StreamingServer(QWYCServer):
                 f"arrivals must be nondecreasing (got {a} after {self._clock})"
             )
         self._clock = a
-        self._squeue.append((np.asarray(x, dtype=np.float32), a, self._seq))
-        self._seq += 1
+        seq, row = self._admit(x)
+        if row is None:
+            return
+        self._squeue.append((row, a, seq))
         if len(self._squeue) >= self.window:
             self.flush()
         elif self.max_wait is not None and a - self._squeue[0][1] >= self.max_wait:
@@ -517,12 +667,22 @@ class StreamingServer(QWYCServer):
         n = xb.shape[0]
         base = wave[0][1]
         arr_steps = np.floor(np.array([e[1] for e in wave]) - base).astype(np.int32)
-        executor, _, eager_matrix, _ = self._device_state()
-        batch, ordered = self._eager_or_raw(xb, eager_matrix)
-        res = executor.run_stream(
-            batch, n, arrivals=arr_steps, capacity=self.flush_size,
-            ring_capacity=self.window,
-        )
+        # the wave ladder, streaming edition: only rungs with the streaming
+        # capability are acceptable (the host loop has no admission ring)
+        while True:
+            try:
+                executor, _, eager_matrix, _ = self._device_state()
+                batch, ordered = self._eager_or_raw(xb, eager_matrix)
+                res = self.ladder.attempt(
+                    "wave", self.exec.name,
+                    lambda: executor.run_stream(
+                        batch, n, arrivals=arr_steps, capacity=self.flush_size,
+                        ring_capacity=self.window,
+                    ),
+                )
+                break
+            except RETRYABLE as e:
+                self._fall_rung(e, streaming=True)
         billed = n * self.qwyc.T if eager_matrix else res.scores_computed
         audit_read = (
             self._producers(xb)[0] if self.chunk_score_fn is not None else None

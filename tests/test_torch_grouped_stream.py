@@ -345,6 +345,33 @@ def test_streaming_server_matches_jax(fx, policy, batch):
     assert ex.traces <= jex.traces
 
 
+@pytest.mark.parametrize("policy", ["skip-ahead", "wait"])
+def test_streaming_server_traces_two_waves_one_width(fx, policy):
+    """ROADMAP C10: waves of one bucket width with different group counts.
+    Within one flush the waves' widths strictly increase (a wave takes
+    every queued group its width holds), so the server's flush threshold
+    cuts the queries into two flushes of one wave each: 3 and 2 groups,
+    all of width 4.  Verdicts, margins and the bill equal the reference's;
+    the port's ring is pinned to the slot capacity, so both waves share one
+    program, where the reference keys its ring on each wave's count."""
+    gp, jgp, F, sizes = fx["gp"], fx["jgp"], fx["F"], fx["sizes"]
+    small = np.flatnonzero(sizes <= 4)[:5]
+    assert small.size == 5
+    off = group_offsets(sizes)
+    Fs = np.concatenate([F[off[g] : off[g + 1]] for g in small])
+    ss = sizes[small]
+    ex, jex = _executors(gp, jgp)
+    kw = dict(batch_groups=3, capacity_groups=8, streaming=True, policy=policy)
+    srv = GroupedRankServer(gp, executor=ex, **kw)
+    jsrv = JServer(jgp, executor=jex, **kw)
+    arr = np.arange(ss.size, dtype=np.float64)
+    _same_results(_stream_serve(srv, Fs, ss, arr), _stream_serve(jsrv, Fs, ss, arr))
+    assert vars(srv.stats) == vars(jsrv.stats)
+    assert [r.capacity_groups for r in srv.stream_results] == [8, 8]
+    assert [len(r.exit_stage) for r in srv.stream_results] == [3, 2]
+    assert (ex.traces, jex.traces) == (1, 2)
+
+
 def test_streaming_server_submit_rules():
     F, sizes = _ragged(seed=2, G=6)
     gp = _port_plan(j_fit_grouped(F, sizes, K, alpha=0.05, chunk_t=CHUNK_T))

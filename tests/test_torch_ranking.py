@@ -556,8 +556,12 @@ def test_api_unported_and_invalid_options_raise(bench):
     for kw in ({"mesh": object()}, {"shards": 2}, {"model_shards": 2}, {"rebalance": True}):
         with pytest.raises(ValueError, match="ROADMAP A15"):
             fitted.compile("device", device="cpu", **kw)
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        fitted.compile("device", device="cpu", backoff=object())
+    # the degradation ladder is ported: backoff / sleep tune it
+    from repro_torch.api.backends import BackoffPolicy
+
+    laddered = fitted.compile("device", device="cpu", backoff=BackoffPolicy(retries=1),
+                              sleep=lambda s: None)
+    assert laddered.backend_name == "device" and laddered.degradation_events == []
     from repro_torch.api.scorers import MatrixScorer
 
     with pytest.raises(ValueError, match="ROADMAP A13"):

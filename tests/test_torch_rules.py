@@ -300,3 +300,27 @@ def test_grouped_streaming_raises_without_cuda(no_cuda):
         srv.submit(F[off[i] : off[i + 1]], arrival=float(i))
     assert [len(r["ranking"]) for r in srv.drain()] == [2, 2, 1, 2]
     assert srv.streaming and srv.policy == "wait" and srv.stats.n_waves >= 1
+
+
+def test_baseline_entry_points_raise_without_cuda(no_cuda):
+    """The masked-walk cascade, the MoE contributions and the device sweep
+    default to the card and raise without one; the ladder never makes the
+    host a rung of ``auto`` (it is reached only by a recorded fall)."""
+    import types
+
+    from repro_torch.core import cascade_from_scores, expert_contributions
+    from repro_torch.core.qwyc_distributed import fit_qwyc_sharded
+
+    S = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cascade_from_scores(S, np.full(3, np.inf), np.full(3, -np.inf), 0.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_qwyc_sharded(S)
+    p = {"router": np.zeros((2, 2)), "wi": np.zeros((2, 2, 1)),
+         "wg": np.zeros((2, 2, 1)), "wo": np.zeros((2, 1, 2))}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        expert_contributions(p, np.zeros((3, 2)), np.zeros(2),
+                             types.SimpleNamespace(n_experts=2, top_k=1))
+    assert backends.LADDER_ORDER == ("device", "host")
+    assert registry.NEGOTIATION_ORDER == ("device",)
+    assert backends.fallback_rung("device").name == "host"
