@@ -102,7 +102,7 @@ Phases, each of which stops the run on failure:
    weights rounded onto the grid quantised serving == f32 serving exactly;
    on the raw weights g within ``tolerance_bound`` of f32 serving wherever
    the exit did not move (moved verdicts and exits are reported).
-   In phases 4-4e, 4h and 4i the launch counts are set to 0 just before each path and
+   In phases 4-4e and 4h-4j the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
@@ -153,6 +153,28 @@ Phases, each of which stops the run on failure:
    the device rung; with every device wave failing, the eager server falls
    to the host (B3 + B2's reference form), verdicts unchanged.  Every
    other phase fails if the ladder records any event (``LadderWatch``).
+4j. The neural depth cascade at Qwen3-1.7B's published widths (28 layers,
+   d_model 2048, 16 / 8 heads of 128, d_ff 6144, vocab 151936, qk_norm,
+   an exit head every 2 layers: 14 exits), f32 weights drawn on the card
+   from ``NEURAL_SEED``, seeded uniform tokens of 128: the calibration of
+   1024 sequences with the chunked ``exit_scores``, ``api.fit`` at alpha
+   0.02 (order ``arange(14)``, cost 2 a stage, W 2: 7 stages; the
+   calibration disagreement within alpha), then 256 test sequences
+   through ``QWYCServer(scorer=NeuralScorer)`` at batch 64, captured and
+   ``capture=False`` (equal in every result, B2's step form 7 times a
+   flush), verdicts equal to ``evaluate_cascade`` on the test exit scores
+   outside a 1e-4 band, mean layers paid below 28; the captured and eager
+   flush walls against a full-depth forward at the same batch; an 8-layer
+   cut of the same widths through ``StreamingServer`` (B6 once a step
+   enqueued) equal to the batch path on the same rows outside the band;
+   B2's and B6's step forms equal to their plain versions on the neural
+   stages' own scores; the cut's query groups through ``run_grouped`` (B8
+   once a stage and for the epilogue) and ``run_stream_grouped`` (B8 once
+   a step enqueued), eager, captured and replayed equal to
+   ``capture=False`` bit for bit, and the card equal to the CPU and the
+   streaming loop to the batch loop outside the band; a 2-layer cut's exit
+   scores on the card within ``NEURAL_TOL`` of the CPU's (TF32 off);
+   ``torch.cuda.max_memory_allocated``.
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
@@ -252,6 +274,29 @@ QUANT_VARIANTS = [(v, q) for v in ("tree", "lattice") for q in QUANTS] + [("matr
 # lattice input counts phase 3 holds B4 and B7 lattice to their plain
 # versions at: every team shape of the warp-cooperative interpolation
 LATTICE_DIMS = (1, 2, 4, 5, 6, 8)
+# phase 4j: the neural depth cascade at Qwen3-1.7B's published widths
+# (src/repro_torch/configs/qwen3_1_7b.py) with an exit head every 2 layers
+# (14 exits), f32 weights drawn on the card from NEURAL_SEED; seeded
+# uniform tokens of NEURAL_SEQ; calibration and test sequences; the fit's
+# alpha and stage width (W 2: 7 stages); the servers' batch (lanes); the
+# streaming cut's depth (8 layers, 4 exits) and its Poisson arrival rate
+# (sequences a stage step) and ring; the card-vs-CPU cut's depth and rows;
+# the tolerance the card's exit scores are held to against the CPU's
+# (|card - cpu| <= NEURAL_TOL * max(1, max|cpu|), TF32 off); the band
+# within which a verdict may move between a served path and the oracle on
+# the calibration-route scores (other cuBLAS shapes sum in other orders)
+NEURAL_SEED, NEURAL_SEQ, NEURAL_CALIB, NEURAL_TEST = 2030, 128, 1024, 256
+NEURAL_ALPHA, NEURAL_CHUNK_T, NEURAL_BATCH = 0.02, 2, 64
+NEURAL_STREAM_LAYERS, NEURAL_STREAM_RATE, NEURAL_WINDOW = 8, 16.0, 256
+NEURAL_CPU_LAYERS, NEURAL_CPU_ROWS, NEURAL_TOL, NEURAL_BAND = 2, 8, 1e-4, 1e-4
+# the grouped loops on the streaming cut: query groups of the test
+# sequences in a bucket of width 2 (group 0 holds k documents: its margin
+# is +inf), the ranking depth, and the groups' arrival steps in the
+# streaming grouped loop (later groups join as rookies beside groups a
+# stage further on).  The CPU runs the same loops over 8 group slots:
+# 16 lanes of 8 layers at full width, 8 steps in the streaming loop
+NEURAL_GROUPS, NEURAL_GROUP_B, NEURAL_K = 6, 2, 1
+NEURAL_GROUP_ARRIVALS = (0, 0, 0, 1, 1, 2)
 # tree depths phase 3 holds B4 and B7 tree to their plain versions at:
 # depths 1 and 10 (B3's old limit), exp1's and exp2_nomao's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
@@ -350,6 +395,16 @@ PATH_KERNELS = {
     "guard_quarantine": {"gbt_scores", "mega_stage_tree"},
     "guard_recover": {"gbt_scores", "mega_stage_tree"},
     "guard_fall": {"gbt_scores", "cascade_chunk"},
+    # phase 4j: exit_scores (calibration, test scores, the full-depth
+    # forward) runs PyTorch ops only; the neural batch loop decides through
+    # B2's step form once a stage, the streaming loop through B6 once a step
+    "neural_scores": set(),
+    "neural_batch": {"cascade_chunk_step"},
+    "neural_stream": {"cascade_lane"},
+    # the grouped loops on the streaming cut: B8 once a stage and once for
+    # the epilogue (batch), once a step enqueued (streaming)
+    "neural_grouped": {"cascade_group"},
+    "neural_stream_grouped": {"cascade_group"},
 }
 for _v, _q in QUANT_VARIANTS:
     PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
@@ -629,10 +684,52 @@ def check_lane_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_lane
             n_cases += 1
         if not bool((want[3] > 0).any() and ((want[1] == 1) & (st == S - 1)).any()):
             raise AssertionError(f"B6 step check (cap {cap}): no exit or no active stop lane")
+    # W 2, the neural cascade's stage width (scalar loads, each lane's own
+    # table row): tables of 2 stages (phase 4j's streaming cut) and 7 (its
+    # full depth), the last stage ragged, at phase 4j's 64 lanes and past
+    # one CTA
+    rng_2 = np.random.default_rng(24)
+    for S2 in (2, 7):
+        tables = w2_tables(rng_2, S2, dev)
+        for cap in (64, 1300):
+            st = torch.from_numpy(rng_2.integers(0, S2, size=cap).astype(np.int32)).to(dev)
+            st[:S2] = torch.arange(S2, dtype=torch.int32, device=dev)
+            sc = torch.from_numpy(rng_2.normal(size=(cap, 2)).astype(np.float32)).to(dev)
+            gs = torch.from_numpy(rng_2.normal(size=cap).astype(np.float32)).to(dev)
+            gs[::5] = -0.0
+            for label, n_valid in [("all", None), ("nv=0", nv(0)), ("ragged nv", nv(cap - 9)),
+                                   ("host nv", cap // 3)]:
+                args = (gs, sc, st, *tables)
+                got = cascade_lane_step(*args, n_valid=n_valid, block_n=64)
+                want = cascade_lane_step_plain(*args, n_valid=n_valid)
+                what = f"step W 2 S {S2} cap {cap} {label}"
+                check.equal("cascade_lane", f"{what} g bits",
+                            got[0].view(torch.int32), want[0].view(torch.int32))
+                for k, (a, b) in enumerate(zip(got[1:], want[1:])):
+                    check.equal("cascade_lane", f"{what} output {k + 1}", a, b)
+                kept += int(got[5])
+                n_cases += 1
+            if not bool((want[3] > 0).any()):
+                raise AssertionError(f"B6 step check (W 2, S {S2}, cap {cap}): no exit")
     if not kept:
         raise AssertionError("B6 step check: no lane was kept")
-    log(f"[phase 3] B6 cascade_lane step form (caps 256, 1024, 1300) == plain "
-        f"({n_cases} cases, {kept} lanes kept)")
+    log(f"[phase 3] B6 cascade_lane step form (W 8 caps 256, 1024, 1300; W 2 at 2 and 7 "
+        f"stages, caps 64, 1300) == plain ({n_cases} cases, {kept} lanes kept)")
+
+
+def w2_tables(rng, S: int, dev) -> tuple:
+    """(eps_pos, eps_neg, col_valid) tables of ``S`` stages of width 2 on
+    ``dev``: drawn thresholds, stage 1 at ±inf, the last stage ragged (its
+    second column masked, at ±inf)."""
+    import numpy as np
+    import torch
+
+    ep = rng.uniform(0.3, 2.0, size=(S, 2)).astype(np.float32)
+    en = -rng.uniform(0.3, 2.0, size=(S, 2)).astype(np.float32)
+    col = np.ones((S, 2), bool)
+    ep[1], en[1] = np.inf, -np.inf
+    col[S - 1, 1], ep[S - 1, 1], en[S - 1, 1] = False, np.inf, -np.inf
+    return tuple(torch.from_numpy(a).to(dev) for a in (ep, en, col))
 
 
 def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chunk_step) -> None:
@@ -643,9 +740,11 @@ def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chu
     W 8 on exp1's plan geometry (the lead stage, a full stage, the ragged
     last stage) with the rows 16-byte aligned and misaligned; W 3 and 12
     (scalar loads, a partial group) on tables of 5 stages (a full stage, a
-    ±inf one, a ragged last one).  Caps 1 to 1300: one CTA up to 1024
-    lanes, block prefixes and a combine past that.  All six outputs
-    equal, ``g`` by its bits; the last stage's survivors are kept."""
+    ±inf one, a ragged last one); W 2, the neural cascade's, on tables of
+    7 stages (the first, a ±inf one, the ragged last one), at phase 4j's
+    64 rows too.  Caps 1 to 1300: one CTA up to 1024 lanes, block
+    prefixes and a combine past that.  All six outputs equal, ``g`` by
+    its bits; the last stage's survivors are kept."""
     import numpy as np
     import torch
 
@@ -659,10 +758,13 @@ def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chu
 
     rng_s = np.random.default_rng(23)
     n_cases, kept, exits = 0, 0, 0
-    for form in ("8", "8 misaligned", "3", "12"):
+    for form in ("8", "8 misaligned", "3", "12", "2"):
         W = int(form.split()[0])
+        caps = (1, 31, 64, 256, 1300) if W == 2 else (1, 31, 256, 1024, 1025, 1300)
         if W == 8:
             tables, stages = (eps_pos, eps_neg, col_valid), (0, 5, eps_pos.shape[0] - 1)
+        elif W == 2:
+            tables, stages = w2_tables(rng_s, 7, dev), (0, 1, 6)
         else:
             ep = rng_s.uniform(0.3, 2.0, size=(5, W)).astype(np.float32)
             en = -rng_s.uniform(0.3, 2.0, size=(5, W)).astype(np.float32)
@@ -670,7 +772,7 @@ def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chu
             ep[1], en[1] = np.inf, -np.inf
             col[4, W - 2:], ep[4, W - 2:], en[4, W - 2:] = False, np.inf, -np.inf
             tables, stages = (t(ep), t(en), t(col)), (2, 1, 4)
-        for cap in (1, 31, 256, 1024, 1025, 1300):
+        for cap in caps:
             g = rng_s.normal(scale=0.5, size=cap + 1).astype(np.float32)
             g[::7] = -0.0
             g = t(g)
@@ -702,7 +804,7 @@ def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chu
                     n_cases += 1
     if not (kept and exits):
         raise AssertionError(f"B2 step check: {kept} lanes kept, {exits} exits")
-    log(f"[phase 3] B2 cascade_chunk step form (caps 1-1300, W 8 / 8 misaligned / 3 / 12) "
+    log(f"[phase 3] B2 cascade_chunk step form (caps 1-1300, W 8 / 8 misaligned / 3 / 12 / 2) "
         f"== plain ({n_cases} cases, {kept} lanes kept, {exits} exits)")
 
 
@@ -2835,6 +2937,451 @@ def phase_quant(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
     return dict(batch_server=batch_server, stream_server=stream_server, cells=cells)
 
 
+def phase_neural(report: dict, launches: dict, check: Check) -> dict:
+    """Phase 4j: the neural depth cascade at Qwen3-1.7B's published widths
+    (28 layers, d_model 2048, vocab 151936, an exit head every 2 layers: 14
+    exits), random f32 weights drawn on the card.  Calibrates with the
+    chunked ``exit_scores``, fits (``api.fit(NeuralScorer, tokens)``), serves
+    the test sequences through ``QWYCServer(scorer=NeuralScorer)`` captured
+    and with ``capture=False`` (B2's step form once a stage), streams an
+    8-layer cut of the same widths through ``StreamingServer`` (B6 once a
+    step) against the batch path on the same rows and the cut's query groups
+    through both grouped loops (B8), holds B2's and B6's step forms against
+    their plain versions on the neural stages' own scores, and holds a
+    2-layer cut's exit scores on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.core.early_exit import exit_deltas, exit_scores
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import QWYCServer, StreamingServer
+
+    card = report["card"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen3-1.7b").scaled(exit_interval=2)
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(NEURAL_SEED),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for d in (params["embed"], params["layers"]["attn"],
+                                       params["layers"]["mlp"]) for v in d.values())
+    log(f"[phase 4j] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers // cfg.exit_interval} exits; {n_params / 1e9:.3f}e9 "
+        f"f32 weights drawn on the card in {time.perf_counter() - t:.1f}s")
+    toks = np.random.default_rng(NEURAL_SEED + 1).integers(
+        0, cfg.vocab_size, size=(NEURAL_CALIB + NEURAL_TEST, NEURAL_SEQ))
+    calib, test = toks[:NEURAL_CALIB], toks[NEURAL_CALIB:]
+    scorer = api.NeuralScorer(params, cfg, seq_len=NEURAL_SEQ)
+    E = scorer.n_exits
+
+    t = time.perf_counter()
+    fitted = counted(launches, "neural_scores/calibration", lambda: api.fit(
+        scorer, calib, alpha=NEURAL_ALPHA, chunk_t=NEURAL_CHUNK_T))
+    calib_s = time.perf_counter() - t
+    m = fitted.model
+    if not (np.array_equal(m.order, np.arange(E)) and np.all(m.costs == cfg.exit_interval)):
+        raise AssertionError(f"neural fit: order {m.order}, costs {m.costs}")
+    ev_calib = evaluate_cascade(m, fitted.calibration_scores)
+    if ev_calib["diff_rate"] > NEURAL_ALPHA:
+        raise AssertionError(f"neural fit: calibration disagreement {ev_calib['diff_rate']} > "
+                             f"alpha {NEURAL_ALPHA}")
+    log(f"[phase 4j] calibration: exit_scores over {calib.shape} tokens and the fit in "
+        f"{calib_s:.1f}s; calibration mean layers {ev_calib['mean_cost']:.2f}/{cfg.n_layers}, "
+        f"disagreement {ev_calib['diff_rate']:.4f} <= alpha {NEURAL_ALPHA}")
+    S_test = counted(launches, "neural_scores/test", lambda: exit_scores(params, cfg, test))
+    F_test = exit_deltas(S_test)
+    S_test = S_test.cpu().numpy().astype(np.float64)
+
+    def near_band(model, F):
+        """Rows whose running sum comes within the band of a finite
+        threshold or of beta."""
+        G = np.cumsum(F[:, model.order], axis=1)
+        band = NEURAL_BAND * max(1.0, float(np.abs(G).max()))
+        near = np.abs(G[:, -1] - model.beta) <= band
+        for eps in (model.eps_pos, model.eps_neg):
+            fin = np.isfinite(eps)
+            near |= (np.abs(G[:, fin] - eps[fin]) <= band).any(axis=1)
+        return near
+
+    def verdicts(res):
+        return (np.array([r["decision"] for r in res]),
+                np.array([r["models_evaluated"] for r in res]))
+
+    def agree(what, a, b, near):
+        """Verdicts ``a`` and ``b`` equal on every row outside the band;
+        returns the rows that differ (all inside it)."""
+        diff = (a[0] != b[0]) | (a[1] != b[1])
+        if (diff & ~near).any():
+            raise AssertionError(f"{what}: {int((diff & ~near).sum())} rows differ outside the "
+                                 f"band (rows {np.flatnonzero(diff & ~near)[:8]})")
+        return int(diff.sum())
+
+    out: dict = {"card": card, "calibration_s": calib_s, "n_exits": E,
+                 "calib_diff_rate": ev_calib["diff_rate"]}
+
+    def batch_server(model, sc, **kw):
+        return QWYCServer(model, scorer=sc, backend="kernel", batch_size=NEURAL_BATCH,
+                          chunk_t=NEURAL_CHUNK_T, device="cuda", **kw)
+
+    # the batch server over the test sequences, captured and eager
+    t = time.perf_counter()
+    srv = batch_server(m, scorer)
+    res = counted(launches, "neural_batch", lambda: serve(srv, test))
+    eager_twin(launches, "neural_batch", srv, res, batch_server(
+        m, scorer, backend_opts={"capture": False}), lambda x: serve(x, test))
+    serve_s = time.perf_counter() - t
+    n_flush, S = srv.stats.n_batches, srv._dev[0].dplan.S
+    b2 = launches["neural_batch"].get("cascade_chunk_step", 0)
+    if b2 != n_flush * S:
+        raise AssertionError(f"neural_batch: {b2} B2 launches over {n_flush} flushes of {S} "
+                             "stages")
+    stages_live = [len(r.chunk_stats) for r in srv.flush_results]
+    ev = evaluate_cascade(m, F_test)
+    got = verdicts(res)
+    near = near_band(m, F_test)
+    moved = agree("neural_batch vs evaluate_cascade", got,
+                  (ev["decisions"], ev["exit_step"]), near)
+    layers = float(got[1].mean()) * cfg.exit_interval
+    if not layers < cfg.n_layers:
+        raise AssertionError(f"neural_batch: mean layers paid {layers} not below {cfg.n_layers}")
+    log(f"[phase 4j] served {NEURAL_TEST} sequences in {n_flush} flushes of batch "
+        f"{NEURAL_BATCH} (one CUDA graph == capture=False) in {serve_s:.1f}s: mean layers paid "
+        f"{layers:.2f}/{cfg.n_layers}, diff vs full depth "
+        f"{float((got[0] != (S_test[:, -1] >= m.beta)).mean()):.4f}; B2 {b2} launches = "
+        f"{n_flush} flushes x {S} stages enqueued (stages with live rows {stages_live}); "
+        f"{moved} verdicts moved vs evaluate_cascade, {int(near.sum())} rows in the band")
+    out.update(mean_layers=layers, flushes=n_flush, stages=S, b2_launches=b2,
+               stages_with_live_rows=stages_live, moved_vs_oracle=moved,
+               band_rows=int(near.sum()))
+
+    # walls at one batch: a captured and an eager flush against a full-depth
+    # forward (exit_scores over the same rows)
+    x = test[:NEURAL_BATCH]
+    x_dev = torch.from_numpy(x).cuda()
+    twin = batch_server(m, scorer, backend_opts={"capture": False})
+    ex_cap, ex_eager = srv._dev[0], twin._device_state()[0]
+    flush_ms = wall_ms(lambda: ex_cap.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH), reps=5)
+    eager_ms = wall_ms(lambda: ex_eager.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH), reps=3)
+    full_ms = counted(launches, "neural_scores/full_depth",
+                      lambda: wall_ms(lambda: exit_scores(params, cfg, x_dev), reps=3))
+    flush_res = ex_cap.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH)
+    paid = float(flush_res.exit_step.mean()) * cfg.exit_interval
+    log(f"[phase 4j] {card}: batch {NEURAL_BATCH} x {NEURAL_SEQ} tokens: captured flush "
+        f"{flush_ms:.1f} ms, eager flush {eager_ms:.1f} ms, full-depth forward {full_ms:.1f} ms "
+        f"(the flush's rows paid {paid:.2f} of {cfg.n_layers} layers; the captured loop runs "
+        f"all {S} stages at the full capacity)")
+    out.update(flush_ms=flush_ms, eager_flush_ms=eager_ms, full_depth_ms=full_ms,
+               flush_layers_paid=paid)
+    out["b2_real_scores"] = check_neural_chunk_step(check, ex_cap, x)
+    del srv, twin, ex_cap, ex_eager
+
+    # the streaming cut: the first NEURAL_STREAM_LAYERS layers and their
+    # exits at the same widths, fit on the full calibration's first columns
+    cut = NEURAL_STREAM_LAYERS
+    E8 = cut // cfg.exit_interval
+    cfg8 = cfg.scaled(n_layers=cut)
+    params8 = {**params, "exit_heads": params["exit_heads"][:E8],
+               "layers": _layer_slice(params["layers"], cut)}
+    sc8 = api.NeuralScorer(params8, cfg8, seq_len=NEURAL_SEQ)
+    m8 = api.fit(fitted.calibration_scores[:, :E8], alpha=NEURAL_ALPHA,
+                 chunk_t=NEURAL_CHUNK_T, **sc8.fit_overrides()).model
+    arr = poisson_arrivals(NEURAL_TEST, NEURAL_STREAM_RATE)
+
+    def stream_server(**kw):
+        return StreamingServer(m8, scorer=sc8, batch_size=NEURAL_BATCH, window=NEURAL_WINDOW,
+                               chunk_t=NEURAL_CHUNK_T, device="cuda", **kw)
+
+    t = time.perf_counter()
+    ss = stream_server()
+    sres = counted(launches, "neural_stream", lambda: stream_serve(ss, test, arr))
+    eager_twin(launches, "neural_stream", ss, sres,
+               stream_server(backend_opts={"capture": False}),
+               lambda x: stream_serve(x, test, arr))
+    stream_s = time.perf_counter() - t
+    enq = sum(r.steps_enqueued for r in ss.stream_results)
+    b6 = launches["neural_stream"].get("cascade_lane", 0)
+    if b6 != enq:
+        raise AssertionError(f"neural_stream: {b6} B6 launches, {enq} steps enqueued")
+    bsrv = batch_server(m8, sc8)
+    bres = counted(launches, "neural_batch/cut", lambda: serve(bsrv, test))
+    F8 = F_test[:, :E8]
+    moved8 = agree("neural_stream vs the batch path", verdicts(sres), verdicts(bres),
+                   near_band(m8, F8))
+    steps = sum(r.steps_run for r in ss.stream_results)
+    log(f"[phase 4j] streaming cut ({cut} layers, {E8} exits, same widths): {NEURAL_TEST} "
+        f"sequences at {NEURAL_STREAM_RATE}/step through {NEURAL_BATCH} lanes in "
+        f"{len(ss.stream_results)} waves, {steps} steps run, {enq} enqueued, B6 {b6} launches "
+        f"(one a step enqueued), one CUDA graph == capture=False, in {stream_s:.1f}s; "
+        f"{moved8} verdicts differ from the batch path on the same rows, mean layers paid "
+        f"{ss.stats.models_evaluated / ss.stats.n_requests * cfg.exit_interval:.2f}/{cut}")
+    out.update(stream_waves=len(ss.stream_results), stream_steps=steps, stream_enqueued=enq,
+               b6_launches=b6, stream_moved_vs_batch=moved8, stream_s=stream_s)
+    out["b6_real_scores"] = check_neural_lane_step(check, ss._dev[0], test[:NEURAL_BATCH])
+    del ss, bsrv
+    out["grouped"] = neural_grouped(launches, m8, sc8, test, F8)
+
+    # the card against the CPU on a 2-layer cut of the same widths
+    cut2 = NEURAL_CPU_LAYERS
+    cfg2 = cfg.scaled(n_layers=cut2)
+    p2 = {**params, "exit_heads": params["exit_heads"][: cut2 // cfg.exit_interval],
+          "layers": _layer_slice(params["layers"], cut2)}
+    rows = test[:NEURAL_CPU_ROWS]
+    on_card = exit_scores(p2, cfg2, rows).cpu()
+    t = time.perf_counter()
+    p2_cpu = {k: _to_cpu(v) for k, v in p2.items()}
+    on_cpu = exit_scores(p2_cpu, cfg2, rows)
+    err = float((on_card - on_cpu).abs().max())
+    bound = NEURAL_TOL * max(1.0, float(on_cpu.abs().max()))
+    if not err <= bound:
+        raise AssertionError(f"neural {cut2}-layer cut: card vs CPU exit scores max abs err "
+                             f"{err} > {bound}")
+    log(f"[phase 4j] {cut2}-layer cut at full widths, {NEURAL_CPU_ROWS} sequences: exit scores "
+        f"card vs CPU max abs err {err:.3g} <= {bound:.3g} (TF32 off; CPU in "
+        f"{time.perf_counter() - t:.1f}s)")
+    out.update(cpu_max_abs_err=err, cpu_bound=bound)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase 4j] {card}: torch.cuda.max_memory_allocated "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB; the phase took {out['phase_s']:.1f}s")
+    report["neural"] = out
+    del params, params8, p2, p2_cpu, scorer, sc8, fitted
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_neural_chunk_step(check: Check, ex, x) -> dict:
+    """Phase 4j: B2's step form against ``cascade_chunk_step_plain`` on the
+    neural stages' own scores (W 2, 7 stages, the batch executor ``ex``'s
+    tables): ``x``'s rows go through every stage of the bound scorer, its
+    state carried, and each stage's scores are decided by the wrapper and
+    the plain version with every row live, a device live count mid-block
+    (the rows past it at the trash slot) and a host count.  All six
+    outputs equal, ``g`` by its bits; the next stage reads the running sums
+    of the all-live call."""
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_chunk_step, cascade_chunk_step_plain
+
+    bound, dp, dev = ex.scorer, ex.dplan, ex.device
+    xp = bound.prepare(x)
+    cap = xp.shape[0]
+    lane = torch.arange(cap, device=dev)
+    g = torch.zeros(cap + 1, dtype=torch.float32, device=dev)
+    state: dict = {}
+    n_cases, exits = 0, 0
+    for s in range(dp.S):
+        t0 = int(dp.stage_t0[s])
+        n_all = torch.tensor(cap, dtype=torch.int32, device=dev)
+        scores, state = bound.stage(state, t0, t0 + dp.W, lane, xp, n_all)
+        for label, live in [("all", cap), ("device n_valid", cap // 2 + 5),
+                            ("host n_valid", cap // 3)]:
+            rows = torch.where(lane < live, lane, cap)
+            n_valid = {"all": None, "host n_valid": live}.get(
+                label, torch.tensor(live, dtype=torch.int32, device=dev))
+            args = (g, rows, scores, s, ex._eps_pos, ex._eps_neg, ex._col_valid)
+            got = cascade_chunk_step(*args, n_valid=n_valid, block_n=ex.block_n)
+            want = cascade_chunk_step_plain(*args, n_valid=n_valid)
+            what = f"neural stage {s} {label}"
+            check.equal("cascade_chunk_step", f"{what} g bits",
+                        got[0].view(torch.int32), want[0].view(torch.int32))
+            for k, (a, b) in enumerate(zip(got[1:], want[1:])):
+                check.equal("cascade_chunk_step", f"{what} output {k + 1}", a, b)
+            n_cases += 1
+            if n_valid is None:
+                exits += int((got[3] > 0).sum())
+                g_next = got[0]
+        g[:cap] = g_next
+    log(f"[phase 4j] B2 step form == plain on the neural stages' own scores ({cap} rows, "
+        f"W {dp.W}, {dp.S} stages, {n_cases} cases, {exits} exits over the stages)")
+    return dict(cases=n_cases, exits=exits)
+
+
+def check_neural_lane_step(check: Check, ex, x) -> dict:
+    """Phase 4j: B6's step form against ``cascade_lane_step_plain`` on the
+    streaming cut's own lane scores (W 2, 2 stages, the streaming executor
+    ``ex``'s tables): a first lane step with every lane a rookie, then a
+    second with the odd lanes a stage further on (their state and partial
+    sums carried from the first) beside rookies, each decided by the
+    wrapper and the plain version with every lane live, a device live
+    count and a host one.  All six outputs equal, ``g`` by its bits."""
+    import torch
+
+    from repro_torch.kernels.cascade_kernel import cascade_lane_step, cascade_lane_step_plain
+
+    bound, dp, dev = ex.scorer, ex.dplan, ex.device
+    xp = bound.prepare(x)
+    cap = xp.shape[0]
+    lanes = torch.arange(cap, device=dev)
+    n_all = torch.tensor(cap, dtype=torch.int32, device=dev)
+    t0s = torch.as_tensor(dp.stage_t0, device=dev).to(torch.int32)
+    zeros = torch.zeros(cap, dtype=torch.int32, device=dev)
+    scores0, state = bound.lane_stage(bound.init_state(cap, dev), t0s[zeros.long()], lanes, xp,
+                                      n_all)
+    g0 = torch.full((cap,), -0.0, dtype=torch.float32, device=dev)
+    for j in range(dp.W):
+        g0 = g0 + scores0[:, j]
+    stages = (lanes % 2).to(torch.int32)
+    scores1, _ = bound.lane_stage(state, t0s[stages.long()], lanes, xp, n_all)
+    gl = torch.where(stages > 0, g0, -0.0)
+    n_cases = 0
+    for step, (g, st, sc) in enumerate([(torch.full_like(g0, -0.0), zeros, scores0),
+                                        (gl, stages, scores1)]):
+        for label, n_valid in [("all", None),
+                               ("device n_valid", torch.tensor(cap - 9, dtype=torch.int32,
+                                                               device=dev)),
+                               ("host n_valid", cap // 3)]:
+            args = (g, sc.contiguous(), st, ex._eps_pos, ex._eps_neg, ex._col_valid)
+            got = cascade_lane_step(*args, n_valid=n_valid, block_n=ex.block_n)
+            want = cascade_lane_step_plain(*args, n_valid=n_valid)
+            what = f"neural lane step {step} {label}"
+            check.equal("cascade_lane", f"{what} g bits",
+                        got[0].view(torch.int32), want[0].view(torch.int32))
+            for k, (a, b) in enumerate(zip(got[1:], want[1:])):
+                check.equal("cascade_lane", f"{what} output {k + 1}", a, b)
+            n_cases += 1
+    log(f"[phase 4j] B6 step form == plain on the streaming cut's own lane scores ({cap} "
+        f"lanes, W {dp.W}, {dp.S} stages, rookies beside lanes a stage on; {n_cases} cases)")
+    return dict(cases=n_cases)
+
+
+def group_margins(F, rows, valid, k: int, W: int, S: int):
+    """(G, S) f64 margins (the k-th minus the (k+1)-th best running sum of a
+    group's documents at the end of each stage; +inf for a group of at
+    most k) and (G,) the smallest gap between two of a group's running
+    sums at any stage, from the (N, E) exit deltas ``F``."""
+    import numpy as np
+
+    G = rows.shape[0]
+    margins = np.full((G, S), np.inf)
+    gaps = np.full(G, np.inf)
+    for s in range(S):
+        c = F[:, : (s + 1) * W].sum(axis=1)
+        for i in range(G):
+            v = np.sort(c[rows[i][valid[i] != 0]])[::-1]
+            if v.size > 1:
+                gaps[i] = min(gaps[i], float(np.diff(-v).min()))
+            if v.size > k:
+                margins[i, s] = v[k - 1] - v[k]
+    return margins, gaps
+
+
+def neural_grouped(launches: dict, model, scorer, toks, F) -> dict:
+    """Phase 4j: the state carry through the grouped loops on the streaming
+    cut (8 layers, 4 exits, W 2: 2 stages).  ``NEURAL_GROUPS`` query groups
+    of the test sequences (``F`` their exit deltas from ``exit_scores``),
+    a margin threshold midway between the two middle first-stage margins
+    (so that about half the groups exit at once), through
+    ``run_grouped`` and ``run_stream_grouped`` (groups arriving at
+    ``NEURAL_GROUP_ARRIVALS``): three runs captured (eager, captured,
+    replayed) each equal to ``capture=False`` bit for bit and launching B8
+    once a stage and once for the epilogue (batch) or once a step enqueued
+    (streaming); the CPU and the streaming loop equal to the card's batch
+    loop on every group outside the band (whose ranking or margin comes
+    within it of a flip at some stage), margins within ``NEURAL_TOL``."""
+    import numpy as np
+
+    from repro_torch.core import CascadePlan
+    from repro_torch.kernels.device_executor import DeviceExecutor, DevicePlan
+
+    dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(model, chunk_t=NEURAL_CHUNK_T))
+    S, W, k = dplan.S, dplan.W, NEURAL_K
+    G, B = NEURAL_GROUPS, NEURAL_GROUP_B
+    rows = np.arange(G * B).reshape(G, B)
+    sizes = np.full(G, B)
+    sizes[0] = k
+    valid = (np.arange(B)[None, :] < sizes[:, None]).astype(np.int32)
+    x = toks[: G * B]
+    margins, gaps = group_margins(np.asarray(F[: G * B], np.float64), rows, valid, k, W, S)
+    m0 = np.sort(margins[sizes > k, 0])
+    eps = np.float32((m0[m0.size // 2 - 1] + m0[m0.size // 2]) / 2)
+    eps_g = np.full(S, eps, dtype=np.float32)
+    scale = max(1.0, float(np.abs(np.cumsum(F[: G * B], axis=1)).max()))
+    band = NEURAL_BAND * scale
+    near = (gaps <= band) | (np.abs(margins - eps).min(axis=1) <= band)
+    arrivals = np.array(NEURAL_GROUP_ARRIVALS)
+
+    def executor(device, capture=True):
+        return DeviceExecutor(dplan, scorer.bind(dplan, device=device), device=device,
+                              capture=capture)
+
+    def exact(what, a, b):
+        for f in ("verdicts", "exit_stage", "admit_step", "done_step", "occupancy"):
+            if hasattr(a, f) and not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{what}: {f} differ")
+        if not np.array_equal(a.margin.view(np.int32), b.margin.view(np.int32)):
+            raise AssertionError(f"{what}: margin bits differ")
+        for f in ("chunk_stats", "scores_computed", "scores_possible", "steps_run",
+                  "steps_enqueued", "syncs"):
+            if getattr(a, f, None) != getattr(b, f, None):
+                raise AssertionError(f"{what}: {f} differ")
+
+    def outside_band(what, a, b):
+        diff = (a.exit_stage != b.exit_stage) | (a.verdicts != b.verdicts).any(axis=1)
+        if (diff & ~near).any():
+            raise AssertionError(f"{what}: groups {np.flatnonzero(diff & ~near)} differ "
+                                 "outside the band")
+        fin = np.isfinite(a.margin) & ~near
+        err = np.abs(a.margin[fin].astype(np.float64) - b.margin[fin])
+        if fin.any() and not err.max() <= NEURAL_TOL * scale:
+            raise AssertionError(f"{what}: margins differ by {err.max()}")
+        return int(diff.sum())
+
+    out: dict = {"groups": G, "bucket": B, "k": k, "eps_g": float(eps),
+                 "band_groups": int(near.sum())}
+    res = {}
+    for loop, path, kw in (("run_grouped", "neural_grouped", {}),
+                           ("run_stream_grouped", "neural_stream_grouped",
+                            dict(arrivals=arrivals))):
+        def call(ex):
+            return getattr(ex, loop)(x, rows, valid, G, eps_g, k, **kw)
+
+        ex, twin = executor("cuda"), executor("cuda", capture=False)
+        runs = [counted(launches, f"{path}/run{i}", lambda: call(ex)) for i in range(3)]
+        eager = counted(launches, f"{path}/eager", lambda: call(twin))
+        n_b8 = S + 1 if loop == "run_grouped" else eager.steps_enqueued
+        for p in [f"{path}/run{i}" for i in range(3)] + [f"{path}/eager"]:
+            if launches[p] != {"cascade_group": n_b8}:
+                raise AssertionError(f"{p}: launched {launches[p]}, expected B8 {n_b8} times")
+        for i, r in enumerate(runs):
+            exact(f"{path} run {i} vs capture=False", r, eager)
+        if not (ex.traces == twin.traces == len(ex._graphs) == 1 and not twin._graphs):
+            raise AssertionError(f"{path}: traces {ex.traces} / {twin.traces}, graphs "
+                                 f"{len(ex._graphs)} / {len(twin._graphs)}, expected 1")
+        t = time.perf_counter()
+        cpu = call(executor("cpu"))
+        cpu_s = time.perf_counter() - t
+        res[loop] = eager
+        if not (1 in eager.exit_stage and S in eager.exit_stage):
+            raise AssertionError(f"{path}: exit stages {eager.exit_stage}, expected 1 and {S}")
+        moved = outside_band(f"{path} card vs CPU", eager, cpu)
+        out[loop] = dict(b8_launches=n_b8, exit_stage=eager.exit_stage.tolist(),
+                         moved_vs_cpu=moved, cpu_s=cpu_s,
+                         steps_enqueued=getattr(eager, "steps_enqueued", None))
+        log(f"[phase 4j] {loop} on the cut: {G} groups of up to {B} sequences, k {k}, eps_g "
+            f"{eps:.4g}: exit stages {eager.exit_stage.tolist()}, B8 {n_b8} launches a run; "
+            f"eager, captured and replayed == capture=False; card vs CPU: {moved} groups "
+            f"differ, {int(near.sum())} in the band (CPU in {cpu_s:.1f}s)")
+    st = res["run_stream_grouped"]
+    if not (st.admit_step > 0).any():
+        raise AssertionError("neural_stream_grouped: no group joined a later step")
+    out["stream_moved_vs_batch"] = outside_band(
+        "neural_stream_grouped vs run_grouped", st, res["run_grouped"])
+    return out
+
+
+def _layer_slice(layers: dict, n: int) -> dict:
+    """The first ``n`` layers of leading-L stacked layer params (views)."""
+    return {k: _layer_slice(v, n) if isinstance(v, dict) else v[:n] for k, v in layers.items()}
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+
+
 def phase_gate(report: dict) -> None:
     """Phase 4f: the port's billing gate (``benchmarks/torch/perf_gate.py
     --device cuda --check``) on the card: the reference gate's fixtures
@@ -3783,6 +4330,7 @@ def main() -> int:
     rank_stream_ctx = timed("4g", phase_rank_stream, report, launches, rank_ctx)
     timed("4h", phase_baselines, report, launches, main_ctx)
     timed("4i", phase_guarded, report, launches, main_ctx, ctx)
+    timed("4j", phase_neural, report, launches, check)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

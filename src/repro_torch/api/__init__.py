@@ -18,6 +18,7 @@ from repro_torch.api.scorers import (
     FunctionScorer,
     LatticeScorer,
     MatrixScorer,
+    NeuralScorer,
     StageScorer,
     TreeScorer,
     get_scorer,
@@ -44,6 +45,7 @@ __all__ = [
     "MatrixScorer",
     "TreeScorer",
     "LatticeScorer",
+    "NeuralScorer",
     "FunctionScorer",
     "register_scorer",
     "get_scorer",

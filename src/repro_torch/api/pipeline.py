@@ -22,9 +22,13 @@ runs only when named or reached down the runtime degradation ladder
 (``api.backends.DegradationLadder``): an injected construction or wave
 fault is retried with backoff, then falls device -> host, each step
 recorded on ``CompiledCascade.degradation_events``.  Any other error
-propagates (ROADMAP C11).  Options whose modules are not ported raise
-``ValueError`` naming their ROADMAP item: the mesh and shard options (A15)
-and a model-backed ``StageScorer`` fit (A13).
+propagates (ROADMAP C11).  The mesh and shard options, whose executors
+are not ported, raise ``ValueError`` naming ROADMAP A15.
+
+A model-backed fit (``fit(NeuralScorer(params, cfg, seq_len), tokens)``)
+calibrates on the scorer's own per-block scores, pins the fields its
+family requires (depth order, layer costs), and keeps the scorer as the
+default that ``compile`` and ``serve`` bind.
 """
 
 from __future__ import annotations
@@ -58,11 +62,6 @@ __all__ = ["FitConfig", "FittedCascade", "CompiledCascade", "fit"]
 _SHARDED_TODO = (
     "mesh/shards/model_shards/rebalance need the sharded executors, not "
     "ported yet (ROADMAP A15)"
-)
-_SCORER_FIT_TODO = (
-    "a model-backed fit (a StageScorer that scores its own calibration "
-    "inputs, the neural scorer) is not ported yet (ROADMAP A13); pass a "
-    "score matrix or a score function"
 )
 
 
@@ -134,8 +133,15 @@ def fit(
         batched scorer (e.g. a closure over ``ops.gbt_scores``), kept on
         the result so ``evaluate(x=...)``, ``rank(x=...)`` and ``serve()``
         can score with it.  It receives ``X`` as a float32 tensor on
-        ``device``.
-      X: calibration features; required iff ``ensemble`` is callable.
+        ``device``.  Or a ``StageScorer`` that scores itself (the
+        model-backed fit): ``NeuralScorer(params, cfg, seq_len)``
+        calibrates on its per-block logit margins
+        (``calibration_scores``, on its params' device), pins the config
+        fields its family requires (depth order, layer costs; explicit
+        user ``costs`` win), and becomes the default scorer of
+        ``compile`` / ``serve``.
+      X: calibration features (tokens, for the neural scorer); required
+        iff ``ensemble`` is callable or a ``StageScorer``.
       y: unused (calibration is label-free); accepted for symmetry.
       groups: per-QUERY document counts ``(G,)`` for ranking ensembles:
         calibration rows become ragged query groups (contiguous in the
@@ -151,10 +157,20 @@ def fit(
         overrides applied on top — ``fit(F, beta=0.5, alpha=0.01)``.
     """
     cfg = _normalize_config(config, overrides)
-    if isinstance(ensemble, StageScorer):
-        raise ValueError(_SCORER_FIT_TODO)
     score_fn = None
-    if callable(ensemble):
+    scorer = None
+    if isinstance(ensemble, StageScorer):
+        if X is None:
+            raise ValueError("fit(scorer, ...) needs calibration inputs X to score")
+        scorer = ensemble
+        score_fn = scorer.calibration_scores
+        F = np.asarray(score_fn(X))
+        forced = dict(scorer.fit_overrides())
+        if cfg.costs is not None:
+            forced.pop("costs", None)  # explicit user costs win
+        if forced:
+            cfg = dataclasses.replace(cfg, **forced)
+    elif callable(ensemble):
         if X is None:
             raise ValueError("fit(score_fn, ...) needs calibration features X to score")
         score_fn = ensemble
@@ -179,7 +195,7 @@ def fit(
         )
         return FittedCascade(
             model=grouped.model, config=cfg, score_fn=score_fn,
-            calibration_scores=F, grouped=grouped,
+            calibration_scores=F, scorer=scorer, grouped=grouped,
         )
     if topk is not None:
         raise ValueError("topk= requires groups= (per-query document counts)")
@@ -194,7 +210,7 @@ def fit(
         verbose=cfg.verbose,
     )
     return FittedCascade(
-        model=model, config=cfg, score_fn=score_fn, calibration_scores=F
+        model=model, config=cfg, score_fn=score_fn, calibration_scores=F, scorer=scorer
     )
 
 
@@ -203,14 +219,17 @@ class FittedCascade:
     """A fitted QWYC cascade (ordering + thresholds), backend-agnostic.
 
     ``model`` is the plain ``QWYCModel``; ``calibration_scores`` the (N, T)
-    matrix ``fit`` calibrated on (original model order); ``grouped`` the
-    ``GroupedPlan`` of ``fit(groups=...)`` (None for row-level fits).
+    matrix ``fit`` calibrated on (original model order); ``scorer`` the
+    ``StageScorer`` template of a model-backed fit, which ``compile`` and
+    ``serve`` bind by default; ``grouped`` the ``GroupedPlan`` of
+    ``fit(groups=...)`` (None for row-level fits).
     """
 
     model: QWYCModel
     config: FitConfig = dataclasses.field(default_factory=FitConfig)
     score_fn: Callable | None = None
     calibration_scores: np.ndarray | None = dataclasses.field(default=None, repr=False)
+    scorer: StageScorer | None = None
     grouped: Any | None = None
 
     @property
@@ -250,11 +269,14 @@ class FittedCascade:
         ``bill_block``.  ``scorer``: a ``StageScorer`` template for lazy
         scoring (``evaluate(x=...)``; ``serve()`` on the device): the device
         loop's scorer, or on the host the producer ``host_producer`` drives
-        on ``device``.  ``backoff`` / ``sleep`` tune the runtime
+        on ``device``; it defaults to the template a model-backed ``fit``
+        calibrated.  ``backoff`` / ``sleep`` tune the runtime
         degradation ladder (``sleep`` is injectable so tests never wait).
         """
         if mesh is not None or shards is not None or int(model_shards) > 1 or rebalance:
             raise ValueError(_SHARDED_TODO)
+        if scorer is None:
+            scorer = self.scorer
         if scorer is not None and not isinstance(scorer, StageScorer):
             raise TypeError(
                 f"scorer= must be a repro_torch StageScorer, got {type(scorer).__name__}"

@@ -23,6 +23,7 @@ __all__ = [
     "moe_params_from_numpy",
     "param_slabs_from_numpy",
     "qwyc_model_from_numpy",
+    "transformer_params_from_numpy",
 ]
 
 
@@ -141,3 +142,29 @@ def moe_params_from_numpy(router, wi, wg, wo, device="cuda") -> dict:
         if tuple(out[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(out[name].shape)}, expected {shape}")
     return out
+
+
+def transformer_params_from_numpy(params: dict, device="cuda") -> dict:
+    """The reference's transformer params (``repro.models.transformer.
+    init_params``, its leaves as numpy arrays) -> the port's param dict on
+    ``device``, leaf for leaf: the ``(d_in, d_out)`` layout, the leading-L
+    stacked ``layers`` and the ``exit_heads`` kept, so both packages compute
+    the same products.  A stack the port does not build (``pre_layers``,
+    ``loop_layers``: ROADMAP A13, second part) raises."""
+    for key in ("pre_layers", "loop_layers"):
+        if key in params:
+            raise ValueError(
+                f"params hold {key!r}: that stack is not ported yet (ROADMAP A13, "
+                "second part); the port builds uniform dense GQA stacks"
+            )
+
+    def leaf(a):
+        a = np.asarray(a)
+        if not np.issubdtype(a.dtype, np.floating):
+            raise ValueError(f"expected float params, got {a.dtype}")
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
+
+    return walk(params)

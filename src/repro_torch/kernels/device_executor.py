@@ -36,6 +36,18 @@ Stages are uniformized to the plan's maximum width ``W``: padded columns
 carry ±inf thresholds and zeroed scores, so they never move a partial sum
 or trigger an exit.
 
+**Survivor state** (the reference's state carry): a stateful scorer (the
+neural depth cascade, ``api.scorers.NeuralScorer``) declares per-row state
+buffers (``BoundScorer.state_spec``) that every loop carries lane for lane
+beside the row ids and repacks with the same pack positions
+(``repack_state``; in the grouped loops at lane granularity).  In the
+batch and grouped loops every row starts at stage 0, where the scorer
+builds its state from the operand, so the state lives inside the program.
+The streaming loops' lanes span bursts: there the state buffers belong to
+the loop state, made with its other buffers (static inputs of its graph
+on the card) and zeroed each run.  A stateless scorer declares none, and
+its loops make no extra buffer and no extra launch.
+
 **Streaming admission** (``run_stream``, the reference's
 ``_stream_program``): the survivor buffer becomes a set of ``cap`` lanes
 that a ring of ``R`` pending rows refills as lanes free up, each lane at
@@ -144,6 +156,7 @@ __all__ = [
     "launch_wave",
     "lattice_stage_scorer",
     "matrix_stage_scorer",
+    "repack_state",
     "stream_occupancy",
     "tree_stage_scorer",
 ]
@@ -264,6 +277,21 @@ class DevicePlan:
 class BoundScorer:
     """A stage scorer bound to a ``DevicePlan`` and a device.
 
+    The protocol, shared by the host ``ChunkedExecutor`` (through
+    ``api.scorers.host_producer``), the batch, streaming and grouped loops:
+
+        ``stage(state, t0, t1, rows, x, n_valid) -> (scores, state)``
+
+    ``state`` is a dict of per-lane tensors declared by ``state_spec``
+    (``{name: (per-row shape, dtype)}``), each with a leading capacity axis;
+    the executors carry it through the survivor buffers and repack it with
+    the row ids' own pack positions (``repack_state``).  A row's state at
+    its FIRST stage (``t0 == 0``) is undefined: a stateful scorer
+    initialises it from the prepared operand there (streaming admission
+    drops rookies into recycled lanes).  A stateless scorer declares no
+    state (``state_spec`` empty): the threading then adds no buffer and no
+    launch, and its programs and billing stay as they were.
+
     ``fn(x, rows, t0, n_valid) -> (cap, W)``: scores of cascade positions
     [t0, t0 + W) for the (front-packed) row buffer ``rows`` of the prepared
     operand ``x``; ``n_valid`` is the live count (an int32 tensor on the
@@ -273,32 +301,67 @@ class BoundScorer:
     granularity its block guard computes at, which billing uses (None = an
     exact producer, billed at the executor's block).  ``slabs``: the
     params as stage-stacked ``ParamSlabs``, the ticket into the fused
-    stage step.
+    stage step (a stateful scorer carries none: the fused step has no
+    state lane).
     ``lane_fn(x, rows, t0_lane, n_valid) -> (cap, W)``: the per-lane-stage
     variant for streaming admission, ``t0_lane`` a (cap,) tensor of each
     lane's own cascade start (refilled stage-0 rows sit next to
     mid-cascade ones in one buffer).  A scorer without one streams only
-    through the fused step (B7).  Only stateless scorers are ported: the
-    reference's state carry comes with the neural scorer (ROADMAP A13).
+    through the fused step (B7).  A stateful scorer gives ``stage_fn`` /
+    ``lane_stage_fn`` (the protocol's signatures) instead of ``fn`` /
+    ``lane_fn``.
     """
 
-    fn: Callable
+    fn: Callable | None
     prepare: Callable
     width: int
     block_n: int | None = None
     slabs: mk.ParamSlabs | None = None
     lane_fn: Callable | None = None
+    state_spec: dict = dataclasses.field(default_factory=dict)
+    stage_fn: Callable | None = None
+    lane_stage_fn: Callable | None = None
+
+    @property
+    def stateful(self) -> bool:
+        return bool(self.state_spec)
 
     @property
     def has_lanes(self) -> bool:
-        return self.lane_fn is not None
+        return self.lane_fn is not None or self.lane_stage_fn is not None
 
-    def lane_stage(self, t0_lane, rows, x, n_valid) -> torch.Tensor:
+    def init_state(self, cap: int, device) -> dict:
+        """Zero state buffers at capacity ``cap`` on ``device`` (a leading
+        axis added to every ``state_spec`` entry); ``{}`` when stateless."""
+        return {
+            name: torch.zeros((cap, *shape), dtype=dtype, device=device)
+            for name, (shape, dtype) in self.state_spec.items()
+        }
+
+    def stage(self, state, t0, t1, rows, x, n_valid):
+        """The protocol: scores of cascade positions [t0, t1) for the
+        buffer's rows, and the carried-forward state."""
+        if self.stage_fn is not None:
+            return self.stage_fn(state, t0, t1, rows, x, n_valid)
+        return self.fn(x, rows, t0, n_valid), state
+
+    def lane_stage(self, state, t0_lane, rows, x, n_valid):
         """The per-lane-stage protocol: scores of positions
-        [t0_lane[i], t0_lane[i] + W) for lane i's row."""
+        [t0_lane[i], t0_lane[i] + W) for lane i's row, and the state."""
+        if self.lane_stage_fn is not None:
+            return self.lane_stage_fn(state, t0_lane, rows, x, n_valid)
         if self.lane_fn is None:
             raise ValueError("this scorer has no per-lane stage scoring (lane_fn)")
-        return self.lane_fn(x, rows, t0_lane, n_valid)
+        return self.lane_fn(x, rows, t0_lane, n_valid), state
+
+
+def repack_state(state_new: dict, pack: torch.Tensor) -> dict:
+    """Front-pack a survivor-state dict with the compaction's ``pack``
+    positions (int64; ``len(pack)`` is the trash slot): a surviving lane's
+    updated state lands at its packed position, retired lanes drop,
+    vacated lanes read zero.  ``{}`` for a stateless scorer, with no
+    launch."""
+    return {name: _repack(v, pack, 0) for name, v in state_new.items()}
 
 
 def matrix_stage_scorer(
@@ -582,8 +645,9 @@ class _StreamState:
     ``head``, ``steps_run`` and ``step`` the loop's counters; ``dec``,
     ``ex``, ``gout``, ``admit`` and ``done`` (R + 1,) the results by row id
     (trash slot R); ``probe`` (2,) the live count and the ring head, which
-    the host reads between bursts.  Counters and ids are int32 scalars on
-    the device (``rows`` int64)."""
+    the host reads between bursts; ``state`` the scorer's per-lane state
+    (cap, ...) buffers (``{}`` for a stateless scorer).  Counters and ids
+    are int32 scalars on the device (``rows`` int64)."""
 
     x: torch.Tensor
     arr: torch.Tensor
@@ -601,6 +665,7 @@ class _StreamState:
     admit: torch.Tensor
     done: torch.Tensor
     probe: torch.Tensor
+    state: dict
 
 
 @dataclasses.dataclass
@@ -614,7 +679,9 @@ class _GroupedStreamState:
     (cap_g,) / (cap_g, B) slots; ``n_live``, ``head``, ``steps_run`` and
     ``step`` the loop's counters; ``verd`` (Rg + 1, k), ``exst``, ``marg``,
     ``admit`` and ``done`` (Rg + 1,) the results by group id (trash slot
-    Rg); ``probe`` (2,) the live count and the ring head."""
+    Rg); ``probe`` (2,) the live count and the ring head; ``state`` the
+    scorer's per-lane state (cap_g * B, ...) buffers (``{}`` for a
+    stateless scorer)."""
 
     x: torch.Tensor
     ring_rows: torch.Tensor
@@ -637,6 +704,16 @@ class _GroupedStreamState:
     admit: torch.Tensor
     done: torch.Tensor
     probe: torch.Tensor
+    state: dict
+
+
+def _lane_pack(pack: torch.Tensor, B: int) -> torch.Tensor:
+    """A whole-group compaction's slot pack positions (cap_g,) expanded to
+    its B lanes: lane j of a kept slot lands at ``pack * B + j``, the lanes
+    of a dropped slot (pack ``cap_g``) at the lane trash slot ``cap_g * B``."""
+    cap_g = pack.shape[0]
+    lanes = pack[:, None] * B + torch.arange(B, device=pack.device)
+    return torch.where((pack < cap_g)[:, None], lanes, cap_g * B).reshape(cap_g * B)
 
 
 class DeviceExecutor:
@@ -677,6 +754,13 @@ class DeviceExecutor:
             )
         if megakernel is None:
             megakernel = scorer.slabs is not None and scorer.slabs.quant == "f32"
+        if megakernel and scorer.stateful:
+            raise ValueError(
+                "megakernel=True is incompatible with a stateful scorer "
+                "(non-empty state_spec): the fused stage step has no "
+                "survivor-state carry.  Use the multi-kernel path "
+                "(megakernel=False / the auto default)."
+            )
         if megakernel and scorer.slabs is None:
             raise ValueError("megakernel=True needs a scorer with ParamSlabs")
         self.megakernel = bool(megakernel)
@@ -787,7 +871,9 @@ class DeviceExecutor:
     def _program(self, x, rows, n0):
         """The stage loop.  ``x`` has cap + 1 rows (the last is the trash
         row), ``rows`` (cap,) int64 holds the initial row order (trash =
-        cap), ``n0`` (an int32 scalar on the device) the live count.
+        cap), ``n0`` (an int32 scalar on the device) the live count.  A
+        stateful scorer's state starts empty (every row's first stage
+        builds it from ``x``) and rides the rows' compaction.
         Returns one int32 buffer: the decisions, exit steps and ``g``'s
         bits (cap each), the final live count and the (S,) live counts
         entering each stage.  Nothing here syncs with the host."""
@@ -802,6 +888,7 @@ class DeviceExecutor:
         ex = torch.full((cap + 1,), T, dtype=i32, device=dev)
         n_in_log = torch.zeros(S, dtype=i32, device=dev)
         trash = torch.full((cap + 1,), cap, dtype=torch.int64, device=dev)
+        state: dict = {}
         for s in range(S):
             n_in_log[s] = n_active
             t0 = int(dp.stage_t0[s])
@@ -817,7 +904,7 @@ class DeviceExecutor:
                 # B2's step form reads g through rows and the stage's
                 # tables in place, masks the padded columns and writes the
                 # pack positions and the kept count
-                scores = self.scorer.fn(x, rows, t0, n_active)
+                scores, state_new = self.scorer.stage(state, t0, t0 + W, rows, x, n_active)
                 g_new, active, dpos, ex_rel, pack, n_keep = cascade_chunk_step(
                     g, rows, scores, s, self._eps_pos, self._eps_neg, self._col_valid,
                     n_valid=n_active, block_n=self.block_n,
@@ -829,7 +916,12 @@ class DeviceExecutor:
             dec[scat] = dpos.bool()
             ex[scat] = ex_rel + t0
             g[torch.where(lane_valid, rows, cap)] = g_new
-            rows = trash.clone().index_copy_(0, pack.long(), rows)[:cap]
+            pack = pack.long()
+            rows = trash.clone().index_copy_(0, pack, rows)[:cap]
+            if not self.megakernel and state_new:
+                # the state rides the rows' own compaction (megakernel
+                # scorers are stateless)
+                state = repack_state(state_new, pack)
             n_active = n_keep
         # rows that never exited: classified by the full ensemble score
         dec[torch.where(lane < n_active, rows, cap)] = g[rows] >= self._beta
@@ -880,11 +972,12 @@ class DeviceExecutor:
         key = ("batch", cap, tuple(x.shape[1:]), x.dtype)
 
         def wave():
-            sx, rows, n0 = self._buffers(key, lambda: (
+            bufs = self._buffers(key, lambda: (
                 torch.empty((cap + 1, *x.shape[1:]), dtype=x.dtype, device=dev),
                 torch.empty(cap, dtype=torch.int64, device=dev),
                 torch.empty((), dtype=torch.int32, device=dev),
             ))
+            sx, rows, n0 = bufs
             # the operand padded to cap + 1 rows, written in place
             self._write_rows(sx, x)
             rows.fill_(cap)
@@ -892,7 +985,7 @@ class DeviceExecutor:
             n0.fill_(n)
             # the one transfer back to the host, after the loop: every
             # result as int32 words in one buffer (g_final by its bits)
-            return self._execute(key, self._program, (sx, rows, n0)).cpu().numpy()
+            return self._execute(key, self._program, bufs).cpu().numpy()
 
         words = launch_wave("device", wave)
         dec, ex = words[:n], words[cap : cap + n].astype(np.int64)
@@ -942,6 +1035,7 @@ class DeviceExecutor:
             dec=torch.empty(R + 1, dtype=torch.bool, device=dev), ex=ints(R + 1),
             gout=torch.empty(R + 1, dtype=torch.float32, device=dev),
             admit=ints(R + 1), done=ints(R + 1), probe=ints(2),
+            state=self.scorer.init_state(cap, dev),
         )
 
     def _stream_reset(self, st: _StreamState, x, n: int, arr: np.ndarray) -> None:
@@ -956,7 +1050,7 @@ class DeviceExecutor:
         st.rows.fill_(st.arr.shape[0])
         st.ex.fill_(self.dplan.plan.T)
         for t in (st.stage, st.g, st.n_live, st.head, st.steps_run, st.step, st.dec,
-                  st.gout, st.admit, st.done):
+                  st.gout, st.admit, st.done, *st.state.values()):
             t.zero_()
 
     def _stream_burst(self, st: _StreamState) -> None:
@@ -971,6 +1065,7 @@ class DeviceExecutor:
         cap = st.rows.shape[0]
         lane = torch.arange(cap, device=dev)
         lanes, stages, gl, live, hd = st.rows, st.stage, st.g, st.n_live, st.head
+        state = st.state
         for _ in range(STREAM_BURST):
             # the reference's loop condition, on the device: live lanes or
             # a non-empty ring.  Once false it stays false, and the step
@@ -1000,8 +1095,11 @@ class DeviceExecutor:
                 )
             else:
                 # B6 reads each lane's threshold rows and column mask at
-                # its stage, and packs the survivors (a stage further on)
-                scores = self.scorer.lane_stage(t0_lane, lanes, x, live)
+                # its stage, and packs the survivors (a stage further on).
+                # Rookies sit at stage 0, where a stateful scorer takes
+                # their state from the operand, so the zeroed slots the
+                # repack leaves are never read as state
+                scores, state_new = self.scorer.lane_stage(state, t0_lane, lanes, x, live)
                 g_new, active, dpos, ex_rel, pack, n_keep = cascade_lane_step(
                     gl, scores.contiguous(), stages, self._eps_pos, self._eps_neg,
                     self._col_valid, n_valid=live, block_n=self.block_n,
@@ -1022,8 +1120,12 @@ class DeviceExecutor:
             lanes = _repack(lanes, pack, R)
             stages = _repack(stages + 1, pack, 0)
             gl = _repack(g_new, pack, 0.0)
+            if state:
+                state = repack_state(state_new, pack)
             live = n_keep
             step += 1
+        for name, buf in st.state.items():
+            buf.copy_(state[name])
         st.rows.copy_(lanes)
         st.stage.copy_(stages)
         st.g.copy_(gl)
@@ -1149,7 +1251,9 @@ class DeviceExecutor:
         (cap_g,) are the slots' group ids (trash ``cap_g`` past the
         groups), ``rows2d``/``valid2d`` (cap_g, B) their documents' rows
         into ``x`` and real-lane masks, ``n0`` (an int32 scalar on the
-        device) the live group count.  Returns one int32 buffer: the
+        device) the live group count.  A stateful scorer's state starts
+        empty and rides the whole-group compaction at lane granularity.
+        Returns one int32 buffer: the
         (cap_g, k) verdicts, the exit stages and the margins' bits (cap_g
         each), the final live count and the (S,) live counts entering each
         stage.  Nothing here syncs with the host."""
@@ -1167,13 +1271,16 @@ class DeviceExecutor:
         n_in_log = torch.zeros(S, dtype=i32, device=dev)
         # the stage's scalar threshold for every group slot, one row a stage
         eps_b = eps_g[:, None].expand(S, cap_g).contiguous()
+        state: dict = {}
 
         for s in range(S):
             n_in_log[s] = n_active
             t0 = int(dp.stage_t0[s])
             # live groups are front-packed, so live lanes are the first
             # n_active * B: a blocked scorer skips the rest
-            scores = self.scorer.fn(x, rows2d.reshape(L), t0, n_active * B)
+            scores, state_new = self.scorer.stage(
+                state, t0, t0 + W, rows2d.reshape(L), x, n_active * B
+            )
             scores = torch.where(self._col_valid[s][None, :], scores, 0.0)
             scores = torch.where(valid2d.reshape(L, 1) != 0, scores, 0.0)
             # per-column sequential accumulate: the host oracle's f32 adds
@@ -1197,6 +1304,8 @@ class DeviceExecutor:
             rows2d = _repack(rows2d, pack, 0)
             valid2d = _repack(valid2d, pack, 0)
             g2d = _repack(g_new, pack, 0.0)
+            if state_new:
+                state = repack_state(state_new, _lane_pack(pack, B))
             n_active = keep.sum(dtype=i32)
         # ran-out groups carry the full cascade's ranking; B8 at eps = +inf
         # gives their margins and picks
@@ -1359,6 +1468,7 @@ class DeviceExecutor:
             verd=ints(Rg + 1, k), exst=ints(Rg + 1),
             marg=torch.empty(Rg + 1, dtype=f32, device=dev),
             admit=ints(Rg + 1), done=ints(Rg + 1), probe=ints(2),
+            state=self.scorer.init_state(cap_g * B, dev),
         )
 
     def _grouped_stream_reset(self, st, x, rows, valid, n, arr, eps_g) -> None:
@@ -1385,7 +1495,7 @@ class DeviceExecutor:
         st.exst.fill_(self.dplan.S)
         st.marg.fill_(float("inf"))
         for t in (st.rows, st.valid, st.stage, st.g, st.n_live, st.head, st.steps_run,
-                  st.step, st.admit, st.done):
+                  st.step, st.admit, st.done, *st.state.values()):
             t.zero_()
 
     def _grouped_stream_burst(self, k: int, st: _GroupedStreamState) -> None:
@@ -1404,6 +1514,7 @@ class DeviceExecutor:
         slot = torch.arange(cap_g, device=dev)
         gids, rows2d, valid2d, stage, g2d = st.gids, st.rows, st.valid, st.stage, st.g
         live, hd = st.n_live, st.head
+        state = st.state
         for _ in range(STREAM_BURST):
             # the reference's loop condition, on the device (see
             # _stream_burst): once false it stays false, and the step is inert
@@ -1427,7 +1538,9 @@ class DeviceExecutor:
             # padded columns and the padding lanes masked
             stop = stage >= S - 1
             t0_lane = self._stage_t0[stage][:, None].expand(cap_g, B).reshape(L)
-            scores = self.scorer.lane_stage(t0_lane, rows2d.reshape(L), x, live * B)
+            scores, state_new = self.scorer.lane_stage(
+                state, t0_lane, rows2d.reshape(L), x, live * B
+            )
             colmask = self._col_valid[stage][:, None, :].expand(cap_g, B, W).reshape(L, W)
             scores = torch.where(colmask, scores, 0.0)
             scores = torch.where(valid2d.reshape(L, 1) != 0, scores, 0.0)
@@ -1457,8 +1570,12 @@ class DeviceExecutor:
             valid2d = _repack(valid2d, pack, 0)
             stage = _repack(stage + 1, pack, 0)
             g2d = _repack(g_new, pack, 0.0)
+            if state:
+                state = repack_state(state_new, _lane_pack(pack, B))
             live = keep.sum(dtype=i32)
             step += 1
+        for name, buf in st.state.items():
+            buf.copy_(state[name])
         st.gids.copy_(gids)
         st.rows.copy_(rows2d)
         st.valid.copy_(valid2d)

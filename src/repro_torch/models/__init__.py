@@ -1,0 +1,7 @@
+"""Model substrate, the counterpart of ``repro.models``: the uniform dense
+GQA decoder (``transformer``) over the shared blocks (``layers``)."""
+
+from repro_torch.models.config import ModelConfig, active_param_count, param_count
+from repro_torch.models.transformer import forward, init_params
+
+__all__ = ["ModelConfig", "active_param_count", "forward", "init_params", "param_count"]

@@ -353,6 +353,13 @@ class QWYCServer:
         )
         key_fn = None
         if self.backend == "sorted-kernel" and not eager_matrix:
+            if scorer.fn is None:
+                raise ValueError(
+                    "the sorted-kernel policy needs a stateless scorer for "
+                    "its sort key (stage-0 scores standalone); stateful "
+                    f"scorers like {type(self.scorer_template).__name__} "
+                    "serve under the 'kernel' policy"
+                )
             # sort key = first cascade model's scores, computed on the
             # device from the same stage-0 slab the loop body uses
             cap = executor._cap(self.flush_size)

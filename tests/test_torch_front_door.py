@@ -178,11 +178,11 @@ def test_function_scorer_bind_takes_the_device(gate_fixture):
 
 
 def test_scorer_registry_matches_jax(monkeypatch):
-    """The port registers the reference's families but ``neural``
-    (ROADMAP A13); lookups, errors and registration behave as JAX's."""
+    """The port registers the reference's families; lookups, errors and
+    registration behave as JAX's."""
     names = scorers.scorer_names()
-    assert names == tuple(n for n in jscorers.scorer_names() if n != "neural")
-    assert names == api.scorer_names() == ("function", "lattice", "matrix", "tree")
+    assert names == jscorers.scorer_names()
+    assert names == api.scorer_names() == ("function", "lattice", "matrix", "neural", "tree")
     for name in names:
         assert scorers.get_scorer(name).__name__ == jscorers.get_scorer(name).__name__
         assert scorers.get_scorer(name).name == name

@@ -564,8 +564,12 @@ def test_api_unported_and_invalid_options_raise(bench):
     assert laddered.backend_name == "device" and laddered.degradation_events == []
     from repro_torch.api.scorers import MatrixScorer
 
-    with pytest.raises(ValueError, match="ROADMAP A13"):
+    # a model-backed fit, as the reference's: the matrix scorer cannot score
+    # its calibration inputs, and a scorer with no inputs has nothing to score
+    with pytest.raises(NotImplementedError, match="cannot score calibration inputs itself"):
         api.fit(MatrixScorer(), F)
+    with pytest.raises(ValueError, match="needs calibration inputs X"):
+        api.fit(MatrixScorer())
     with pytest.raises(ValueError, match="topk= requires groups="):
         api.fit(F, topk=3)
     with pytest.raises(ValueError, match="host-backend option"):
