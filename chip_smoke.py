@@ -102,7 +102,7 @@ Phases, each of which stops the run on failure:
    weights rounded onto the grid quantised serving == f32 serving exactly;
    on the raw weights g within ``tolerance_bound`` of f32 serving wherever
    the exit did not move (moved verdicts and exits are reported).
-   In phases 4-4e and 4h-4j the launch counts are set to 0 just before each path and
+   In phases 4-4e and 4h-4k the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
@@ -175,6 +175,31 @@ Phases, each of which stops the run on failure:
    streaming loop to the batch loop outside the band; a 2-layer cut's exit
    scores on the card within ``NEURAL_TOL`` of the CPU's (TF32 off);
    ``torch.cuda.max_memory_allocated``.
+4k. The neural depth cascade over the other model families, f32 with TF32
+   off, seeded tokens of 128, weights drawn on the card from
+   ``FAMILY_SEED``.  Qwen3-MoE-30B-A3B at its published widths (d_model
+   2048, 32 / 4 heads of 128, 128 experts top-8 of d_ff 768, vocab 151936,
+   qk_norm), its depth cut to 16 of 48 layers, an exit every 2 layers (8
+   exits, W 2: 4 stages): 512 calibration sequences (each MoE layer over
+   all 65,536 tokens in one call), ``api.fit`` at alpha 0.02, 256 test
+   sequences through ``QWYCServer(scorer=NeuralScorer)`` at batch 64,
+   captured == ``capture=False`` (B2's step form 4 times a flush), the
+   flush walls and layers paid, the share of (token, slot) assignments the
+   capacity dropped in the calibration and in one flush; an 8-layer cut
+   through ``StreamingServer`` (B6 once a step enqueued, captured ==
+   ``capture=False``); a 2-layer cut through the batch loop at cap 16 on
+   the card and the CPU, equal outside a 1e-4 band on the rows before the
+   first token whose k-th and (k+1)-th router probabilities lie within
+   1e-5 (counted).  RWKV6-1.6B whole (24 layers, 12 exits, 6 stages): 1024
+   calibration sequences, the fit, batch serving captured == eager,
+   verdicts equal to ``evaluate_cascade`` outside the band, a 2-layer cut's
+   exit scores card vs CPU.  Then ``exit_scores`` card vs CPU on 2-layer
+   cuts at full widths of DeepSeek-V2-Lite (MLA, a dense first layer, 64
+   routed + 2 shared experts top-6), gemma2-2B (L, G, softcaps) and
+   musicgen-large (64 frontend embeddings), and RecurrentGemma-2B at 3
+   layers (R, R, L: the hybrid loop); ``max_memory_allocated`` a family.
+   To run it alone, build (``_build.build_all()``) and call
+   ``chip_smoke.phase_families({"card": ...}, {})``.
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
@@ -297,6 +322,25 @@ NEURAL_CPU_LAYERS, NEURAL_CPU_ROWS, NEURAL_TOL, NEURAL_BAND = 2, 8, 1e-4, 1e-4
 # 16 lanes of 8 layers at full width, 8 steps in the streaming loop
 NEURAL_GROUPS, NEURAL_GROUP_B, NEURAL_K = 6, 2, 1
 NEURAL_GROUP_ARRIVALS = (0, 0, 0, 1, 1, 2)
+# phase 4k: the neural depth cascade over the other families.  Qwen3-MoE-
+# 30B-A3B (src/repro_torch/configs/qwen3_moe_30b_a3b.py) at its published
+# widths, cut to FAMILY_MOE_LAYERS of its 48 layers (a layer is 623e6 f32
+# weights, 2.49 GB: the cut and the tied embedding are 41 GB), and
+# RWKV6-1.6B whole (24 layers, 6.8 GB), each with an exit head every 2
+# layers, weights drawn on the card from FAMILY_SEED, seeded tokens of
+# NEURAL_SEQ; the calibration sequences (the MoE's in one call a layer:
+# 65,536 tokens, 5120 slots an expert) and the test sequences; the MoE
+# streaming cut's depth and sequences; the sequences of each card-vs-CPU
+# cut; the other families' cuts (layers, an exit after each) held card
+# against CPU through exit_scores; the router gap within which a token may
+# route apart on the card and the CPU (a flip moves the queue places of the
+# tokens after it in the call, so only the rows before it are held)
+FAMILY_SEED = 2032
+FAMILY_MOE_LAYERS, FAMILY_MOE_CALIB, FAMILY_RWKV_CALIB, FAMILY_TEST = 16, 512, 1024, 256
+FAMILY_STREAM_LAYERS, FAMILY_STREAM_ROWS = 8, 128
+FAMILY_CPU_ROWS, FAMILY_ROUTE_TIE = 16, 1e-5
+FAMILY_CUTS = {"deepseek-v2-lite-16b": 2, "recurrentgemma-2b": 3, "gemma2-2b": 2,
+               "musicgen-large": 2}
 # tree depths phase 3 holds B4 and B7 tree to their plain versions at:
 # depths 1 and 10 (B3's old limit), exp1's and exp2_nomao's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
@@ -405,6 +449,14 @@ PATH_KERNELS = {
     # the epilogue (batch), once a step enqueued (streaming)
     "neural_grouped": {"cascade_group"},
     "neural_stream_grouped": {"cascade_group"},
+    # phase 4k: the other families' exit scores (calibration, test, full
+    # depth, the card-vs-CPU cuts) run PyTorch ops only; the MoE and RWKV6
+    # batch loops decide through B2's step form once a stage, the MoE
+    # streaming cut through B6 once a step
+    "family_scores": set(),
+    "moe_batch": {"cascade_chunk_step"},
+    "moe_stream": {"cascade_lane"},
+    "rwkv_batch": {"cascade_chunk_step"},
 }
 for _v, _q in QUANT_VARIANTS:
     PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
@@ -2996,30 +3048,7 @@ def phase_neural(report: dict, launches: dict, check: Check) -> dict:
     F_test = exit_deltas(S_test)
     S_test = S_test.cpu().numpy().astype(np.float64)
 
-    def near_band(model, F):
-        """Rows whose running sum comes within the band of a finite
-        threshold or of beta."""
-        G = np.cumsum(F[:, model.order], axis=1)
-        band = NEURAL_BAND * max(1.0, float(np.abs(G).max()))
-        near = np.abs(G[:, -1] - model.beta) <= band
-        for eps in (model.eps_pos, model.eps_neg):
-            fin = np.isfinite(eps)
-            near |= (np.abs(G[:, fin] - eps[fin]) <= band).any(axis=1)
-        return near
-
-    def verdicts(res):
-        return (np.array([r["decision"] for r in res]),
-                np.array([r["models_evaluated"] for r in res]))
-
-    def agree(what, a, b, near):
-        """Verdicts ``a`` and ``b`` equal on every row outside the band;
-        returns the rows that differ (all inside it)."""
-        diff = (a[0] != b[0]) | (a[1] != b[1])
-        if (diff & ~near).any():
-            raise AssertionError(f"{what}: {int((diff & ~near).sum())} rows differ outside the "
-                                 f"band (rows {np.flatnonzero(diff & ~near)[:8]})")
-        return int(diff.sum())
-
+    near_band, verdicts, agree = _near_band, _verdicts, _agree
     out: dict = {"card": card, "calibration_s": calib_s, "n_exits": E,
                  "calib_diff_rate": ev_calib["diff_rate"]}
 
@@ -3151,6 +3180,40 @@ def phase_neural(report: dict, launches: dict, check: Check) -> dict:
     del params, params8, p2, p2_cpu, scorer, sc8, fitted
     torch.cuda.empty_cache()
     return out
+
+
+def _near_band(model, F):
+    """Rows whose running sum (of the (N, T) exit deltas ``F``) comes within
+    the band of a finite threshold or of beta."""
+    import numpy as np
+
+    G = np.cumsum(F[:, model.order], axis=1)
+    band = NEURAL_BAND * max(1.0, float(np.abs(G).max()))
+    near = np.abs(G[:, -1] - model.beta) <= band
+    for eps in (model.eps_pos, model.eps_neg):
+        fin = np.isfinite(eps)
+        near |= (np.abs(G[:, fin] - eps[fin]) <= band).any(axis=1)
+    return near
+
+
+def _verdicts(res):
+    """A server's results -> (decisions, models evaluated) arrays."""
+    import numpy as np
+
+    return (np.array([r["decision"] for r in res]),
+            np.array([r["models_evaluated"] for r in res]))
+
+
+def _agree(what, a, b, near):
+    """Verdicts ``a`` and ``b`` equal on every row outside the band;
+    returns the rows that differ (all inside it)."""
+    import numpy as np
+
+    diff = (a[0] != b[0]) | (a[1] != b[1])
+    if (diff & ~near).any():
+        raise AssertionError(f"{what}: {int((diff & ~near).sum())} rows differ outside the "
+                             f"band (rows {np.flatnonzero(diff & ~near)[:8]})")
+    return int(diff.sum())
 
 
 def check_neural_chunk_step(check: Check, ex, x) -> dict:
@@ -3379,7 +3442,509 @@ def _layer_slice(layers: dict, n: int) -> dict:
 
 
 def _to_cpu(tree):
-    return {k: _to_cpu(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+class MoEProbe:
+    """Phase 4k: while active, records what each MoE call's routing did
+    (``models.moe.route`` on the call's own input, beside the call): the
+    (token, slot) assignments and those the capacity dropped, the tokens
+    whose k-th and (k+1)-th router probabilities lie within
+    ``FAMILY_ROUTE_TIE`` (where the card's and the CPU's sums may route a
+    token apart), and with ``routes`` each call's expert ids.  It reads its
+    counts back after each call: eager runs only."""
+
+    def __init__(self, routes: bool = False):
+        self.assigned = self.dropped = 0
+        # the same over live tokens only: a retired lane's state is zero,
+        # and so is its normed FFN input (no live token's is)
+        self.live_assigned = self.live_dropped = 0
+        self.ties: list = []  # per call: the near-tie tokens' flat ids
+        self.routes: list | None = [] if routes else None  # per call: (n, k) expert ids
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._apply = apply = moe.apply_moe
+
+        def probed(p, x, cfg):
+            probs, _, topi, pos, cap = moe.route(p["router"], x.reshape(-1, x.shape[-1]), cfg)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            near = top[:, cfg.top_k - 1] - top[:, cfg.top_k] <= FAMILY_ROUTE_TIE
+            drop = pos >= cap
+            live = x.reshape(-1, x.shape[-1]).abs().amax(-1) > 0
+            self.assigned += pos.numel()
+            self.dropped += int(drop.sum())
+            self.live_assigned += int(live.sum()) * pos.shape[1]
+            self.live_dropped += int(drop[live].sum())
+            self.ties.append(torch.nonzero(near).flatten().cpu().numpy())
+            if self.routes is not None:
+                self.routes.append(topi.cpu().numpy())
+            return apply(p, x, cfg)
+
+        moe.apply_moe = probed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+
+        moe.apply_moe = self._apply
+
+    @property
+    def drop_share(self) -> float:
+        return self.dropped / max(self.assigned, 1)
+
+    @property
+    def live_drop_share(self) -> float:
+        return self.live_dropped / max(self.live_assigned, 1)
+
+    @property
+    def n_ties(self) -> int:
+        return int(sum(t.size for t in self.ties))
+
+    def flips(self, other: "MoEProbe") -> list:
+        """Per call, the tokens that ``other`` (the same calls on another
+        device) routed to other experts; each must be a near tie of one
+        of the two runs, else the routing itself differs."""
+        import numpy as np
+
+        if len(self.routes) != len(other.routes):
+            raise AssertionError(f"{len(self.routes)} MoE calls against {len(other.routes)}")
+        out = []
+        for a, b, ta, tb in zip(self.routes, other.routes, self.ties, other.ties):
+            ids = np.flatnonzero((a != b).any(axis=1))
+            if not np.isin(ids, np.union1d(ta, tb)).all():
+                raise AssertionError(f"tokens {ids[~np.isin(ids, np.union1d(ta, tb))][:8]} "
+                                     "routed apart without a near tie")
+            out.append(ids)
+        return out
+
+
+def first_row(ids_per_call: list, seq: int, n_rows: int) -> int:
+    """The first row (of ``seq`` tokens) holding one of the tokens of any
+    call, or ``n_rows`` without one: a MoE call's rows before a token that
+    routed apart see the same queue places."""
+    return min([int(ids[0]) // seq for ids in ids_per_call if ids.size] + [n_rows])
+
+
+def family_served(launches: dict, cfg, params, calib, test, path: str) -> dict:
+    """Phase 4k, one family at full widths: ``api.fit(NeuralScorer)`` on the
+    calibration sequences (``exit_scores``: a MoE layer over every row in
+    one call), then the test sequences through ``QWYCServer(scorer=
+    NeuralScorer)`` at batch ``NEURAL_BATCH``, captured and ``capture=
+    False`` (equal in every result, B2's step form once a stage of every
+    flush), the mean layers paid below the depth, the flush walls (captured,
+    eager, and a full-depth ``exit_scores`` of the same rows) and the layers
+    the timed flush's rows paid.  With a MoE FFN, the share of (token, slot)
+    assignments the capacity dropped in the calibration and in one eager
+    flush.  Returns the numbers and, under ``"ctx"``, what the family's
+    other checks read."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.core.early_exit import exit_scores
+    from repro_torch.serving.engine import QWYCServer
+
+    scorer = api.NeuralScorer(params, cfg, seq_len=NEURAL_SEQ)
+    E, k = scorer.n_exits, cfg.exit_interval
+    probe = MoEProbe()
+    t = time.perf_counter()
+    with probe:
+        fitted = counted(launches, f"family_scores/{path}_calibration", lambda: api.fit(
+            scorer, calib, alpha=NEURAL_ALPHA, chunk_t=NEURAL_CHUNK_T))
+    calib_s = time.perf_counter() - t
+    m = fitted.model
+    if not (np.array_equal(m.order, np.arange(E)) and np.all(m.costs == k)):
+        raise AssertionError(f"{path} fit: order {m.order}, costs {m.costs}")
+    ev_calib = evaluate_cascade(m, fitted.calibration_scores)
+    if ev_calib["diff_rate"] > NEURAL_ALPHA:
+        raise AssertionError(f"{path} fit: calibration disagreement {ev_calib['diff_rate']} > "
+                             f"alpha {NEURAL_ALPHA}")
+    out: dict = dict(n_exits=E, calibration_rows=len(calib), calibration_s=calib_s,
+                     calib_diff_rate=ev_calib["diff_rate"],
+                     calib_mean_layers=ev_calib["mean_cost"])
+    if cfg.n_experts:
+        out["calib_dropped_share"] = probe.drop_share
+    log(f"[phase 4k] {path}: calibration over {calib.shape} tokens and the fit in "
+        f"{calib_s:.1f}s; calibration mean layers {ev_calib['mean_cost']:.2f}/{cfg.n_layers}, "
+        f"disagreement {ev_calib['diff_rate']:.4f} <= alpha {NEURAL_ALPHA}"
+        + (f"; capacity dropped {probe.dropped} of {probe.assigned} (token, slot) assignments "
+           f"({probe.drop_share:.5f})" if cfg.n_experts else ""))
+
+    def batch_server(**kw):
+        return QWYCServer(m, scorer=scorer, backend="kernel", batch_size=NEURAL_BATCH,
+                          chunk_t=NEURAL_CHUNK_T, device="cuda", **kw)
+
+    t = time.perf_counter()
+    srv = batch_server()
+    res = counted(launches, path, lambda: serve(srv, test))
+    twin = batch_server(backend_opts={"capture": False})
+    eager_twin(launches, path, srv, res, twin, lambda x: serve(x, test))
+    serve_s = time.perf_counter() - t
+    n_flush, S = srv.stats.n_batches, srv._dev[0].dplan.S
+    b2 = launches[path].get("cascade_chunk_step", 0)
+    if b2 != n_flush * S:
+        raise AssertionError(f"{path}: {b2} B2 launches over {n_flush} flushes of {S} stages")
+    got = _verdicts(res)
+    layers = float(got[1].mean()) * k
+    if not layers < cfg.n_layers:
+        raise AssertionError(f"{path}: mean layers paid {layers} not below {cfg.n_layers}")
+    stages_live = [len(r.chunk_stats) for r in srv.flush_results]
+    log(f"[phase 4k] {path}: served {len(test)} sequences in {n_flush} flushes of batch "
+        f"{NEURAL_BATCH} (one CUDA graph == capture=False) in {serve_s:.1f}s: mean layers paid "
+        f"{layers:.2f}/{cfg.n_layers}; B2 {b2} launches = {n_flush} flushes x {S} stages "
+        f"(stages with live rows {stages_live})")
+    out.update(flushes=n_flush, stages=S, b2_launches=b2, mean_layers=layers, serve_s=serve_s,
+               stages_with_live_rows=stages_live)
+
+    x = test[:NEURAL_BATCH]
+    x_dev = torch.from_numpy(x).cuda()
+    ex_cap, ex_eager = srv._dev[0], twin._dev[0]
+    flush_ms = wall_ms(lambda: ex_cap.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH), reps=3)
+    eager_ms = wall_ms(lambda: ex_eager.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH), reps=2)
+    full_ms = counted(launches, f"family_scores/{path}_full_depth",
+                      lambda: wall_ms(lambda: exit_scores(params, cfg, x_dev), reps=2))
+    probe = MoEProbe()
+    with probe:
+        flush_res = ex_eager.run(x, NEURAL_BATCH, capacity=NEURAL_BATCH)
+    paid = float(flush_res.exit_step.mean()) * k
+    log(f"[phase 4k] {path}: batch {NEURAL_BATCH} x {NEURAL_SEQ} tokens: captured flush "
+        f"{flush_ms:.1f} ms, eager flush {eager_ms:.1f} ms, full-depth exit_scores "
+        f"{full_ms:.1f} ms (the flush's rows paid {paid:.2f} of {cfg.n_layers} layers; every "
+        f"stage runs at the full capacity)"
+        + (f"; capacity dropped {probe.dropped} of {probe.assigned} assignments in one eager "
+           f"flush ({probe.drop_share:.5f}), {probe.live_dropped} of the live tokens' "
+           f"{probe.live_assigned} ({probe.live_drop_share:.5f})" if cfg.n_experts else ""))
+    out.update(flush_ms=flush_ms, eager_flush_ms=eager_ms, full_depth_ms=full_ms,
+               flush_layers_paid=paid)
+    if cfg.n_experts:
+        out.update(flush_dropped_share=probe.drop_share,
+                   flush_live_dropped_share=probe.live_drop_share)
+    out["ctx"] = dict(scorer=scorer, fitted=fitted, res=res)
+    return out
+
+
+def family_moe(launches: dict, card: str) -> dict:
+    """Phase 4k: Qwen3-MoE-30B-A3B at its published widths, cut to
+    ``FAMILY_MOE_LAYERS`` layers (exits every 2 layers, W 2): the calibration
+    in one MoE call a layer, the fit and the batch server (``family_served``);
+    the full-depth verdicts of each flush's rows (one 64-row call) beside the
+    served ones; an 8-layer cut streamed through ``StreamingServer`` (B6 once
+    a step enqueued), captured == ``capture=False``; and a 2-layer cut (an
+    exit after each layer) through the batch loop at cap ``FAMILY_CPU_ROWS``
+    on the card and on the CPU, equal outside the band on the rows before
+    the first token whose routing may flip (counted)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.core.early_exit import exit_scores
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import StreamingServer
+
+    torch.cuda.reset_peak_memory_stats()
+    t_fam = time.perf_counter()
+    cfg = get_config("qwen3-moe-30b-a3b").scaled(n_layers=FAMILY_MOE_LAYERS, exit_interval=2)
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(FAMILY_SEED),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    log(f"[phase 4k] {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers // cfg.exit_interval} exits; {n_params / 1e9:.3f}e9 f32 "
+        f"weights drawn on the card in {time.perf_counter() - t:.1f}s")
+    toks = np.random.default_rng(FAMILY_SEED + 1).integers(
+        0, cfg.vocab_size, size=(FAMILY_MOE_CALIB + FAMILY_TEST, NEURAL_SEQ))
+    calib, test = toks[:FAMILY_MOE_CALIB], toks[FAMILY_MOE_CALIB:]
+    out = family_served(launches, cfg, params, calib, test, "moe_batch")
+    ctx = out.pop("ctx")
+    m, fitted = ctx["fitted"].model, ctx["fitted"]
+
+    # each flush's full-depth verdicts at the flush's own call shape (one
+    # 64-row call a layer); the served verdicts differ where a later stage's
+    # smaller live set moved a token's place in an expert's queue
+    S_flush = counted(launches, "family_scores/moe_flush_full_depth", lambda: torch.cat([
+        exit_scores(params, cfg, test[i : i + NEURAL_BATCH])
+        for i in range(0, len(test), NEURAL_BATCH)]))
+    got = _verdicts(ctx["res"])
+    full = (S_flush[:, -1] >= m.beta).cpu().numpy()
+    out["diff_vs_full_depth"] = float((got[0] != full).mean())
+    log(f"[phase 4k] moe_batch: served verdicts differ from each flush's full-depth verdicts "
+        f"on {out['diff_vs_full_depth']:.4f} of the rows (alpha {NEURAL_ALPHA})")
+
+    # the streaming cut: the first FAMILY_STREAM_LAYERS layers and their
+    # exits, fit on the full calibration's first columns (the same call)
+    cut = FAMILY_STREAM_LAYERS
+    E8 = cut // cfg.exit_interval
+    cfg8 = cfg.scaled(n_layers=cut)
+    params8 = {**params, "exit_heads": params["exit_heads"][:E8],
+               "layers": _layer_slice(params["layers"], cut)}
+    sc8 = api.NeuralScorer(params8, cfg8, seq_len=NEURAL_SEQ)
+    m8 = api.fit(fitted.calibration_scores[:, :E8], alpha=NEURAL_ALPHA,
+                 chunk_t=NEURAL_CHUNK_T, **sc8.fit_overrides()).model
+    rows = test[:FAMILY_STREAM_ROWS]
+    arr = poisson_arrivals(len(rows), NEURAL_STREAM_RATE)
+
+    def stream_server(**kw):
+        return StreamingServer(m8, scorer=sc8, batch_size=NEURAL_BATCH, window=NEURAL_WINDOW,
+                               chunk_t=NEURAL_CHUNK_T, device="cuda", **kw)
+
+    t = time.perf_counter()
+    ss = stream_server()
+    sres = counted(launches, "moe_stream", lambda: stream_serve(ss, rows, arr))
+    eager_twin(launches, "moe_stream", ss, sres, stream_server(backend_opts={"capture": False}),
+               lambda x: stream_serve(x, rows, arr))
+    stream_s = time.perf_counter() - t
+    enq = sum(r.steps_enqueued for r in ss.stream_results)
+    steps = sum(r.steps_run for r in ss.stream_results)
+    b6 = launches["moe_stream"].get("cascade_lane", 0)
+    if b6 != enq:
+        raise AssertionError(f"moe_stream: {b6} B6 launches, {enq} steps enqueued")
+    log(f"[phase 4k] moe_stream ({cut} layers, {E8} exits): {len(rows)} sequences at "
+        f"{NEURAL_STREAM_RATE}/step through {NEURAL_BATCH} lanes in {len(ss.stream_results)} "
+        f"waves, {steps} steps run, {enq} enqueued, B6 {b6} launches (one a step enqueued), "
+        f"one CUDA graph == capture=False, in {stream_s:.1f}s; mean layers paid "
+        f"{ss.stats.models_evaluated / ss.stats.n_requests * cfg.exit_interval:.2f}/{cut}")
+    out.update(stream_rows=len(rows), stream_waves=len(ss.stream_results), stream_steps=steps,
+               stream_enqueued=enq, b6_launches=b6, stream_s=stream_s)
+    del ss, sres, sc8, params8
+
+    out["cpu_cut"] = family_moe_cpu_cut(launches, cfg, params, calib, test)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_fam
+    log(f"[phase 4k] {card}: {cfg.name} cut: torch.cuda.max_memory_allocated "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB; {out['phase_s']:.1f}s")
+    return out
+
+
+def family_moe_cpu_cut(launches: dict, cfg, params, calib, test) -> dict:
+    """Phase 4k: the Qwen3-MoE cut's first 2 layers at full widths, an exit
+    after each (one stage of W 2), fit on ``exit_scores`` of the calibration
+    rows (one call), then ``FAMILY_CPU_ROWS`` test sequences through the
+    batch loop at that capacity on the card (B2's step form once) and on
+    the CPU (TF32 off).  Both runs' routing is probed: every token the two
+    route apart must be a near tie (its k-th and (k+1)-th router
+    probabilities within ``FAMILY_ROUTE_TIE``), and on the rows before the
+    first such token (every row without one) the verdicts are equal
+    outside the band and ``g_final`` within ``NEURAL_TOL``."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.core import CascadePlan
+    from repro_torch.core.early_exit import exit_deltas, exit_scores
+    from repro_torch.kernels.device_executor import DeviceExecutor, DevicePlan
+
+    cfg2 = cfg.scaled(n_layers=2, exit_interval=1)
+    p2 = {**params, "exit_heads": params["exit_heads"][:2],
+          "layers": _layer_slice(params["layers"], 2)}
+    sc2 = api.NeuralScorer(p2, cfg2, seq_len=NEURAL_SEQ)
+    S_cal = counted(launches, "family_scores/moe_cut2_calibration",
+                    lambda: exit_scores(p2, cfg2, calib))
+    m2 = api.fit(exit_deltas(S_cal), alpha=NEURAL_ALPHA, chunk_t=NEURAL_CHUNK_T,
+                 **sc2.fit_overrides()).model
+    dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(m2, chunk_t=NEURAL_CHUNK_T))
+    rows = test[:FAMILY_CPU_ROWS]
+    n = len(rows)
+    ex = DeviceExecutor(dplan, sc2.bind(dplan, device="cuda"), block_n=n, device="cuda",
+                        capture=False)
+    on_card = MoEProbe(routes=True)
+    with on_card:
+        card = counted(launches, "moe_batch/cut2", lambda: ex.run(rows, n, capacity=n))
+    t = time.perf_counter()
+    sc_cpu = api.NeuralScorer(_to_cpu(p2), cfg2, seq_len=NEURAL_SEQ)
+    on_cpu = MoEProbe(routes=True)
+    with on_cpu:
+        cpu = DeviceExecutor(dplan, sc_cpu.bind(dplan, device="cpu"), block_n=n,
+                             device="cpu").run(rows, n, capacity=n)
+    cpu_s = time.perf_counter() - t
+    flips = on_card.flips(on_cpu)
+    ok = np.arange(n) < first_row(flips, NEURAL_SEQ, n)
+    # the stage runs every row in one call, as exit_scores over the rows does
+    near = _near_band(m2, exit_deltas(counted(launches, "family_scores/moe_cut2_test",
+                                              lambda: exit_scores(p2, cfg2, rows))))
+    diff = (card.decisions != cpu.decisions) | (card.exit_step != cpu.exit_step)
+    if (diff & ok & ~near).any():
+        raise AssertionError(f"moe cut2 card vs CPU: rows {np.flatnonzero(diff & ok & ~near)} "
+                             "differ outside the band before the first token routed apart")
+    scale = max(1.0, float(np.abs(cpu.g_final).max()))
+    err = np.abs(card.g_final.astype(np.float64) - cpu.g_final)
+    checked = float(err[ok].max()) if ok.any() else 0.0
+    if not checked <= NEURAL_TOL * scale:
+        raise AssertionError(f"moe cut2 card vs CPU: g_final differs by {checked}")
+    n_flips = int(sum(f.size for f in flips))
+    log(f"[phase 4k] moe 2-layer cut at full widths, {n} sequences at cap {n} (one stage, W "
+        f"{dplan.W}): card vs CPU batch loop over {len(flips)} MoE calls: {on_cpu.n_ties} "
+        f"near-tie tokens (router gap <= {FAMILY_ROUTE_TIE}), {n_flips} routed apart, rows "
+        f"checked {int(ok.sum())}/{n}; {int(diff.sum())} verdicts differ ({int(near.sum())} "
+        f"rows in the band), g_final max abs err {float(err.max()):.3g} (checked rows "
+        f"{checked:.3g} <= {NEURAL_TOL * scale:.3g}); capacity dropped "
+        f"{on_cpu.drop_share:.5f}; CPU in {cpu_s:.1f}s")
+    return dict(rows=n, near_tie_tokens=on_cpu.n_ties, routed_apart=n_flips,
+                rows_checked=int(ok.sum()), verdicts_differ=int(diff.sum()),
+                band_rows=int(near.sum()), g_max_abs_err=float(err.max()), cpu_s=cpu_s,
+                dropped_share=on_cpu.drop_share)
+
+
+def family_rwkv(launches: dict, card: str) -> dict:
+    """Phase 4k: RWKV6-1.6B whole (24 layers, exits every 2: W 2, 6
+    stages): the calibration, fit and batch server (``family_served``); the
+    served verdicts equal ``evaluate_cascade`` on the test exit scores
+    outside the band (rows are independent here); and a 2-layer cut's exit
+    scores on the card within ``NEURAL_TOL`` of the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.core.early_exit import exit_deltas, exit_scores
+    from repro_torch.models.transformer import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t_fam = time.perf_counter()
+    cfg = get_config("rwkv6-1.6b").scaled(exit_interval=2)
+    t = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(FAMILY_SEED + 2),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    log(f"[phase 4k] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.rnn_heads} heads of {cfg.d_model // cfg.rnn_heads}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_layers // cfg.exit_interval} exits; {n_params / 1e9:.3f}e9 f32 weights drawn "
+        f"on the card in {time.perf_counter() - t:.1f}s")
+    toks = np.random.default_rng(FAMILY_SEED + 3).integers(
+        0, cfg.vocab_size, size=(FAMILY_RWKV_CALIB + FAMILY_TEST, NEURAL_SEQ))
+    calib, test = toks[:FAMILY_RWKV_CALIB], toks[FAMILY_RWKV_CALIB:]
+    out = family_served(launches, cfg, params, calib, test, "rwkv_batch")
+    ctx = out.pop("ctx")
+    m = ctx["fitted"].model
+    S_test = counted(launches, "family_scores/rwkv_test", lambda: exit_scores(params, cfg, test))
+    F_test = exit_deltas(S_test)
+    ev = evaluate_cascade(m, F_test)
+    near = _near_band(m, F_test)
+    moved = _agree("rwkv_batch vs evaluate_cascade", _verdicts(ctx["res"]),
+                   (ev["decisions"], ev["exit_step"]), near)
+    log(f"[phase 4k] rwkv_batch: {moved} verdicts moved vs evaluate_cascade on the test exit "
+        f"scores, {int(near.sum())} rows in the band")
+    out.update(moved_vs_oracle=moved, band_rows=int(near.sum()))
+    out["cpu_cut"] = family_cut_vs_cpu(cfg.scaled(n_layers=2), {
+        **params, "exit_heads": params["exit_heads"][:1],
+        "layers": _layer_slice(params["layers"], 2)}, test[:FAMILY_CPU_ROWS])
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_fam
+    log(f"[phase 4k] {card}: {cfg.name}: torch.cuda.max_memory_allocated "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB; {out['phase_s']:.1f}s")
+    return out
+
+
+def family_cut_vs_cpu(cfg, params, rows, frontend=None) -> dict:
+    """Phase 4k: ``exit_scores`` of a cut on the card and on the CPU (TF32
+    off), held within ``NEURAL_TOL * max(1, max|cpu|)`` on the rows before
+    the first token the two route apart (every row for a dense stack, or
+    without one); such a token must be a near tie (``MoEProbe.flips``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.early_exit import exit_scores
+
+    card_probe, cpu_probe = MoEProbe(routes=True), MoEProbe(routes=True)
+    with card_probe:
+        on_card = exit_scores(params, cfg, rows, frontend=frontend).cpu()
+    t = time.perf_counter()
+    with cpu_probe:
+        on_cpu = exit_scores(_to_cpu(params), cfg, rows,
+                             frontend=None if frontend is None else frontend.cpu())
+    cpu_s = time.perf_counter() - t
+    seq = rows.shape[1] + (0 if frontend is None else frontend.shape[1])
+    flips = card_probe.flips(cpu_probe)
+    ok = torch.arange(len(rows)) < first_row(flips, seq, len(rows))
+    err = (on_card - on_cpu).abs()
+    checked = float(err[ok].max()) if ok.any() else 0.0
+    bound = NEURAL_TOL * max(1.0, float(on_cpu.abs().max()))
+    if not (torch.isfinite(on_card).all() and checked <= bound):
+        raise AssertionError(f"{cfg.name} {cfg.n_layers}-layer cut: card vs CPU exit scores max "
+                             f"abs err {checked} > {bound}")
+    n_flips = int(sum(f.size for f in flips))
+    log(f"[phase 4k] {cfg.name} {cfg.n_layers}-layer cut ({''.join(cfg.layer_kinds())}) at full "
+        f"widths, {len(rows)} sequences of {seq}: exit scores card vs CPU max abs err "
+        f"{float(err.max()):.3g} (rows checked {int(ok.sum())}/{len(rows)}: {checked:.3g} <= "
+        f"{bound:.3g}); {len(flips)} MoE calls, {cpu_probe.n_ties} near-tie tokens, {n_flips} "
+        f"routed apart; CPU in {cpu_s:.1f}s")
+    return dict(layers=cfg.n_layers, kinds="".join(cfg.layer_kinds()), rows=len(rows), seq=seq,
+                max_abs_err=float(err.max()), checked_err=checked, bound=bound,
+                rows_checked=int(ok.sum()), near_tie_tokens=cpu_probe.n_ties,
+                routed_apart=n_flips, cpu_s=cpu_s)
+
+
+def family_cuts(launches: dict) -> dict:
+    """Phase 4k: the other families at full widths, cut to
+    ``FAMILY_CUTS`` layers (an exit after each), weights drawn on the card:
+    DeepSeek-V2-Lite (MLA, a dense first layer, 64 routed + 2 shared
+    experts top-6), RecurrentGemma-2B (R, R, L: the hybrid loop),
+    gemma2-2B (L, G, softcaps) and musicgen-large (its 64 frontend
+    embeddings prepended), ``exit_scores`` card against CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    out = {}
+    for i, (name, n_layers) in enumerate(FAMILY_CUTS.items()):
+        cfg = get_config(name).scaled(n_layers=n_layers, exit_interval=1)
+        gen = torch.Generator(device="cuda").manual_seed(FAMILY_SEED + 10 + i)
+        params = init_params(cfg, gen, device="cuda")
+        rng = np.random.default_rng(FAMILY_SEED + 10 + i)
+        rows = rng.integers(0, cfg.vocab_size, size=(FAMILY_CPU_ROWS, NEURAL_SEQ))
+        front = None
+        if cfg.n_frontend_tokens:
+            front = torch.randn((FAMILY_CPU_ROWS, cfg.n_frontend_tokens, cfg.d_model),
+                                generator=gen, device="cuda")
+        out[name] = counted(launches, f"family_scores/{name}",
+                            lambda: family_cut_vs_cpu(cfg, params, rows, front))
+        del params, front
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_families(report: dict, launches: dict) -> dict:
+    """Phase 4k: the neural depth cascade over the other model families
+    (``family_moe``, ``family_rwkv``, ``family_cuts``), the card's memory
+    released between them."""
+    import gc
+
+    import torch
+
+    card = report["card"]
+    out: dict = {"card": card}
+    for key, fn in (("moe", lambda: family_moe(launches, card)),
+                    ("rwkv6", lambda: family_rwkv(launches, card)),
+                    ("cuts", lambda: family_cuts(launches))):
+        out[key] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["families"] = out
+    return out
 
 
 def phase_gate(report: dict) -> None:
@@ -4331,6 +4896,7 @@ def main() -> int:
     timed("4h", phase_baselines, report, launches, main_ctx)
     timed("4i", phase_guarded, report, launches, main_ctx, ctx)
     timed("4j", phase_neural, report, launches, check)
+    timed("4k", phase_families, report, launches)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

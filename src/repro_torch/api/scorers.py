@@ -35,12 +35,7 @@ from repro_torch.kernels.device_executor import (
 )
 from repro_torch.kernels.ops import _bucket_rows
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (
-    _apply_block,
-    check_supported,
-    layer_params,
-    layer_windows,
-)
+from repro_torch.models.transformer import _apply_block, layer_at, layer_windows
 
 __all__ = [
     "StageScorer",
@@ -181,9 +176,12 @@ class FunctionScorer(StageScorer):
 
 
 def _params_to(tree, device):
-    """The param dict on ``device`` (no copy for tensors already there)."""
-    return {k: _params_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """The param tree on ``device`` (no copy for tensors already there)."""
+    if isinstance(tree, dict):
+        return {k: _params_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 class NeuralScorer(StageScorer):
@@ -205,14 +203,20 @@ class NeuralScorer(StageScorer):
     ``stage(state, t0, t0 + W, ...)`` runs layers ``t0 * k .. (t0 + W) * k``
     on the survivors' carried ``h`` (the same ``_apply_block``, windows and
     positions as ``forward``), and scores the raw last-token state against
-    the exit head after each segment.  Attention K/V are recomputed from the
-    carried residual each segment (prefill-style classification, exact by
-    construction), so no KV cache rides the buffers.  At ``t0 == 0`` the
-    state comes from the prepared operand (the embedded tokens), which also
-    covers streaming rookies admitted into recycled lanes.  The port's loops
-    pass ``t0`` as a Python int, so a stage's layer indices are static:
-    it reads the stacked layers by index.  Exits past the last (a ragged
-    last stage) give zero columns and leave the state as it was.
+    the exit head after each segment.  Attention K/V (and the RWKV6 and
+    RG-LRU recurrences) are recomputed from the carried residual each
+    segment (prefill-style classification, exact by construction), so no
+    cache rides the buffers.  Any uniform stack serves: dense or MLA
+    attention, RWKV6 or RG-LRU mixing, a dense or MoE FFN.  A MoE layer
+    couples the rows of one call (``models.moe``), so a batch stage runs
+    over the loop's whole buffer of rows in the loop's order, and the lane
+    sweep runs every stage start over every lane, as the reference's do.
+    At ``t0 == 0`` the state comes from the prepared operand (the embedded
+    tokens), which also covers streaming rookies admitted into recycled
+    lanes.  The port's loops pass ``t0`` as a Python int, so a stage's
+    layer indices are static: it reads the layers by index (``layer_at``).
+    Exits past the last (a ragged last stage) give zero columns and leave
+    the state as it was.
 
     Depth order is pinned (layer t consumes layer t-1's output): ``bind``
     refuses a plan whose order is not ``arange``, one with a lead stage
@@ -240,7 +244,6 @@ class NeuralScorer(StageScorer):
             )
         if "exit_heads" not in params:
             raise ValueError("params must carry 'exit_heads' (cfg.exit_interval set at init)")
-        check_supported(cfg)
         self.params = params
         self.cfg = cfg
         self.seq_len = int(seq_len)
@@ -286,7 +289,8 @@ class NeuralScorer(StageScorer):
             )
         dev = resolve_device(device)
         params = _params_to(self.params, dev)
-        layers, heads, embed = params["layers"], params["exit_heads"], params["embed"]
+        heads, embed = params["exit_heads"], params["embed"]
+        blocks = [layer_at(params, cfg, li) for li in range(E * k)]
         windows = layer_windows(cfg)
         positions = torch.arange(self.seq_len, device=dev)
         W = dplan.W
@@ -312,7 +316,8 @@ class NeuralScorer(StageScorer):
                     cols.append(torch.zeros_like(sp))
                     continue
                 for li in range(p * k, (p + 1) * k):
-                    h = _apply_block(layer_params(layers, li), h, cfg, positions, windows[li])
+                    lp, kind = blocks[li]
+                    h, _ = _apply_block(lp, h, cfg, kind, positions, windows[li])
                 s = exit_head_score(h, heads[p])
                 cols.append(s - sp)
                 sp = s

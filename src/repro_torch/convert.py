@@ -148,15 +148,9 @@ def transformer_params_from_numpy(params: dict, device="cuda") -> dict:
     """The reference's transformer params (``repro.models.transformer.
     init_params``, its leaves as numpy arrays) -> the port's param dict on
     ``device``, leaf for leaf: the ``(d_in, d_out)`` layout, the leading-L
-    stacked ``layers`` and the ``exit_heads`` kept, so both packages compute
-    the same products.  A stack the port does not build (``pre_layers``,
-    ``loop_layers``: ROADMAP A13, second part) raises."""
-    for key in ("pre_layers", "loop_layers"):
-        if key in params:
-            raise ValueError(
-                f"params hold {key!r}: that stack is not ported yet (ROADMAP A13, "
-                "second part); the port builds uniform dense GQA stacks"
-            )
+    stacked ``layers``, the ``pre_layers`` and ``loop_layers`` lists, the
+    ``attn`` / ``mix`` / ``moe`` / ``mlp`` leaves and the ``exit_heads``
+    kept, so both packages compute the same products."""
 
     def leaf(a):
         a = np.asarray(a)
@@ -165,6 +159,10 @@ def transformer_params_from_numpy(params: dict, device="cuda") -> dict:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
     def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else leaf(v) for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v) for v in tree]
+        return leaf(tree)
 
     return walk(params)

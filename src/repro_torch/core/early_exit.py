@@ -12,8 +12,12 @@ segment, so "mean cost" is the mean number of layers run per example.
 ``exit_scores`` gives the numbers of the reference's (the exit head on the
 RAW last-token residual after each exit layer), computed without what the
 reference builds and throws away: no final norm, no (N, S, vocab) logits
-and no (L, N, S, d) hidden stack.  It keeps the (E, rows, d) last-token
-states of a chunk of rows at a time.
+and no (L, N, S, d) hidden stack, and no layer past the last exit.  Where
+rows are independent it runs a chunk of rows at a time.  A MoE layer
+couples the rows of one call (the expert capacity and a token's place in
+an expert's queue follow the call's tokens, ``models.moe``), so with
+``cfg.n_experts`` set every layer runs over all N rows in one call, as the
+reference's single ``forward`` does.
 """
 
 from __future__ import annotations
@@ -24,12 +28,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.qwyc import QWYCModel, evaluate_cascade, fit_thresholds_for_order
-from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _apply_block, check_supported, layer_params, layer_windows
+from repro_torch.models.transformer import _apply_block, embed_inputs, layer_at, layer_windows
 
 __all__ = [
     "exit_scores",
+    "exit_layers",
     "exit_head_score",
     "exit_deltas",
     "calibrate_early_exit",
@@ -49,32 +53,51 @@ def exit_head_score(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return h[:, -1, :].float() @ head.float()
 
 
+def exit_layers(cfg: ModelConfig) -> list[int]:
+    """The layer after which each exit head reads the residual stream:
+    layer (r + 1) * exit_interval - 1 for exit r.  The reference's
+    ``exit_scores`` counts it in its hidden stack, which holds only the
+    layers after the ``first_dense_layers``, the index clamped to the last
+    of them; so do these (the same layers on every other stack)."""
+    k = cfg.exit_interval
+    n_pre = cfg.first_dense_layers if cfg.uniform else 0
+    last = cfg.n_layers - n_pre - 1
+    return [n_pre + min((r + 1) * k - 1, last) for r in range(cfg.n_layers // k)]
+
+
 @torch.no_grad()
-def exit_scores(params, cfg: ModelConfig, tokens) -> torch.Tensor:
+def exit_scores(params, cfg: ModelConfig, tokens, frontend=None) -> torch.Tensor:
     """(N, n_exits) f32 classifier scores at every exit point, on the
     params' device.  The score at exit r is the exit head applied to the
-    raw last-token residual after layer (r + 1) * exit_interval, as the
+    raw last-token residual after layer ``exit_layers(cfg)[r]``, as the
     reference computes it (its docstring says "normed"; its code does not
-    norm).  ``tokens`` (N, S) ints, an array or a tensor, run
-    ``EXIT_CHUNK_ROWS`` rows at a time."""
+    norm).  ``tokens`` (N, S) ints and ``frontend`` (N, S_front, d)
+    embeddings prepended to the tokens' (or None), arrays or tensors; run
+    ``EXIT_CHUNK_ROWS`` rows at a time, or all N at once for a MoE config."""
     if not cfg.exit_interval:
         raise ValueError("config must set exit_interval")
-    check_supported(cfg)
     heads = params["exit_heads"]
     dev = heads.device
-    toks = torch.as_tensor(np.asarray(tokens) if not isinstance(tokens, torch.Tensor) else tokens)
-    toks = toks.to(dev).long()
-    k = cfg.exit_interval
+
+    def tensor(a):
+        return torch.as_tensor(a if isinstance(a, torch.Tensor) else np.asarray(a)).to(dev)
+
+    toks = tensor(tokens).long()
+    front = None if frontend is None else tensor(frontend)
+    at = exit_layers(cfg)
     windows = layer_windows(cfg)
-    positions = torch.arange(toks.shape[1], device=dev)
-    n_exits = cfg.n_layers // k
-    out = torch.empty((toks.shape[0], n_exits), dtype=torch.float32, device=dev)
-    for r0 in range(0, toks.shape[0], EXIT_CHUNK_ROWS):
-        x = L.embed_tokens(params["embed"], toks[r0 : r0 + EXIT_CHUNK_ROWS], cfg)
-        for i in range(n_exits * k):
-            x = _apply_block(layer_params(params["layers"], i), x, cfg, positions, windows[i])
-            if (i + 1) % k == 0:
-                out[r0 : r0 + EXIT_CHUNK_ROWS, i // k] = exit_head_score(x, heads[i // k])
+    n = toks.shape[0]
+    positions = torch.arange(toks.shape[1] + (0 if front is None else front.shape[1]), device=dev)
+    out = torch.empty((n, len(at)), dtype=torch.float32, device=dev)
+    step = max(n, 1) if cfg.n_experts else EXIT_CHUNK_ROWS
+    for r0 in range(0, n, step):
+        rows = slice(r0, r0 + step)
+        x = embed_inputs(params, cfg, toks[rows], None if front is None else front[rows])
+        for i in range(at[-1] + 1):
+            p, kind = layer_at(params, cfg, i)
+            x, _ = _apply_block(p, x, cfg, kind, positions, windows[i])
+            for r in (r for r, li in enumerate(at) if li == i):
+                out[rows, r] = exit_head_score(x, heads[r])
     return out
 
 

@@ -2,9 +2,7 @@
 
 One ``ModelConfig`` describes a decoder-style backbone: dense GQA, MLA
 (DeepSeek), MoE, RWKV6 (attention-free), RG-LRU hybrid (RecurrentGemma),
-and the VLM/audio variants.  The port builds the uniform dense GQA stack
-(``models.transformer``); the other families' fields are carried so that
-every config of the reference reads the same here (ROADMAP A13).
+and the VLM/audio variants (``models.transformer`` builds each of them).
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ carry across as they are (``repro_torch.convert.transformer_params_from_numpy``)
 Attention is the reference's query-chunked causal attention (``_attend``),
 in its order of operations: f32 logits, softcap, ``-1e30`` masking,
 softmax, then the value contraction.  It is the cache-less (prefill) form;
-the ring-buffer KV cache goes with the decode steps (ROADMAP A13, second
+the ring-buffer KV cache goes with the decode steps (ROADMAP A13, third
 part).
 """
 
@@ -28,7 +28,7 @@ Params = dict[str, Any]
 Q_CHUNK = 256  # attention query block
 
 _CACHE_TODO = (
-    "the attention KV cache (decode) is not ported yet (ROADMAP A13, second "
+    "the attention KV cache (decode) is not ported yet (ROADMAP A13, third "
     "part: models/steps.py); apply_attn runs the cache-less prefill form"
 )
 

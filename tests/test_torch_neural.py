@@ -45,7 +45,7 @@ from repro.serving.engine import QWYCServer as JQWYCServer
 from repro.serving.engine import StreamingServer as JStreamingServer
 from repro_torch import api
 from repro_torch.api.scorers import host_producer
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import qwyc_model_from_numpy, transformer_params_from_numpy
 from repro_torch.core import CascadePlan, ChunkedExecutor, evaluate_cascade
 from repro_torch.core.early_exit import (
@@ -216,7 +216,7 @@ def _piece(name, rng):
     jp = JT._init_block(jax.random.PRNGKey(5), cfg, "G", dense_ffn=True, dtype=jnp.float32)
     p = conv(jax.tree_util.tree_map(np.asarray, jp), device=DEV)
     j, _, _ = JT._apply_block(jp, jnp.asarray(x), cfg, "G", jnp.asarray(pos), 0, None)
-    return j, T._apply_block(p, _t(x), pcfg, _t(pos), 0)
+    return j, T._apply_block(p, _t(x), pcfg, "G", _t(pos), 0)[0]
 
 
 @pytest.mark.parametrize("name", PIECES)
@@ -233,7 +233,7 @@ def test_forward_and_exit_scores_match_jax(fx):
     pos = np.arange(toks.shape[1])
     jlog, _, _, jhid = JT.forward(jparams, jcfg, jnp.asarray(toks), jnp.asarray(pos),
                                   collect_hidden=True)
-    log, hid = T.forward(fx["params"], fx["cfg"], _t(toks), _t(pos), collect_hidden=True)
+    log, _, hid = T.forward(fx["params"], fx["cfg"], _t(toks), _t(pos), collect_hidden=True)
     np.testing.assert_allclose(_np(hid), np.asarray(jhid), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(_np(log), np.asarray(jlog), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(fx["scores"], fx["jscores"], rtol=1e-4, atol=1e-5)
@@ -573,10 +573,11 @@ def test_host_producer_scatters_only_real_rows(fx):
     np.testing.assert_allclose(results[0].g_final, results[1].g_final, rtol=1e-6, atol=1e-6)
 
 
-# -- configs and unsupported stacks -------------------------------------------------
+# -- configs and the families' stacks ----------------------------------------------
 
 
 def test_qwen3_config_and_registry_match_jax():
+    from repro.configs import ARCHS as J_ARCHS
     from repro.configs import get_config as j_get_config
 
     cfg, jcfg = get_config("qwen3-1.7b"), j_get_config("qwen3-1.7b")
@@ -584,8 +585,10 @@ def test_qwen3_config_and_registry_match_jax():
     assert param_count(cfg) == j_param_count(jcfg)
     scaled = cfg.scaled(exit_interval=2)
     assert scaled.n_layers // scaled.exit_interval == 14 and scaled.hd() == 128
-    with pytest.raises(KeyError, match=r"unknown arch 'gemma2-2b'; known: \['qwen3-1.7b'\]"):
-        get_config("gemma2-2b")
+    # the registry names the reference's ten configs, in its order
+    assert list(ARCHS) == list(J_ARCHS)
+    with pytest.raises(KeyError, match=r"unknown arch 'nope'; known: \["):
+        get_config("nope")
     with pytest.raises(KeyError, match=r"unknown arch 'nope'; known: \["):
         j_get_config("nope")
 
@@ -593,12 +596,36 @@ def test_qwen3_config_and_registry_match_jax():
 @pytest.mark.parametrize("edit", [{"kv_lora_rank": 32}, {"n_experts": 4, "top_k": 2},
                                   {"layer_pattern": "RRG"}, {"layer_pattern": "W"},
                                   {"first_dense_layers": 1}])
-def test_unported_stacks_raise_naming_a13(edit):
-    cfg = get_config("qwen3-1.7b").smoke().scaled(**edit)
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    with pytest.raises(ValueError, match="ROADMAP A13"):
-        T.init_params(cfg, gen, device=DEV)
-    with pytest.raises(ValueError, match="ROADMAP A13"):
+def test_edited_stacks_match_jax(edit):
+    """Qwen3-1.7B at smoke size, three layers, with one family's edit (MLA,
+    MoE, the hybrid R, R, G loop, RWKV6, a dense first layer): the
+    reference's weights carried across, ``forward``'s logits, aux loss and
+    hidden stack and ``exit_scores`` equal to the reference's."""
+    jcfg = JModelConfig(**dataclasses.asdict(
+        get_config("qwen3-1.7b").smoke().scaled(n_layers=3, exit_interval=1, **edit)))
+    cfg = _port_cfg(jcfg)
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(12))
+    p = transformer_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device=DEV)
+    assert ("loop_layers" in p) == (edit == {"layer_pattern": "RRG"})
+    assert ("pre_layers" in p) == ("first_dense_layers" in edit)
+    toks = np.random.default_rng(13).integers(0, cfg.vocab_size, size=(4, 7))
+    pos = np.arange(7)
+    jlog, _, jaux, jhid = JT.forward(jp, jcfg, jnp.asarray(toks), jnp.asarray(pos),
+                                     collect_hidden=True)
+    log, aux, hid = T.forward(p, cfg, _t(toks), _t(pos), collect_hidden=True)
+    np.testing.assert_allclose(_np(hid), np.asarray(jhid), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(_np(log), np.asarray(jlog), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(_np(exit_scores(p, cfg, toks)),
+                               np.asarray(j_exit_scores(jp, jcfg, jnp.asarray(toks))),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_attn_cache_raises_naming_a13_third_part():
+    """The decode caches are not ported: the attention cache branch raises
+    naming ROADMAP A13's third part."""
+    cfg = get_config("qwen3-1.7b").smoke()
+    with pytest.raises(ValueError, match="ROADMAP A13, third part"):
         L.apply_attn({}, torch.zeros(1, 2, cfg.d_model), cfg, torch.arange(2), 0, cache={})
 
 
