@@ -102,7 +102,7 @@ Phases, each of which stops the run on failure:
    weights rounded onto the grid quantised serving == f32 serving exactly;
    on the raw weights g within ``tolerance_bound`` of f32 serving wherever
    the exit did not move (moved verdicts and exits are reported).
-   In phases 4-4e and 4h-4k the launch counts are set to 0 just before each path and
+   In phases 4-4e and 4h-4m the launch counts are set to 0 just before each path and
    read just after it: each path must have launched exactly its own kernels
    (a streaming path its B6 or B7 once per step enqueued; the ranking path
    one B8 per stage and per epilogue of each bucket wave, and one B3 per
@@ -200,6 +200,38 @@ Phases, each of which stops the run on failure:
    layers (R, R, L: the hybrid loop); ``max_memory_allocated`` a family.
    To run it alone, build (``_build.build_all()``) and call
    ``chip_smoke.phase_families({"card": ...}, {})``.
+4l. Decode at Qwen3-1.7B's published widths, f32 weights drawn on the
+   card from ``DECODE_SEED``, TF32 off: 8 prompts of 512 tokens of the
+   seed's ``TokenStream``, ``make_prefill_step`` into an f32
+   ``init_cache`` of 544 positions, 32 greedy ``make_decode_step`` calls;
+   every step's logits (and the prefill's last) within ``DECODE_TOL``
+   of the largest of the cache-less ``forward(serve=True)`` over the 544
+   tokens, each greedy token its argmax wherever the top-2 gap exceeds
+   twice that; the same tokens through a bf16 cache within
+   ``DECODE_BF16_TOL``, the greedy tokens that differ counted; the
+   prefill wall, the decode step wall (median, p90), tokens/s,
+   ``max_memory_allocated`` and one decode step profiled (device time,
+   launches, busy share, the leading kernels).  Then cuts at published widths of gemma2-2B,
+   DeepSeek-V2-Lite (``mla_absorb`` off and on), Qwen3-MoE-30B-A3B,
+   RWKV6-1.6B, RecurrentGemma-2B (3 layers), musicgen-large and
+   InternVL2-26B (frontend embeddings in the prefill): 4 rows, a prefill
+   and 8 decode steps on the card and the CPU, logits and caches within
+   ``NEURAL_TOL`` on the rows before any token routed apart.
+4m. Training at Qwen3-1.7B's published widths: ``init_train_state``
+   from ``TRAIN_SEED``, ``make_batches(vocab, 4, 256, seed=0)``, lr 3e-4,
+   clip 1.0.  From the first state and batch: remat (loss within 1e-6
+   relative), ``microbatch=2`` (within 1e-5) and the plain step's params
+   equal under tests/test_torch_train.py's rule (within 1e-6 outside the
+   band of near-zero gradients, 2 lr inside it, the moved elements
+   counted); ``compute_dtype=bfloat16`` within ``TRAIN_BF16_LOSS``.  Six
+   plain and two remat steps timed (wall, TFLOP/s at 6 N tokens, peak
+   memory of the step and of a forward and backward alone, one plain step
+   profiled), every loss and ``grad_norm`` finite; a 2-layer cut card against CPU (loss,
+   ``grad_norm``, gradients, params) and its checkpoint round trip bit
+   for bit; ``python -m repro_torch.launch.train`` at its defaults in a
+   process of its own, which must print ``OK``.  To run 4l and 4m alone,
+   call ``chip_smoke.phase_decode({"card": ...}, {})`` and
+   ``chip_smoke.phase_train({"card": ...}, {})`` (no kernel build needed).
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
@@ -341,6 +373,34 @@ FAMILY_STREAM_LAYERS, FAMILY_STREAM_ROWS = 8, 128
 FAMILY_CPU_ROWS, FAMILY_ROUTE_TIE = 16, 1e-5
 FAMILY_CUTS = {"deepseek-v2-lite-16b": 2, "recurrentgemma-2b": 3, "gemma2-2b": 2,
                "musicgen-large": 2}
+# phase 4l: decode at Qwen3-1.7B's published widths, f32 weights drawn on
+# the card from DECODE_SEED: prompts of the seed's token stream, the
+# cache's positions (prompt + greedy steps), the logits' tolerance against
+# the cache-less forward (|decode - full| <= DECODE_TOL * max|full|) and a
+# bf16 cache's against the f32 cache's; the families' card-vs-CPU cuts
+# (prefill of DECODE_CUT_PROMPT tokens after any frontend embeddings, then
+# DECODE_CUT_STEPS decode steps, the next tokens of the stream), held to
+# NEURAL_TOL * max(1, max|cpu|)
+DECODE_SEED, DECODE_B, DECODE_PROMPT, DECODE_STEPS = 2033, 8, 512, 32
+DECODE_TOL, DECODE_BF16_TOL = 1e-4, 5e-3
+DECODE_CUT_ROWS, DECODE_CUT_PROMPT, DECODE_CUT_STEPS = 4, 64, 8
+DECODE_CUTS = [("gemma2-2b", 2, {}), ("deepseek-v2-lite-16b", 2, {}),
+               ("deepseek-v2-lite-16b", 2, {"mla_absorb": True}), ("qwen3-moe-30b-a3b", 2, {}),
+               ("rwkv6-1.6b", 2, {}), ("recurrentgemma-2b", 3, {}), ("musicgen-large", 2, {}),
+               ("internvl2-26b", 2, {})]
+# phase 4m: training at Qwen3-1.7B's published widths (init_train_state
+# from TRAIN_SEED), make_batches(vocab, 4, 256, seed=0), steps timed plain
+# and with remat; the 2-layer cut's batch held card against CPU; the
+# updated-params rule of tests/test_torch_train.py (within 1e-6 outside the
+# band |g| < TRAIN_BAND * max|g| of a leaf, within 2 lr + 1e-6 inside it,
+# the elements there past 1e-6 under TRAIN_MOVED_SHARE of the tree: ten
+# times the CPU test's, since most of the tied 151936-row embedding takes
+# only the softmax's small gradients, which clipping puts within a few eps
+# of 0: 167041 of 1.72e9 moved under microbatch 2 on one H100) and the
+# bf16-compute step's loss within TRAIN_BF16_LOSS (relative) of f32's
+TRAIN_SEED, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_REMAT_STEPS = 2034, 4, 256, 6, 2
+TRAIN_LR, TRAIN_CLIP, TRAIN_CUT_B, TRAIN_CUT_S = 3e-4, 1.0, 2, 128
+TRAIN_BAND, TRAIN_MOVED_SHARE, TRAIN_BF16_LOSS = 1e-4, 1e-3, 1e-2
 # tree depths phase 3 holds B4 and B7 tree to their plain versions at:
 # depths 1 and 10 (B3's old limit), exp1's and exp2_nomao's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
@@ -457,6 +517,9 @@ PATH_KERNELS = {
     "moe_batch": {"cascade_chunk_step"},
     "moe_stream": {"cascade_lane"},
     "rwkv_batch": {"cascade_chunk_step"},
+    # phases 4l and 4m: decode and training run PyTorch ops only
+    "decode": set(),
+    "train": set(),
 }
 for _v, _q in QUANT_VARIANTS:
     PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
@@ -3947,6 +4010,449 @@ def phase_families(report: dict, launches: dict) -> dict:
     return out
 
 
+def _decode(params, cfg, batch: dict, cache, steps: int, feed=None):
+    """Phase 4l: ``make_prefill_step`` over ``batch``, then ``steps``
+    ``make_decode_step`` calls, each fed ``feed[:, t]`` or, without
+    ``feed``, the greedy token of the logits before it -> (logits (B,
+    steps + 1, V): the prefill's last position, then each step's; the
+    tokens fed (B, steps); the cache; the prefill's wall and each step's,
+    in seconds, each ended by a synchronise)."""
+    import torch
+
+    from repro_torch.models import make_decode_step, make_prefill_step
+
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lg, cache = prefill(params, cache, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    pos = batch["tokens"].shape[1] + (batch["frontend"].shape[1] if "frontend" in batch else 0)
+    logits, fed, walls = [lg[:, 0]], [], []
+    for i in range(steps):
+        tok = feed[:, i:i + 1] if feed is not None else logits[-1].argmax(-1, keepdim=True)
+        t = time.perf_counter()
+        lg, cache = decode(params, cache, tok, pos + i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        fed.append(tok)
+        logits.append(lg[:, 0])
+    return torch.stack(logits, 1), torch.cat(fed, 1), cache, prefill_s, walls
+
+
+def device_breakdown(work: dict, wall_s: float, top: int = 6) -> dict:
+    """A profiled window's ``device_work`` against its unprofiled wall:
+    device ms, kernel launches, the busy share and the ``top`` kernels by
+    device time (name, ms, launches)."""
+    dev_us = sum(us for us, _ in work.values())
+    ranked = sorted(work.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(device_ms=dev_us / 1e3, launches=sum(n for _, n in work.values()),
+                busy_share=dev_us / 1e6 / wall_s,
+                top=[(name[:80], us / 1e3, n) for name, (us, n) in ranked])
+
+
+def _fmt_breakdown(b: dict) -> str:
+    return (f"device {b['device_ms']:.2f} ms over {b['launches']} launches, busy "
+            f"{100 * b['busy_share']:.1f} %; top: "
+            + "; ".join(f"{name} {ms:.2f} ms x{n}" for name, ms, n in b["top"][:4]))
+
+
+def _moe_first_row(probe_card, probe_cpu, rows: int) -> int:
+    """The first row that a token routed apart on the card and the CPU can
+    touch (a MoE call's rows from the first such token on see other queue
+    places; a decode step's call holds one token a row), or ``rows``."""
+    first = rows
+    for ids, calls in zip(probe_card.flips(probe_cpu), probe_card.routes):
+        if ids.size:
+            first = min(first, int(ids[0]) // (calls.shape[0] // rows))
+    return first
+
+
+def decode_cut_vs_cpu(name: str, n_layers: int, edit: dict) -> dict:
+    """Phase 4l: a cut of ``name`` at its published widths, weights drawn
+    on the card (the seed from the name, so the two DeepSeek cuts share
+    theirs), prefill plus ``DECODE_CUT_STEPS`` decode steps of the
+    stream's next tokens on the card and on the CPU (f32 caches, TF32
+    off): every step's logits and every returned cache leaf within
+    ``NEURAL_TOL * max(1, max|cpu|)`` on the rows before the first token
+    the two route apart (every row without one)."""
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.tree import flatten
+
+    cfg = get_config(name).scaled(n_layers=n_layers, **edit)
+    seed = DECODE_SEED + 10 + sorted(ARCHS).index(name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(cfg, gen, device="cuda")
+    rows, n = DECODE_CUT_ROWS, DECODE_CUT_PROMPT
+    stream = TokenStream(cfg.vocab_size, seed=seed).sample(rows, n + DECODE_CUT_STEPS)
+    batch = {"tokens": torch.from_numpy(stream[:, :n]).cuda()}
+    if cfg.n_frontend_tokens:
+        batch["frontend"] = torch.randn((rows, cfg.n_frontend_tokens, cfg.d_model),
+                                        generator=gen, device="cuda")
+    seq = n + cfg.n_frontend_tokens + DECODE_CUT_STEPS
+    feed = torch.from_numpy(stream[:, n:])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _to_cpu(params)
+        probe = MoEProbe(routes=True)
+        t = time.perf_counter()
+        with probe:
+            lg, _, cache, _, _ = _decode(p, cfg, {k: v.to(dev) for k, v in batch.items()},
+                                         init_cache(cfg, rows, seq, torch.float32, device=dev),
+                                         DECODE_CUT_STEPS, feed.to(dev))
+        out[dev] = (lg.cpu(), _to_cpu(cache), probe, time.perf_counter() - t)
+        del p
+    (lg, cache, probe, card_s), (want, cache_cpu, probe_cpu, cpu_s) = out["cuda"], out["cpu"]
+    ok = _moe_first_row(probe, probe_cpu, rows)
+    bound = NEURAL_TOL * max(1.0, float(want.abs().max()))
+    err = float((lg[:ok] - want[:ok]).abs().max()) if ok else 0.0
+    if not (torch.isfinite(lg).all() and err <= bound):
+        raise AssertionError(f"decode {cfg.name} {n_layers}-layer cut {edit}: card vs CPU "
+                             f"logits max abs err {err} > {bound} (rows {ok}/{rows})")
+    leaf_err = 0.0
+    if ok == rows:
+        for (path, a), (_, b) in zip(flatten(cache), flatten(cache_cpu)):
+            if a.is_floating_point():
+                e = float((a.float() - b.float()).abs().max())
+                leaf_err = max(leaf_err, e)
+                if e > NEURAL_TOL * max(1.0, float(b.float().abs().max())):
+                    raise AssertionError(f"decode {cfg.name} cut: cache leaf {path} err {e}")
+            elif not torch.equal(a, b):
+                raise AssertionError(f"decode {cfg.name} cut: cache leaf {path} differs")
+    n_flips = int(sum(f.size for f in probe.flips(probe_cpu)))
+    log(f"[phase 4l] {cfg.name} {n_layers}-layer cut ({''.join(cfg.layer_kinds())}"
+        f"{', mla_absorb' if cfg.mla_absorb else ''}) at full widths, {rows} x "
+        f"({cfg.n_frontend_tokens} + {n}) prefill + {DECODE_CUT_STEPS} steps: logits card vs "
+        f"CPU max abs err {err:.3g} <= {bound:.3g} (rows {ok}/{rows}), cache leaves "
+        f"{leaf_err:.3g}; {len(probe.routes)} MoE calls, {probe_cpu.n_ties} near ties, "
+        f"{n_flips} routed apart; card {card_s:.1f}s, CPU {cpu_s:.1f}s")
+    return dict(layers=n_layers, kinds="".join(cfg.layer_kinds()), mla_absorb=cfg.mla_absorb,
+                rows_checked=ok, max_abs_err=err, bound=bound, cache_err=leaf_err,
+                routed_apart=n_flips, near_ties=probe_cpu.n_ties, card_s=card_s, cpu_s=cpu_s)
+
+
+def phase_decode(report: dict, launches: dict) -> dict:
+    """Phase 4l: decode at Qwen3-1.7B's published widths (28 layers,
+    d_model 2048, 16 / 8 heads of 128, d_ff 6144, vocab 151936), random f32
+    weights drawn on the card from ``DECODE_SEED``: 8 prompts of 512 tokens
+    of the seed's ``TokenStream``, ``make_prefill_step`` into an f32
+    ``init_cache`` of 544 positions, then 32 greedy ``make_decode_step``
+    calls.  Every step's logits (and the prefill's last) within
+    ``DECODE_TOL * max|full|`` of the cache-less ``forward(serve=True)``
+    over the 544 tokens (causal: position p sees the tokens so far), each
+    greedy token equal to that forward's argmax wherever its top-2 gap
+    exceeds twice that; the same tokens through a bf16 cache (the
+    reference's default) finite and within ``DECODE_BF16_TOL * max|f32|``
+    of the f32 cache's, the greedy tokens that differ counted.  The
+    prefill wall, each decode step's wall (a second f32 run on the same
+    tokens) and ``max_memory_allocated``.  Then ``DECODE_CUTS``: the other
+    families' cuts card against CPU (``decode_cut_vs_cpu``)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import make_decode_step
+    from repro_torch.models.transformer import forward, init_cache, init_params
+
+    card = report["card"]
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen3-1.7b")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(DECODE_SEED),
+                         device="cuda")
+    prompt = TokenStream(cfg.vocab_size, seed=DECODE_SEED).sample(DECODE_B, DECODE_PROMPT)
+    batch = {"tokens": torch.from_numpy(prompt).cuda()}
+    seq = DECODE_PROMPT + DECODE_STEPS
+
+    def run(dtype, feed=None):
+        cache = init_cache(cfg, DECODE_B, seq, dtype, device="cuda")
+        return _decode(params, cfg, batch, cache, DECODE_STEPS, feed)
+
+    lg32, fed, _, _, _ = counted(launches, "decode/f32", lambda: run(torch.float32))
+    _, _, cache, prefill_s, walls = run(torch.float32, fed)
+    decode = make_decode_step(cfg)
+    work = profile_device(lambda: decode(params, cache, fed[:, -1:], seq - 1))
+    step_profile = device_breakdown(work, statistics.median(walls))
+    del cache
+    with torch.no_grad():
+        full, _ = forward(params, cfg, torch.cat([batch["tokens"], fed], 1),
+                          torch.arange(seq, device="cuda"), serve=True)
+    want = full[:, DECODE_PROMPT - 1:]
+    del full
+    tol = DECODE_TOL * float(want.abs().max())
+    gap = float((lg32 - want).abs().max())
+    top2 = want[:, :-1].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    agree = fed == want[:, :-1].argmax(-1)
+    if not (torch.isfinite(lg32).all() and gap <= tol and bool(agree[clear].all())):
+        raise AssertionError(f"decode: logits gap {gap} > {tol} or greedy tokens "
+                             f"{int((~agree & clear).sum())} apart from the full forward")
+    lg16, _, cache16, _, _ = counted(launches, "decode/bf16", lambda: run(torch.bfloat16, fed))
+    gap16 = float((lg16 - lg32).abs().max())
+    tol16 = DECODE_BF16_TOL * float(lg32.abs().max())
+    differ16 = int((lg16[:, :-1].argmax(-1) != fed).sum())
+    if not (torch.isfinite(lg16).all() and gap16 <= tol16
+            and cache16["stack"]["k"].dtype == torch.bfloat16):
+        raise AssertionError(f"decode: bf16 cache logits gap {gap16} > {tol16}")
+    step_ms = statistics.median(walls) * 1e3
+    out = dict(card=card, batch=DECODE_B, prompt=DECODE_PROMPT, steps=DECODE_STEPS,
+               prefill_s=prefill_s, decode_step_ms=step_ms,
+               decode_step_p90_ms=float(np.percentile(walls, 90)) * 1e3,
+               tokens_per_s=DECODE_B / (step_ms / 1e3), tol=tol, max_gap=gap,
+               greedy_clear=int(clear.sum()), greedy_agree=int(agree.sum()),
+               bf16_tol=tol16, bf16_gap=gap16, bf16_greedy_differ=differ16,
+               step_profile=step_profile,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"[phase 4l] {cfg.name} ({card}): {DECODE_B} x {DECODE_PROMPT} prefill "
+        f"{prefill_s * 1e3:.1f} ms, decode step median {step_ms:.2f} ms (p90 "
+        f"{out['decode_step_p90_ms']:.2f}), {out['tokens_per_s']:.0f} tokens/s; logits vs the "
+        f"cache-less forward max gap {gap:.3g} <= {tol:.3g}; greedy == argmax on "
+        f"{int(agree.sum())}/{agree.numel()} ({int(clear.sum())} clear of the gap); bf16 cache "
+        f"gap {gap16:.3g} <= {tol16:.3g}, {differ16} greedy tokens differ; peak "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB")
+    log(f"[phase 4l] one decode step: {_fmt_breakdown(step_profile)}")
+    del params, lg32, lg16, cache16, want, top2
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuts = {}
+    for name, n_layers, edit in DECODE_CUTS:
+        key = name + ("/mla_absorb" if edit.get("mla_absorb") else "")
+        cuts[key] = counted(launches, f"decode/{key}",
+                            lambda: decode_cut_vs_cpu(name, n_layers, edit))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["cuts"] = cuts
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["decode"] = out
+    return out
+
+
+def _band_check(what: str, got, want, bands, lr: float) -> int:
+    """tests/test_torch_train.py's updated-params rule: ``got`` within 1e-6
+    of ``want`` outside each leaf's band (``bands``, a bool tensor a leaf in
+    flatten order), within ``2 lr + 1e-6`` inside it -> the count of
+    elements in the band past 1e-6, held under ``TRAIN_MOVED_SHARE``."""
+    from repro_torch.tree import flatten
+
+    moved = total = 0
+    for (path, a), (_, b), band in zip(flatten(got), flatten(want), bands, strict=True):
+        d = (a.float() - b.float().to(a.device)).abs()
+        band = band.to(a.device)
+        out = float(d[~band].max()) if bool((~band).any()) else 0.0
+        if out > 1e-6 or float(d.max()) > 2 * lr + 1e-6:
+            raise AssertionError(f"train {what}: {path} max abs err {out} outside the band, "
+                                 f"{float(d.max())} in all")
+        moved += int((d[band] > 1e-6).sum())
+        total += d.numel()
+    if moved > TRAIN_MOVED_SHARE * total:
+        raise AssertionError(f"train {what}: {moved} of {total} band elements moved past 1e-6")
+    return moved
+
+
+def _bands(grads) -> list:
+    from repro_torch.tree import leaves
+
+    return [g.abs() < TRAIN_BAND * g.abs().max() for g in leaves(grads)]
+
+
+def train_cut_vs_cpu(cfg) -> dict:
+    """Phase 4m: a 2-layer cut of ``cfg``'s widths, weights drawn on the
+    card, one train step on the card and on the CPU from the same weights
+    and batch: loss and ``grad_norm`` within 1e-5 relative, the gradients
+    within ``1e-5 * max|g_cpu| + 1e-7`` a leaf, the params under the band
+    rule; then the card's updated params through ``save_checkpoint`` and
+    ``restore_checkpoint`` (a temporary directory), bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data.tokens import make_batches
+    from repro_torch.models.steps import _grads_of, make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten, leaves
+
+    cut = cfg.scaled(n_layers=2)
+    params = init_params(cut, torch.Generator(device="cuda").manual_seed(TRAIN_SEED + 1),
+                         device="cuda")
+    raw = next(make_batches(cut.vocab_size, TRAIN_CUT_B, TRAIN_CUT_S, seed=1))
+    step = make_train_step(cut, lr=TRAIN_LR, clip=TRAIN_CLIP)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else _to_cpu(params)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+        t = time.perf_counter()
+        _, grads = _grads_of(p, cut, batch, False)
+        new_p, _, m = step(p, adamw_init(p), batch)
+        res[dev] = (new_p, m, grads, time.perf_counter() - t)
+    (p_card, m_card, g_card, card_s), (p_cpu, m_cpu, g_cpu, cpu_s) = res["cuda"], res["cpu"]
+    for k in ("loss", "grad_norm"):
+        a, b = float(m_card[k]), float(m_cpu[k])
+        if abs(a - b) > 1e-5 * abs(b):
+            raise AssertionError(f"train cut: {k} card {a} vs CPU {b}")
+    g_err = 0.0
+    for (path, a), b in zip(flatten(g_card), leaves(g_cpu)):
+        e = float((a.cpu() - b).abs().max())
+        g_err = max(g_err, e / max(float(b.abs().max()), 1e-30))
+        if e > 1e-5 * float(b.abs().max()) + 1e-7:
+            raise AssertionError(f"train cut: gradient {path} card vs CPU max abs err {e}")
+    moved = _band_check("cut card vs CPU", p_card, p_cpu, _bands(g_cpu), TRAIN_LR)
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, 1, p_card)
+        back = restore_checkpoint(d, 1, p_card, device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(p_card)))
+    if not same:
+        raise AssertionError("train cut: checkpoint round trip is not bit-equal")
+    log(f"[phase 4m] {cut.name} 2-layer cut at full widths, batch {TRAIN_CUT_B} x "
+        f"{TRAIN_CUT_S}: loss card {float(m_card['loss']):.6f} vs CPU "
+        f"{float(m_cpu['loss']):.6f}, grad_norm {float(m_card['grad_norm']):.6f} vs "
+        f"{float(m_cpu['grad_norm']):.6f}, gradients within {g_err:.3g} of max|g|, params "
+        f"under the band rule ({moved} band elements past 1e-6); checkpoint round trip "
+        f"bit-equal; card {card_s:.1f}s, CPU {cpu_s:.1f}s")
+    return dict(loss_card=float(m_card["loss"]), loss_cpu=float(m_cpu["loss"]),
+                grad_norm_card=float(m_card["grad_norm"]), grad_norm_cpu=float(m_cpu["grad_norm"]),
+                grad_rel_err=g_err, band_moved=moved, checkpoint_equal=same, card_s=card_s,
+                cpu_s=cpu_s)
+
+
+def phase_train(report: dict, launches: dict) -> dict:
+    """Phase 4m: training at Qwen3-1.7B's published widths: f32 masters
+    and moments (``init_train_state`` from ``TRAIN_SEED``),
+    ``make_batches(vocab, 4, 256, seed=0)``, lr 3e-4, clip 1.0.  From the
+    initial state on the first batch: a ``remat=True`` step's loss within
+    1e-6 relative of the plain step's and its params under the band rule
+    (the embedding's backward adds atomically on the card, so its sums
+    vary); a ``microbatch=2`` step's loss within 1e-5 and params under the
+    band rule; a ``compute_dtype=bfloat16`` step's loss finite and within
+    ``TRAIN_BF16_LOSS`` relative.  Then 6 plain steps and 2 remat steps
+    timed (wall, ``max_memory_allocated`` of the steps and of a forward and
+    backward alone, TFLOP/s at 6 N tokens), every loss and ``grad_norm``
+    finite; the 2-layer cut card vs CPU (``train_cut_vs_cpu``); and
+    ``python -m repro_torch.launch.train`` at its defaults in a process of
+    its own on the card, which must print ``OK``."""
+    import gc
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_batches
+    from repro_torch.models.steps import _grads_of, init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    card = report["card"]
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-1.7b")
+    params, opt = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(TRAIN_SEED),
+                                   device="cuda")
+    n_params = sum(p.numel() for p in leaves(params))
+    batches = make_batches(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0)
+    data = [{k: torch.from_numpy(v).cuda() for k, v in next(batches).items()}
+            for _ in range(TRAIN_STEPS + TRAIN_REMAT_STEPS)]
+    flop = 6 * n_params * TRAIN_B * TRAIN_S
+
+    def one(b, **kw):
+        new_p, _, m = make_train_step(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP, **kw)(params, opt, b)
+        return new_p, {k: float(v) for k, v in m.items()}
+
+    def variants():
+        _, grads = _grads_of(params, cfg, data[0], False)
+        bands = _bands(grads)
+        del grads
+        p1, m1 = one(data[0])
+        pr, mr = one(data[0], remat=True)
+        if abs(mr["loss"] - m1["loss"]) > 1e-6 * abs(m1["loss"]):
+            raise AssertionError(f"train: remat loss {mr['loss']} vs {m1['loss']}")
+        moved_r = _band_check("remat vs plain", pr, p1, bands, TRAIN_LR)
+        del pr
+        pm, mm = one(data[0], microbatch=2)
+        if abs(mm["loss"] - m1["loss"]) > 1e-5:
+            raise AssertionError(f"train: microbatch loss {mm['loss']} vs {m1['loss']}")
+        moved_m = _band_check("microbatch vs whole batch", pm, p1, bands, TRAIN_LR)
+        del pm, p1, bands
+        _, mb = one(data[0], compute_dtype=torch.bfloat16)
+        if not (math.isfinite(mb["loss"])
+                and abs(mb["loss"] - m1["loss"]) <= TRAIN_BF16_LOSS * abs(m1["loss"])):
+            raise AssertionError(f"train: bf16 compute loss {mb['loss']} vs {m1['loss']}")
+        return dict(loss=m1["loss"], grad_norm=m1["grad_norm"], remat_loss=mr["loss"],
+                    remat_band_moved=moved_r, microbatch_loss=mm["loss"],
+                    microbatch_band_moved=moved_m, bf16_loss=mb["loss"],
+                    bf16_grad_norm=mb["grad_norm"])
+
+    out = dict(card=card, n_params=n_params, flop_per_step=flop,
+               **counted(launches, "train/variants", variants))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(n, first, remat):
+        nonlocal params, opt
+        step = make_train_step(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP, remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses, norms = [], [], []
+        for b in data[first:first + n]:
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+        step_s = statistics.median(walls)
+        return dict(walls_s=walls, losses=losses, grad_norms=norms, step_s=step_s,
+                    tflops=flop / step_s / 1e12, max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    out["plain"] = counted(launches, "train/steps", lambda: run(TRAIN_STEPS, 0, False))
+    out["remat"] = counted(launches, "train/remat", lambda: run(TRAIN_REMAT_STEPS, TRAIN_STEPS,
+                                                                True))
+    step = make_train_step(cfg, lr=TRAIN_LR, clip=TRAIN_CLIP)
+    work = profile_device(lambda: step(params, opt, data[0]))
+    out["plain"]["step_profile"] = device_breakdown(work, out["plain"]["step_s"])
+    for remat in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        _grads_of(params, cfg, data[0], remat)
+        out["remat" if remat else "plain"]["grads_max_memory_allocated"] = \
+            torch.cuda.max_memory_allocated()
+    for key in ("plain", "remat"):
+        r = out[key]
+        log(f"[phase 4m] {cfg.name} ({card}) {key}: step median {r['step_s'] * 1e3:.1f} ms "
+            f"({r['tflops']:.1f} TFLOP/s at 6 x {n_params / 1e9:.3f}e9 x {TRAIN_B * TRAIN_S}), "
+            f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB (forward + backward alone "
+            f"{r['grads_max_memory_allocated'] / 2**30:.2f} GiB); losses "
+            + ", ".join(f"{v:.4f}" for v in r["losses"]))
+    log(f"[phase 4m] one plain step: {_fmt_breakdown(out['plain']['step_profile'])}")
+    log(f"[phase 4m] first batch: loss {out['loss']:.6f}, remat {out['remat_loss']:.6f} "
+        f"({out['remat_band_moved']} band elements past 1e-6), microbatch 2 "
+        f"{out['microbatch_loss']:.6f} ({out['microbatch_band_moved']}), bf16 compute "
+        f"{out['bf16_loss']:.6f}")
+    del params, opt, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cut"] = counted(launches, "train/cut", lambda: train_cut_vs_cpu(cfg))
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"],
+                         env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    if cli.returncode or not lines or "(OK)" not in lines[-1]:
+        raise AssertionError(f"repro_torch.launch.train: rc {cli.returncode}, "
+                             f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+    out["launch_train"] = dict(wall_s=time.perf_counter() - t, first=lines[0], last=lines[-1])
+    log(f"[phase 4m] python -m repro_torch.launch.train (defaults) in "
+        f"{out['launch_train']['wall_s']:.1f}s: {lines[-1]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["train"] = out
+    return out
+
+
 def phase_gate(report: dict) -> None:
     """Phase 4f: the port's billing gate (``benchmarks/torch/perf_gate.py
     --device cuda --check``) on the card: the reference gate's fixtures
@@ -4897,6 +5403,8 @@ def main() -> int:
     timed("4i", phase_guarded, report, launches, main_ctx, ctx)
     timed("4j", phase_neural, report, launches, check)
     timed("4k", phase_families, report, launches)
+    timed("4l", phase_decode, report, launches)
+    timed("4m", phase_train, report, launches)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

@@ -14,9 +14,12 @@ from repro_torch.core.qwyc import QWYCModel
 from repro_torch.ensembles.gbt import gbt_params_from_numpy
 from repro_torch.ensembles.lattice import lattice_params_from_numpy
 from repro_torch.kernels.megakernel import PAYLOAD_DTYPES, QUANTS, ParamSlabs
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.ranking.plan import GroupedPlan
 
 __all__ = [
+    "adamw_state_from_numpy",
+    "cache_from_numpy",
     "gbt_params_from_numpy",
     "grouped_plan_from_numpy",
     "lattice_params_from_numpy",
@@ -166,3 +169,40 @@ def transformer_params_from_numpy(params: dict, device="cuda") -> dict:
         return leaf(tree)
 
     return walk(params)
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    """One leaf in its own dtype; a bf16 leaf (ml_dtypes' ``bfloat16``,
+    which numpy reads as an opaque 2-byte type) through its ``uint16``
+    bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return _tensor_from_numpy(tree, device)
+
+
+def cache_from_numpy(cache: dict, device="cuda") -> dict:
+    """The reference's decode cache (``repro.models.transformer.
+    init_cache`` or a step's returned cache, its leaves as numpy) -> the
+    port's, leaf for leaf in the same layout and dtypes: int32 ``pos``,
+    f32 recurrent state, K/V, latents and ``last_x`` in their own dtype
+    (bf16 included)."""
+    return _tree_from_numpy(cache, device)
+
+
+def adamw_state_from_numpy(step, mu, nu, device="cuda") -> AdamWState:
+    """The reference's ``AdamWState`` fields (the int32 step, the ``mu``
+    and ``nu`` trees, as numpy) -> the port's, dtypes kept."""
+    return AdamWState(
+        step=_tensor_from_numpy(np.asarray(step, dtype=np.int32), device),
+        mu=_tree_from_numpy(mu, device),
+        nu=_tree_from_numpy(nu, device),
+    )

@@ -8,9 +8,9 @@ carry across as they are (``repro_torch.convert.transformer_params_from_numpy``)
 
 Attention is the reference's query-chunked causal attention (``_attend``),
 in its order of operations: f32 logits, softcap, ``-1e30`` masking,
-softmax, then the value contraction.  It is the cache-less (prefill) form;
-the ring-buffer KV cache goes with the decode steps (ROADMAP A13, third
-part).
+softmax, then the value contraction.  Decode keeps a ring-buffer KV cache
+a layer (``init_attn_cache``; length ``min(seq, window)``), which
+``apply_attn`` writes in place.
 """
 
 from __future__ import annotations
@@ -26,12 +26,6 @@ from repro_torch.models.config import ModelConfig
 Params = dict[str, Any]
 
 Q_CHUNK = 256  # attention query block
-
-_CACHE_TODO = (
-    "the attention KV cache (decode) is not ported yet (ROADMAP A13, third "
-    "part: models/steps.py); apply_attn runs the cache-less prefill form"
-)
-
 
 # -- basics --------------------------------------------------------------------
 
@@ -158,6 +152,50 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     return p
 
 
+def init_attn_cache(cfg: ModelConfig, batch: int, seq: int, window: int, dtype,
+                    device="cuda") -> Params:
+    """Ring-buffer KV cache for one layer: ``k`` and ``v`` (B, length, KV,
+    hd) in the cache dtype, ``pos`` (B, length) int32 at -1 (empty), where
+    length = ``min(seq, window)``, or ``seq`` for full attention."""
+    length = min(seq, window) if window else seq
+    kv, hd = cfg.n_kv_heads, cfg.hd()
+    return {
+        "k": torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32, device=device),
+    }
+
+
+def ring_write(cache: Params, positions: torch.Tensor, **rows: torch.Tensor) -> None:
+    """Write ``rows`` (each (B, S, ...)) and their positions into the ring
+    slots ``positions % length`` of ``cache``, in place, cast to the
+    cache's dtypes.  A chunk longer than the ring writes its last
+    ``length`` positions only: the reference's scatter keeps the last of
+    duplicate slots, and ``index_copy_`` with duplicate indices keeps no
+    defined one on CUDA.  So a prompt longer than a ring loses the keys its
+    earlier queries need, in both packages (ROADMAP C14)."""
+    length = cache["pos"].shape[1]
+    if positions.shape[0] > length:
+        positions = positions[-length:]
+        rows = {k: v[:, -length:] for k, v in rows.items()}
+    slot = (positions % length).long()
+    for name, v in rows.items():
+        cache[name].index_copy_(1, slot, v.to(cache[name].dtype))
+    pos = positions.to(torch.int32)[None, :].expand(cache["pos"].shape[0], -1)
+    cache["pos"].index_copy_(1, slot, pos)
+
+
+def settle(cache: Params, name: str, value: torch.Tensor) -> None:
+    """Store ``value`` as ``cache[name]``: copied in place where the dtype
+    matches, else the entry is rebound to ``value`` (the reference's cache
+    takes each new leaf's dtype, e.g. ``last_x`` the model's after a bf16
+    cache's first chunk)."""
+    if cache[name].dtype == value.dtype:
+        cache[name].copy_(value)
+    else:
+        cache[name] = value.clone()
+
+
 def apply_attn(
     p: Params,
     x: torch.Tensor,  # (B, S, d)
@@ -165,10 +203,13 @@ def apply_attn(
     positions: torch.Tensor,  # (S,)
     window: int,
     cache: Params | None = None,
-) -> tuple[torch.Tensor, None]:
-    """The reference's cache-less branch -> ``(out, None)``."""
-    if cache is not None:
-        raise ValueError(_CACHE_TODO)
+) -> tuple[torch.Tensor, Params | None]:
+    """-> ``(out, cache)``.  Without a cache, the cache-less branch and
+    ``None``.  With a cache (``init_attn_cache``), K and V are written into
+    its ring in place (PyTorch's idiom; it also keeps the step capturable)
+    and the queries attend over the ring, its keys masked by the positions
+    of the cache's batch row 0, as the reference's; the same dict is
+    returned."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
     q = (x @ p["wq"]).reshape(b, s, h, hd)
@@ -179,8 +220,13 @@ def apply_attn(
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions[None, :], cfg.rope_theta)
     k = rope(k, positions[None, :], cfg.rope_theta)
-    out = _attend(q, k, v, positions, positions, window, cfg.attn_softcap)
-    return out.reshape(b, s, h * hd) @ p["wo"], None
+    if cache is None:
+        out = _attend(q, k, v, positions, positions, window, cfg.attn_softcap)
+    else:
+        ring_write(cache, positions, k=k, v=v)
+        out = _attend(q, cache["k"], cache["v"], positions, cache["pos"][0], window,
+                      cfg.attn_softcap)
+    return out.reshape(b, s, h * hd) @ p["wo"], cache
 
 
 # -- embeddings / head ---------------------------------------------------------

@@ -106,13 +106,19 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tenso
     expert_in = buf[: e * capacity].view(e, capacity, d)
     h = torch.bmm(expert_in, p["wi"])
     g = torch.bmm(expert_in, p["wg"])
-    h = F.silu(h).mul_(g)
-    del g
-    # the experts' outputs overwrite their inputs, and the overflow slot
-    # reads zero (the reference's concatenated zero row)
-    torch.bmm(h, p["wo"], out=expert_in)
-    del h
-    buf[e * capacity].zero_()
+    if torch.is_grad_enabled() and (x.requires_grad or p["wi"].requires_grad):
+        # under autograd: the same values out of place (the experts'
+        # outputs and a zero overflow row)
+        y = torch.bmm(F.silu(h) * g, p["wo"]).reshape(e * capacity, d)
+        buf = torch.cat([y, y.new_zeros((1, d))])
+    else:
+        h = F.silu(h).mul_(g)
+        del g
+        # the experts' outputs overwrite their inputs, and the overflow
+        # slot reads zero (the reference's concatenated zero row)
+        torch.bmm(h, p["wo"], out=expert_in)
+        del h
+        buf[e * capacity].zero_()
 
     out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
     for j in range(k):  # k gathers

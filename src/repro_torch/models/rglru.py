@@ -7,9 +7,8 @@
 inside the Griffin recurrent block: a linear in-projection to two
 branches, a short causal temporal conv (the reference's sum of shifted
 products) on the recurrent branch, the RG-LRU (the reference's scan over
-time, a loop here, in f32), a gated merge and the out-projection.  The
-decode cache (h and the conv tail) goes with the decode steps (ROADMAP
-A13, third part).
+time, a loop here, in f32), a gated merge and the out-projection.  Decode
+carries ``h`` and the conv tail a layer (``init_rglru_cache``).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_dense
+from repro_torch.models.layers import init_dense, settle
 
 Params = dict[str, Any]
 
@@ -42,15 +41,31 @@ def init_rglru(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
 
 
-def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The reference's cache-less branch (a zero conv tail, zero h) -> the
-    block's output (B, S, d)."""
+def init_rglru_cache(cfg: ModelConfig, batch: int, dtype, device="cuda") -> Params:
+    """``h`` (B, dr), always f32, and ``conv`` (B, conv_width - 1, dr) in
+    ``dtype``: the recurrent branch's last ``conv_width - 1`` inputs."""
+    dr = cfg.d_model
+    return {
+        "h": torch.zeros((batch, dr), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, dr), dtype=dtype, device=device),
+    }
+
+
+def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Params | None = None):
+    """Without a cache, the reference's cache-less branch (a zero conv
+    tail, zero h) -> the block's output (B, S, d).  With a cache
+    (``init_rglru_cache``, an added keyword) -> ``(out, cache)``: the conv
+    runs over the cached tail and the loop starts from ``cache["h"]``;
+    both are updated in place."""
     s = x.shape[1]
     xb = x @ p["w_x"]  # recurrent branch (B, S, dr)
     yb = F.gelu(x @ p["w_y"], approximate="tanh")  # gate branch (jax.nn.gelu's default)
 
-    # short causal conv over time
-    xc = F.pad(xb, (0, 0, cfg.conv_width - 1, 0))  # (B, cw - 1 + S, dr)
+    # short causal conv over time; torch.cat promotes as jnp.concatenate
+    if cache is None:
+        xc = F.pad(xb, (0, 0, cfg.conv_width - 1, 0))  # (B, cw - 1 + S, dr)
+    else:
+        xc = torch.cat([cache["conv"], xb], dim=1)
     conv = sum(xc[:, j : j + s] * p["conv_w"][j][None, None] for j in range(cfg.conv_width))
 
     # RG-LRU; softplus as jax.nn.softplus, logaddexp(x, 0)
@@ -60,10 +75,18 @@ def apply_rglru(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate_in = torch.sigmoid((conv @ p["w_i"]).float())
     drive = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * gate_in * conv.float()
 
-    h = torch.zeros((x.shape[0], conv.shape[-1]), dtype=torch.float32, device=x.device)
+    if cache is None:
+        h = torch.zeros((x.shape[0], conv.shape[-1]), dtype=torch.float32, device=x.device)
+    else:
+        h = cache["h"]
     hs = []
     for t in range(s):
         h = a[:, t] * h + drive[:, t]
         hs.append(h)
     rec = torch.stack(hs, dim=1).to(x.dtype)  # (B, S, dr)
-    return (rec * yb) @ p["w_o"]
+    out = (rec * yb) @ p["w_o"]
+    if cache is None:
+        return out
+    cache["h"].copy_(h)
+    settle(cache, "conv", xc[:, -(cfg.conv_width - 1):])
+    return out, cache

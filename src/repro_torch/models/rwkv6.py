@@ -9,9 +9,8 @@ The v6 recurrence with data-dependent decay, per head (hd x hd state)::
 with data-dependent token-shift interpolation (ddlerp through a small
 LoRA) for the r/k/v/w/g projections, per-channel decay
 w_t = exp(-exp(ww_t)), and a gated output.  The reference's ``lax.scan``
-over time is a loop over time here, the state in f32.  The decode cache
-(state and last token) goes with the decode steps (ROADMAP A13, third
-part).
+over time is a loop over time here, the state in f32.  Decode carries
+the state and the last input token a layer (``init_rwkv_cache``).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_dense, rms_norm
+from repro_torch.models.layers import init_dense, rms_norm, settle
 
 Params = dict[str, Any]
 
@@ -58,6 +57,18 @@ def init_rwkv(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
 
 
+def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device="cuda") -> Params:
+    """``state`` (B, H, hd, hd), always f32, and ``last_x`` (B, d) in
+    ``dtype``: the block's input before the chunk (zeros: none yet)."""
+    d = cfg.d_model
+    h = cfg.rnn_heads or cfg.n_heads
+    hd = d // h
+    return {
+        "state": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
+        "last_x": torch.zeros((batch, d), dtype=dtype, device=device),
+    }
+
+
 def _projections(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelConfig):
     """ddlerp token-shift + r/k/v/w/g projections.  x, x_prev: (B, S, d)."""
     delta = x_prev - x
@@ -76,17 +87,25 @@ def _projections(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg: ModelCon
     return r, k, v, g, w
 
 
-def apply_rwkv(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The reference's cache-less branch (zero state, a zero token before
-    the first) -> the block's output (B, S, d)."""
+def apply_rwkv(p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Params | None = None):
+    """Without a cache, the reference's cache-less branch (zero state, a
+    zero token before the first) -> the block's output (B, S, d).  With a
+    cache (``init_rwkv_cache``, an added keyword) -> ``(out, cache)``: the
+    shifted input's first token is ``cache["last_x"]``, the loop starts
+    from ``cache["state"]``, and both are updated in place."""
     b, s, d = x.shape
     h = cfg.rnn_heads or cfg.n_heads
     hd = d // h
-    x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if cache is None:
+        x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
+        state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
+    else:
+        # torch.cat promotes mixed dtypes as jnp.concatenate does
+        x_prev = torch.cat([cache["last_x"][:, None], x[:, :-1]], dim=1)
+        state = cache["state"]
     r, k, v, g, w = _projections(p, x, x_prev, cfg)
     rh, kh, vh, wh = (a.reshape(b, s, h, hd).float() for a in (r, k, v, w))
     u = p["u"].float()[None, :, :, None]
-    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
     outs = []
     for t in range(s):
         kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]  # (B, H, hd, hd)
@@ -94,4 +113,9 @@ def apply_rwkv(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         state = wh[:, t, :, :, None] * state + kv
     out = torch.stack(outs, dim=1).reshape(b, s, d).to(x.dtype)
     out = rms_norm(out, p["ln_x"], cfg.norm_eps) * g
-    return out @ p["wo"]
+    out = out @ p["wo"]
+    if cache is None:
+        return out
+    cache["state"].copy_(state)
+    settle(cache, "last_x", x[:, -1])
+    return out, cache

@@ -622,11 +622,27 @@ def test_edited_stacks_match_jax(edit):
 
 
 def test_attn_cache_raises_naming_a13_third_part():
-    """The decode caches are not ported: the attention cache branch raises
-    naming ROADMAP A13's third part."""
+    """The attention cache branch, which raised naming ROADMAP A13's third
+    part until the decode caches were ported, now runs: a 5-token chunk
+    then one token into a 4-slot ring (window 4) on the reference's
+    weights, the output and the ring (K, V in place, positions) equal to
+    the reference's ``apply_attn`` with its cache."""
+    jcfg = JModelConfig(**dataclasses.asdict(get_config("qwen3-1.7b").smoke()))
     cfg = get_config("qwen3-1.7b").smoke()
-    with pytest.raises(ValueError, match="ROADMAP A13, third part"):
-        L.apply_attn({}, torch.zeros(1, 2, cfg.d_model), cfg, torch.arange(2), 0, cache={})
+    jp = JL.init_attn(jax.random.PRNGKey(3), jcfg)
+    p = transformer_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device=DEV)
+    x = np.random.default_rng(7).normal(size=(2, 6, cfg.d_model)).astype(np.float32)
+    jc = JL.init_attn_cache(jcfg, 2, 16, 4, jnp.float32)
+    c = L.init_attn_cache(cfg, 2, 16, 4, torch.float32, device=DEV)
+    for lo, hi in ((0, 5), (5, 6)):
+        pos = np.arange(lo, hi)
+        j, jc = JL.apply_attn(jp, jnp.asarray(x[:, lo:hi]), jcfg, jnp.asarray(pos), 4, jc)
+        got, c2 = L.apply_attn(p, _t(x[:, lo:hi]), cfg, _t(pos), 4, cache=c)
+        assert c2 is c
+        np.testing.assert_allclose(_np(got), np.asarray(j), rtol=1e-5, atol=1e-6)
+        for k in ("k", "v"):
+            np.testing.assert_allclose(_np(c[k]), np.asarray(jc[k]), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(_np(c["pos"]), np.asarray(jc["pos"]))
 
 
 def test_init_params_layout_and_scales():
