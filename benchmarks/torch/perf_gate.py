@@ -38,7 +38,8 @@ BASELINE = ROOT / "benchmarks" / "results" / "baseline_billing.json"
 # baseline key patterns the port cannot produce yet, with the queue item
 # (ROADMAP.md, queue A) that brings each
 PENDING = (
-    ("*.sharded*", "A15 (queue A item 8): the sharded and 2-D mesh executors"),
+    ("*.sharded1x4*", "A15, second part (queue A item 8): the 2-D mesh executor"),
+    ("*.sharded2x2*", "A15, second part (queue A item 8): the 2-D mesh executor"),
 )
 
 
@@ -62,6 +63,7 @@ def collect_counters(device: str) -> dict[str, int]:
     from repro_torch.core.executor import matrix_producer
     from repro_torch.kernels import ops
     from repro_torch.kernels.device_executor import BoundScorer, DevicePlan, matrix_stage_scorer
+    from repro_torch.kernels.sharded_executor import critical_blocks
     from repro_torch.ranking import (
         bucket_layout,
         fit_grouped,
@@ -74,6 +76,7 @@ def collect_counters(device: str) -> dict[str, int]:
     dev = torch.device(device)
     HOST = get_backend("host")
     DEVICE = get_backend("device")
+    SHARDED = get_backend("sharded")
 
     def scorer(dplan):
         return matrix_stage_scorer(dplan, device=dev)
@@ -150,6 +153,39 @@ def collect_counters(device: str) -> dict[str, int]:
         c[f"{qk}.stages"] = len(qres.chunk_stats)
         c[f"{qk}.traces"] = int(dexq.traces)
 
+        # the data-parallel loop over 2 and 4 logical shards, rebalance off
+        # and on (fused stage step), then multi-kernel, which bills alike
+        for shards in (2, 4):
+            for reb in (False, True):
+                sx = SHARDED.make_executor(
+                    dplan, scorer=scorer(dplan), shards=shards, block_n=64,
+                    rebalance=reb, device=dev,
+                )
+                sres = sx.run(Fo, n)
+                assert np.array_equal(sres.decisions, ev["decisions"])
+                info = sx.last_run_info
+                q = f"{p}.{SHARDED.billing_key(shards=shards, rebalance=reb)}"
+                c[f"{q}.scores"] = int(sres.scores_computed)
+                c[f"{q}.stages"] = int(info["stages_run"])
+                c[f"{q}.crit_blocks"] = critical_blocks(info["per_shard_n_in"], 64)
+                c[f"{q}.rebalances"] = len(info["rebalanced_stages"])
+                c[f"{q}.traces"] = int(sx.traces)
+        for shards in (2, 4):
+            sx_fb = SHARDED.make_executor(
+                dplan, scorer=scorer(dplan), shards=shards, block_n=64, megakernel=False,
+                device=dev,
+            )
+            sfres = sx_fb.run(Fo, n)
+            assert np.array_equal(sfres.decisions, ev["decisions"])
+            base = f"{p}.{SHARDED.billing_key(shards=shards)}"
+            assert int(sfres.scores_computed) == c[f"{base}.scores"]
+            assert int(sx_fb.last_run_info["stages_run"]) == c[f"{base}.stages"]
+            assert critical_blocks(
+                sx_fb.last_run_info["per_shard_n_in"], 64
+            ) == c[f"{base}.crit_blocks"]
+            c[f"{base}.multikernel.scores"] = int(sfres.scores_computed)
+            c[f"{base}.multikernel.traces"] = int(sx_fb.traces)
+
     # serving-path billing: the lazy host loop (the reference server's
     # default backend is the host loop; the port runs it only when named)
     rng2 = np.random.default_rng(2027)
@@ -174,13 +210,41 @@ def collect_counters(device: str) -> dict[str, int]:
     c["serve.lazy.audit_scores"] = int(srv.stats.audit_scores)
     c["serve.lazy.models"] = int(srv.stats.models_evaluated)
 
+    # the sharded server: 64 rows a shard at 4 shards, scoring with a
+    # user's FunctionScorer (a matmul closure, no lanes)
+    Wo_t = torch.from_numpy(Wo.astype(np.float32))
+
+    def factory(dplan, device):
+        Wp = torch.nn.functional.pad(Wo_t, (0, 0, 0, dplan.T_pad - ts)).to(device)
+        width = dplan.W
+
+        def fn(x, rows, t0, n_valid):
+            return x[rows] @ Wp[t0 : t0 + width].T
+
+        def prepare(xb):
+            return torch.as_tensor(np.asarray(xb, dtype=np.float32)).to(device)
+
+        return BoundScorer(fn=fn, prepare=prepare, width=width)
+
+    srv2 = QWYCServer(
+        ms, batch_size=64, backend="kernel", chunk_t=6, exec_backend="sharded",
+        backend_opts={"shards": 4}, scorer=FunctionScorer(factory),
+        audit_full_scores=False, device=dev,
+    )
+    for row in X:
+        srv2.submit(row)
+    srv2.drain()
+    sk4 = SHARDED.billing_key(shards=4)
+    c[f"serve.{sk4}.scores"] = int(srv2.stats.scores_computed)
+    c[f"serve.{sk4}.batches"] = int(srv2.stats.n_batches)
+    c[f"serve.{sk4}.traces"] = int(srv2._dev[0].traces)
+
     # streaming admission: the seed-2028 Poisson trace through the
     # continuous-batching server on the device, scoring with a user's
     # FunctionScorer (a matmul closure, its lanes an einsum); the counters
     # are the work the latency percentiles derive from
     ev_s = evaluate_cascade(ms, Fs)
     arrivals = np.cumsum(np.random.default_rng(2028).exponential(1.0 / 32.0, size=ns))
-    Wo_t = torch.from_numpy(Wo.astype(np.float32))
 
     def lane_factory(dplan, device):
         Wp = torch.nn.functional.pad(Wo_t, (0, 0, 0, dplan.T_pad - ts)).to(device)
@@ -198,22 +262,24 @@ def collect_counters(device: str) -> dict[str, int]:
 
         return BoundScorer(fn=fn, prepare=prepare, width=width, lane_fn=lane_fn)
 
-    srv3 = StreamingServer(
-        ms, batch_size=32, window=128, chunk_t=6, exec_backend=DEVICE,
-        scorer=FunctionScorer(lane_factory), audit_full_scores=False, device=dev,
-    )
-    for row, a in zip(X, arrivals):
-        srv3.submit(row, arrival=a)
-    res3 = srv3.drain()
-    assert np.array_equal(np.array([r["decision"] for r in res3]), ev_s["decisions"])
-    sk = DEVICE.billing_key()
-    sst = srv3.stats
-    c[f"stream.{sk}.admitted"] = int(sst.admitted_rows)
-    c[f"stream.{sk}.scores"] = int(sst.scores_computed)
-    c[f"stream.{sk}.steps"] = int(sst.stream_steps)
-    c[f"stream.{sk}.slot_steps"] = int(sst.stream_slot_steps)
-    c[f"stream.{sk}.latency_sum"] = int(sum(sst.latency_steps))
-    c[f"stream.{sk}.traces"] = int(srv3._dev[0].traces)
+    for backend, opts, sk in ((DEVICE, {}, DEVICE.billing_key()),
+                              (SHARDED, {"shards": 4}, sk4)):
+        srv3 = StreamingServer(
+            ms, batch_size=32 if backend is DEVICE else 8, window=128, chunk_t=6,
+            exec_backend=backend, backend_opts=opts, scorer=FunctionScorer(lane_factory),
+            audit_full_scores=False, device=dev,
+        )
+        for row, a in zip(X, arrivals):
+            srv3.submit(row, arrival=a)
+        res3 = srv3.drain()
+        assert np.array_equal(np.array([r["decision"] for r in res3]), ev_s["decisions"])
+        sst = srv3.stats
+        c[f"stream.{sk}.admitted"] = int(sst.admitted_rows)
+        c[f"stream.{sk}.scores"] = int(sst.scores_computed)
+        c[f"stream.{sk}.steps"] = int(sst.stream_steps)
+        c[f"stream.{sk}.slot_steps"] = int(sst.stream_slot_steps)
+        c[f"stream.{sk}.latency_sum"] = int(sum(sst.latency_steps))
+        c[f"stream.{sk}.traces"] = int(srv3._dev[0].traces)
 
     # streaming megakernel identity: the same arrival trace through the
     # admission ring with the fused lane kernel on and off, identical
@@ -286,6 +352,15 @@ def collect_counters(device: str) -> dict[str, int]:
     c[f"ranking.{gk}.scores"] = paid
     c[f"ranking.{gk}.stages"] = stages
     c[f"ranking.{gk}.traces"] = int(gex.traces)
+
+    # the sharded grouped loop: whole groups over 4 logical shards
+    sxg = SHARDED.make_executor(
+        gdplan, scorer=scorer(gdplan), shards=4, block_n=32, megakernel=False, device=dev
+    )
+    paid, stages = grouped_bill(sxg)
+    c[f"ranking.{sk4}.scores"] = paid
+    c[f"ranking.{sk4}.stages"] = stages
+    c[f"ranking.{sk4}.traces"] = int(sxg.traces)
 
     # the grouped admission ring: one program per bucket shape
     gex_s = DEVICE.make_executor(

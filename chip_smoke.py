@@ -269,7 +269,9 @@ without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import logging
@@ -520,6 +522,21 @@ PATH_KERNELS = {
     # phases 4l and 4m: decode and training run PyTorch ops only
     "decode": set(),
     "train": set(),
+    # phase 4n, the sharded loops: each stage's kernels once a shard; the
+    # sorted policy adds its sort key (B3), the unfused stage scores with B3
+    "sharded_fused": {"mega_stage_tree"},
+    "sharded_sorted_fused": {"gbt_scores", "mega_stage_tree"},
+    "sharded_unfused": {"gbt_scores", "cascade_chunk_step"},
+    "sharded_sorted_unfused": {"gbt_scores", "cascade_chunk_step"},
+    "sharded_lattice_fused": {"lattice_scores", "mega_stage_lattice"},
+    "sharded_stream_fused": {"mega_lane_tree"},
+    "sharded_rank": {"gbt_scores", "cascade_group"},
+    # the launcher: B3 for the calibration matrix and the sort key, B4 tree
+    "sharded_cli": {"gbt_scores", "mega_stage_tree"},
+    # phase 4i: a sharded server that loses its device falls to the device
+    # rung (sort key B3 + B4 tree); the launcher's --chaos-drop-device alike
+    "guard_drop": {"gbt_scores", "mega_stage_tree"},
+    "guard_drop_cli": {"gbt_scores", "mega_stage_tree"},
 }
 for _v, _q in QUANT_VARIANTS:
     PATH_KERNELS[f"q_batch_{_v}_{_q}"] = {f"mega_stage_{_v}_{_q}"}
@@ -2621,6 +2638,49 @@ def _same_or_nan(kernel: str, what: str, a, b) -> None:
         raise AssertionError(f"{kernel} {what}: outputs differ")
 
 
+def guard_device_loss(launches: dict, main: dict) -> dict:
+    """Phase 4i's device loss: a 4-shard server under ``FaultPlan(
+    drop_device=True)`` and the launcher's ``--chaos-drop-device`` fall
+    sharded -> device with one recorded event, the server with phase 4's
+    verdicts."""
+    from repro_torch.api.scorers import TreeScorer
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.engine import QWYCServer
+    from repro_torch.testing import FaultPlan
+
+    ds, clean_res = main["ds"], main["results"]["both"]
+    # device loss: a 4-shard server's rung reports down and refuses
+    # construction, so its first flush falls one rung to the device loop
+    srv = QWYCServer(
+        main["fits"]["both"], scorer=TreeScorer(main["gbt"].feats, main["gbt"].thrs,
+                                                main["gbt"].leaves),
+        exec_backend="sharded", backend_opts={"shards": 4, "rebalance": True}, device="cuda",
+        backend="sorted-kernel", chunk_t=8, batch_size=64,
+    )
+    with FaultPlan(seed=ARRIVAL_SEED, drop_device=True, wave_failures=10_000,
+                   wave_fail_backend="sharded") as fp:
+        res = counted(launches, "guard_drop/both", lambda: serve(srv, ds.x_test))
+    evs = [(e.kind, e.from_backend, e.to_backend, e.retries) for e in srv.stats.degradation_events]
+    if evs != [("wave", "sharded", "device", 2)] or srv.exec.name != "device" or res != clean_res:
+        raise AssertionError(f"device loss: events {evs}, rung {srv.exec.name}, or verdicts moved")
+    # the launcher's --chaos-drop-device, at exp1's full width on a tenth of
+    # the rows
+    buf = io.StringIO()
+    argv = ["--T", "500", "--scale", "0.1", "--alpha", "0.005", "--backend", "sharded",
+            "--backend-shards", "4", "--batch-size", "64", "--chaos-seed", "1",
+            "--chaos-drop-device"]
+    with contextlib.redirect_stdout(buf):
+        counted(launches, "guard_drop_cli/both", lambda: serve_cli.main(argv))
+    text = buf.getvalue()
+    if "ladder sharded->device" not in text or "(device backend, sorted-kernel" not in text:
+        raise AssertionError(f"--chaos-drop-device did not fall sharded -> device:\n{text}")
+    log(f"[phase 4i] device loss of a 4-shard server: fell {evs} ({fp.injected['make_executor']} "
+        f"construction faults), verdicts == phase 4's; the launcher's --chaos-drop-device: "
+        f"ladder sharded->device; launches {launches['guard_drop/both']}, "
+        f"{launches['guard_drop_cli/both']}")
+    return dict(drop_device=evs, drop_device_cli=text.strip().splitlines()[-5:])
+
+
 def phase_guarded(report: dict, launches: dict, main: dict, ctx: dict) -> dict:
     """Phase 4i: guarded serving on exp1_adult.  Poisoned rows (NaN, +inf,
     -inf) through B1, B2 (both forms), B4 and B7 (tree, matrix, lattice)
@@ -2629,7 +2689,9 @@ def phase_guarded(report: dict, launches: dict, main: dict, ctx: dict) -> dict:
     bit.  Then exp1's batch-256 server (captured): 5 % poisoned rows are
     exactly the quarantined ones, one injected wave fault recovers on the
     device rung, and a lost rung falls to the host, each with phase 4's
-    verdicts."""
+    verdicts; a 4-shard server that loses its device (``FaultPlan(
+    drop_device=True)``) and the launcher's ``--chaos-drop-device`` fall
+    sharded -> device."""
     import numpy as np
     import torch
 
@@ -2786,6 +2848,8 @@ def phase_guarded(report: dict, launches: dict, main: dict, ctx: dict) -> dict:
     out.update(recover=1, fall=evs, fall_injected=fp.injected["waves"])
     log(f"[phase 4i] every device wave failing: fell {evs} after {fp.injected['waves']} injected "
         f"faults, host rung verdicts == phase 4's; launches {launches['guard_fall/both']}")
+
+    out.update(guard_device_loss(launches, main))
     report["guarded"] = out
     return out
 
@@ -4453,6 +4517,242 @@ def phase_train(report: dict, launches: dict) -> dict:
     return out
 
 
+def serve_billed(server, x, rebalanced: list | None = None) -> list[dict]:
+    """``serve`` a sharded batch server flush by flush, and after each
+    flush recount its bill from ``last_run_info``: every shard bills the
+    live blocks of its slice, ``ceil(n_in[k, s] / bn) * bn * W``.  Each
+    flush's rebalanced stages are appended to ``rebalanced``."""
+    import numpy as np
+
+    for i in range(0, x.shape[0], server.flush_size):
+        for row in x[i : i + server.flush_size]:
+            server.submit(row)
+        server.flush()
+        ex, res = server._dev[0], server.flush_results[-1]
+        info = ex.last_run_info
+        bn, W = ex._bn_bill(), ex.dplan.W
+        bill = int(((-(-info["per_shard_n_in"].astype(np.int64) // bn)) * bn * W).sum())
+        if bill != res.scores_computed or info["per_shard_scores"].sum() != bill:
+            raise AssertionError(f"sharded flush {i // server.flush_size}: billed "
+                                 f"{res.scores_computed}, per_shard_n_in recounts {bill}")
+        if rebalanced is not None:
+            rebalanced.append(info["rebalanced_stages"])
+    return server.drain()
+
+
+def phase_sharded(report: dict, launches: dict, main: dict, lmain: dict, rmain: dict) -> dict:
+    """Phase 4n: the data-parallel executor over D logical shards of the
+    card, on phase 4's and 4b's fits (no new fit).  exp1's test rows through
+    ``QWYCServer(exec_backend="sharded")`` at D = 2 and 4 (batch 256 / D, a
+    flush of 256), fused (B4 tree) and unfused (B3 + B2's step form), under
+    the ``kernel`` policy and under ``sorted-kernel`` with ``rebalance``:
+    decisions, exits and ``g_final`` bits equal phase 4's, every flush's
+    bill recounted from ``per_shard_n_in``, each captured server held
+    against ``capture=False``.  exp4 at D = 4 (B4 lattice) against phase
+    4b; phase 4c's exp1 stream at 4.0 requests a step at D = 4 (B7) against
+    phase 4c's verdicts; phase 4d's queries ranked through
+    ``compile("sharded", shards=4)`` (B3 + B8) against ``run_grouped_host``;
+    the launcher with ``--backend sharded --backend-shards 4 --rebalance``;
+    then the flush latency at D = 1, 2, 4 beside the 1-D flush, launches a
+    flush, busy shares, and a streaming wave's wall."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.api.scorers import LatticeScorer, TreeScorer
+    from repro_torch.core import evaluate_cascade
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.ranking import run_grouped_host
+    from repro_torch.serving.engine import QWYCServer, StreamingServer
+
+    if api.resolve_backend("auto").name != "device" or api.negotiate().name != "device":
+        raise AssertionError("'auto' on one card must resolve to the device rung")
+    ds, gbt, fit = main["ds"], main["gbt"], main["fits"]["both"]
+    x = ds.x_test
+    ev = evaluate_cascade(fit, main["F_test"])
+    want_res, want_g = main["results"]["both"], main["batch_g"]["both"]
+    out: dict = {"batch": {}}
+
+    def sharded(shards, policy="kernel", opts=None, **kw):
+        kw.setdefault("scorer", TreeScorer(gbt.feats, gbt.thrs, gbt.leaves))
+        return QWYCServer(
+            fit, exec_backend="sharded", device="cuda", backend=policy, chunk_t=8,
+            batch_size=256 // shards, backend_opts={"shards": shards, **(opts or {})}, **kw,
+        )
+
+    def g_bits(srv):
+        return np.concatenate([r.g_final for r in srv.flush_results]).view(np.int32)
+
+    for shards, fused, policy in itertools.product((2, 4), (True, False),
+                                                   ("kernel", "sorted-kernel")):
+        sorted_ = policy == "sorted-kernel"
+        opts = {"rebalance": sorted_, **({} if fused else {"megakernel": False})}
+        name = f"sharded{'_sorted' if sorted_ else ''}_{'fused' if fused else 'unfused'}"
+        key = f"{name}/both/d{shards}"
+        t = time.perf_counter()
+        srv = sharded(shards, policy, opts)
+        rebalanced: list = []
+        res = counted(launches, key, lambda: serve_billed(srv, x, rebalanced))
+        eager_twin(launches, key, srv, res, sharded(shards, policy, {**opts, "capture": False}),
+                   lambda s: serve_billed(s, x))
+        if res != want_res or g_bits(srv).tolist() != want_g.view(np.int32).tolist():
+            raise AssertionError(f"{key}: results or g_final bits != phase 4's device results")
+        ex, nb = srv._dev[0], srv.stats.n_batches
+        S = ex.dplan.S
+        stage = "mega_stage_tree" if fused else "cascade_chunk_step"
+        want = {stage: nb * shards * S}
+        if sorted_ or not fused:
+            want["gbt_scores"] = nb * (sorted_ + (0 if fused else shards * S))
+        if launches[key] != want:
+            raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+        n_reb = sum(len(r) for r in rebalanced)
+        out["batch"][key] = dict(
+            flushes=nb, stages=S, launches=launches[key], scores_computed=srv.stats.scores_computed,
+            rebalanced_stages=rebalanced, rebalances=n_reb,
+            per_shard_n_in_last_flush=ex.last_run_info["per_shard_n_in"].tolist(),
+            wall_s=time.perf_counter() - t,
+        )
+        log(f"[phase 4n] {key}: {nb} flushes of 256 over {shards} shards, {S} stages, == phase "
+            f"4's verdicts and g_final bits, bills == per_shard_n_in, one CUDA graph == "
+            f"capture=False; {n_reb} rebalanced stages in all, by flush {rebalanced}; scores "
+            f"{srv.stats.scores_computed}; launches {launches[key]}")
+
+    # exp4 at 4 shards, fused (B4 lattice), against phase 4b
+    lfit = lmain["fit"]
+    lsrv = QWYCServer(
+        lfit, scorer=LatticeScorer(lmain["theta"], lmain["feats"]), exec_backend="sharded",
+        backend_opts={"shards": 4}, device="cuda", backend="sorted-kernel", chunk_t=8,
+        batch_size=64,
+    )
+    lx = lmain["ds"].x_test
+    lres = counted(launches, "sharded_lattice_fused/neg_only/d4", lambda: serve_billed(lsrv, lx))
+    lev = evaluate_cascade(lfit, lmain["F_test"])
+    if not (np.array_equal([r["decision"] for r in lres], lev["decisions"])
+            and np.array_equal([r["models_evaluated"] for r in lres], lev["exit_step"])
+            and g_bits(lsrv).tolist() == lmain["batch_g"].view(np.int32).tolist()):
+        raise AssertionError("exp4 at 4 shards: verdicts or g_final bits != phase 4b")
+    nb, S = lsrv.stats.n_batches, lsrv._dev[0].dplan.S
+    want = {"lattice_scores": nb, "mega_stage_lattice": nb * 4 * S}
+    if launches["sharded_lattice_fused/neg_only/d4"] != want:
+        raise AssertionError(f"exp4 at 4 shards: launched "
+                             f"{launches['sharded_lattice_fused/neg_only/d4']}, expected {want}")
+    out["lattice"] = dict(flushes=nb, stages=S, scores_computed=lsrv.stats.scores_computed)
+    log(f"[phase 4n] exp4 at 4 shards (B4 lattice): == phase 4b's verdicts and g_final bits; "
+        f"launches {launches['sharded_lattice_fused/neg_only/d4']}")
+
+    # phase 4c's exp1 stream at 4.0 requests a step, 4 shards of 64 lanes (B7)
+    rate = STREAM_RATES[1]
+    arrivals = poisson_arrivals(x.shape[0], rate)
+
+    def stream_server(capture=True):
+        return StreamingServer(
+            fit, scorer=TreeScorer(gbt.feats, gbt.thrs, gbt.leaves), exec_backend="sharded",
+            backend_opts={"shards": 4, "capture": capture}, device="cuda",
+            batch_size=STREAM_CAP // 4, window=STREAM_WINDOW, chunk_t=8, block_n=64,
+        )
+
+    key = "sharded_stream_fused/both/d4"
+    ssrv = stream_server()
+    sres = counted(launches, key, lambda: stream_serve(ssrv, x, arrivals))
+    eager_twin(launches, key, ssrv, sres, stream_server(False),
+               lambda s: stream_serve(s, x, arrivals))
+    waves = ssrv.stream_results
+    enq = sum(w.steps_enqueued for w in waves)
+    if launches[key] != {"mega_lane_tree": 4 * enq}:
+        raise AssertionError(f"{key}: launched {launches[key]}, expected 4 x {enq} B7")
+    dec = np.concatenate([w.decisions for w in waves])
+    exs = np.concatenate([w.exit_step for w in waves])
+    g = np.concatenate([w.g_final for w in waves])
+    if not (np.array_equal(dec, ev["decisions"]) and np.array_equal(exs, ev["exit_step"])
+            and g.view(np.int32).tolist() == want_g.view(np.int32).tolist()):
+        raise AssertionError(f"{key}: verdicts or g_final != phase 4c's")
+    if any(w.capacity != STREAM_CAP for w in waves):
+        raise AssertionError(f"{key}: lanes {[w.capacity for w in waves]} != {STREAM_CAP}")
+    st = ssrv.stats
+    out["stream"] = dict(
+        rate=rate, waves=len(waves), steps_run=st.stream_steps, steps_enqueued=enq,
+        mean_occupancy=st.mean_occupancy, latency_p50=st.latency_p50,
+        latency_p99=st.latency_p99, scores_computed=st.scores_computed,
+    )
+    log(f"[phase 4n] {key}: {len(waves)} waves, {st.stream_steps} steps, occupancy "
+        f"{st.mean_occupancy:.4f}, latency p50/p99 {st.latency_p50:.0f}/{st.latency_p99:.0f} "
+        f"steps; == phase 4c's verdicts and g_final, one CUDA graph == capture=False; "
+        f"launches {launches[key]}")
+
+    # phase 4d's queries ranked through compile("sharded", shards=4)
+    fitted, sizes, F_test = rmain["fitted"], rmain["sizes"], rmain["F_test"]
+    gp = fitted.grouped
+    oracle = run_grouped_host(gp, F_test, sizes)
+    ref = (oracle.verdicts.astype(np.int64), oracle.exit_stage, oracle.margin.view(np.int32))
+    compiled = fitted.compile("sharded", shards=4, device="cuda")
+    rsrv = compiled.serve(score_fn=rmain["score_fn"], batch_size=RANK_BATCH,
+                          capacity_docs=RANK_DOCS)
+    key = "sharded_rank/both/d4"
+    rres = counted(launches, key, lambda: submit_queries(rsrv, rmain["x"], rmain["offsets"]))
+    waves = rsrv.stats.n_waves
+    if not all(np.array_equal(a, b) for a, b in zip(rmain["fields"](rres), ref)):
+        raise AssertionError(f"{key}: verdicts, exit stages or margins != run_grouped_host")
+    again = counted(launches, f"{key}/capture",
+                    lambda: submit_queries(rsrv, rmain["x"], rmain["offsets"]))
+    ranked = compiled.rank(scores=F_test, groups=sizes)
+    if again != rres or ranked != rres:
+        raise AssertionError(f"{key}: the captured drain or rank() differs")
+    if launches[key]["cascade_group"] != 4 * (gp.S + 1) * waves:
+        raise AssertionError(f"{key}: {launches[key]} over {waves} waves, expected "
+                             f"4 x {gp.S + 1} B8 a wave")
+    out["rank"] = dict(queries=int(sizes.size), waves=waves, launches=launches[key],
+                       traces=rsrv.executor.traces)
+    log(f"[phase 4n] {key}: {sizes.size} queries in {waves} waves == run_grouped_host; "
+        f"second drain captured ==; rank() ==; launches {launches[key]}")
+
+    # the launcher, at exp1's full width (T 500, depth 5, 14 features) on a
+    # tenth of the rows
+    buf = io.StringIO()
+    argv = ["--T", "500", "--scale", "0.1", "--alpha", "0.005", "--backend", "sharded",
+            "--backend-shards", "4", "--rebalance", "--batch-size", "64"]
+    with contextlib.redirect_stdout(buf):
+        counted(launches, "sharded_cli/both/d4", lambda: serve_cli.main(argv))
+    text = buf.getvalue()
+    if "(sharded backend, 4 shards, sorted-kernel policy" not in text:
+        raise AssertionError(f"the sharded launcher did not serve sharded:\n{text}")
+    out["cli"] = text.strip().splitlines()[-4:]
+    log(f"[phase 4n] serve {' '.join(argv)}: {out['cli']}; launches "
+        f"{launches['sharded_cli/both/d4']}")
+
+    # times: 100 captured flushes of 256 at D = 1, 2, 4 beside the 1-D
+    # device flush, in one call; launches and the busy share of one flush
+    lat = {}
+    makers = {"device": lambda: main["server"]("both", "cuda")}
+    for shards in (1, 2, 4):
+        makers[f"d{shards}"] = lambda shards=shards: sharded(shards, "sorted-kernel")
+    for label, make in makers.items():
+        srv = make()
+        times = flush_samples(srv, x, 256)
+        lat[label] = dict(median_ms=statistics.median(times),
+                          p90_ms=statistics.quantiles(times, n=10)[-1], n=len(times))
+        busy = busy_share(make(), x, lat[label]["median_ms"], f"exp1 {label}")
+        lat[label].update(launches_per_flush=busy["launches"], busy_share=busy["busy_share"],
+                          device_busy_us=busy["device_busy_us"])
+        log(f"[phase 4n] exp1 flush of 256 ({label}, sorted-kernel, fused, captured): median "
+            f"{lat[label]['median_ms']:.3f} ms, p90 {lat[label]['p90_ms']:.3f} ms over "
+            f"{len(times)} flushes; {busy['launches']} launches a flush, busy "
+            f"{busy['busy_share']:.2%}")
+    out["flush_latency"] = lat
+    # a streaming wave's wall: the second drain of the 4-shard stream
+    # server (its first drain ran the program eagerly, then captured it),
+    # the same trace later on the server's clock
+    srv = stream_server()
+    stream_serve(srv, x, arrivals)
+    t = time.perf_counter()
+    stream_serve(srv, x, arrivals + arrivals[-1])
+    wall = time.perf_counter() - t
+    n_waves = len(srv.stream_results) // 2
+    out["stream_wave_ms"] = wall * 1e3 / n_waves
+    log(f"[phase 4n] a streaming wave at 4 shards (captured): {out['stream_wave_ms']:.2f} ms "
+        f"({n_waves} waves, {wall * 1e3:.1f} ms)")
+    report["sharded"] = out
+    return out
+
+
 def phase_gate(report: dict) -> None:
     """Phase 4f: the port's billing gate (``benchmarks/torch/perf_gate.py
     --device cuda --check``) on the card: the reference gate's fixtures
@@ -4471,13 +4771,29 @@ def phase_gate(report: dict) -> None:
     if failures:
         raise AssertionError("perf gate: " + "; ".join(failures))
     pending = sorted(k for k in baseline if gate.pending_reason(k) is not None)
-    if (len(counters), len(pending)) != (51, 76):
+    if (len(counters), len(pending)) != (111, 16):
         raise AssertionError(f"perf gate: {len(counters)} reachable keys, {len(pending)} "
-                             "pending; expected 51 and 76")
+                             "pending; expected 111 and 16")
     traces = {k: v for k, v in counters.items() if k.endswith(".traces")}
     report["perf_gate"] = dict(reachable=len(counters), pending=len(pending), counters=counters)
     log(f"[phase 4f] perf gate on the card: {len(counters)} reachable keys == baseline "
         f"(traces {traces}), {len(pending)} pending, {len(baseline)} accounted for")
+
+
+def flush_samples(srv, x, batch: int) -> list[float]:
+    """The wall of ``N_FLUSH`` flushes of ``batch`` rows of ``srv``, in ms,
+    after ``N_WARM`` unrecorded ones: each the submit that fills the batch,
+    ending in the flush's one transfer."""
+    times = []
+    for k in range(N_WARM + N_FLUSH):
+        start = (k * batch) % (x.shape[0] - batch)
+        rows = x[start : start + batch]
+        for row in rows[:-1]:
+            srv.submit(row)
+        t = time.perf_counter()
+        srv.submit(rows[-1])  # fills the batch: one flush, ending in
+        times.append((time.perf_counter() - t) * 1e3)  # its one transfer
+    return times[N_WARM:]
 
 
 def flush_latency(make_server, x, label: str, megakernels=(None, False),
@@ -4491,17 +4807,7 @@ def flush_latency(make_server, x, label: str, megakernels=(None, False),
     for batch, megakernel, capture in itertools.product((128, 256, 1024), megakernels, captures):
         # (a tree without the option runs its eager loop: a paired bench's parent)
         opts = {"megakernel": megakernel, **({} if capture else {"capture": False})}
-        srv = make_server(batch_size=batch, backend_opts=opts)
-        times = []
-        for k in range(N_WARM + N_FLUSH):
-            start = (k * batch) % (x.shape[0] - batch)
-            rows = x[start : start + batch]
-            for row in rows[:-1]:
-                srv.submit(row)
-            t = time.perf_counter()
-            srv.submit(rows[-1])  # fills the batch: one flush, ending in
-            times.append((time.perf_counter() - t) * 1e3)  # its one transfer
-        times = times[N_WARM:]
+        times = flush_samples(make_server(batch_size=batch, backend_opts=opts), x, batch)
         key = (f"batch{batch}" + ("" if megakernel is None else "_unfused")
                + ("" if capture else "_eager"))
         # p90 of 100 samples has 10 beyond it
@@ -4978,11 +5284,11 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
     stage, t0 = 5, int(dplan.stage_t0[5])
     kernels = []
 
-    def entry(name, fn, plain, nbytes, ops, shape, extra=None):
+    def entry(name, fn, plain, nbytes, ops, shape, extra=None, plain_reps=N_PLAIN_REPS):
         # device time per launch, the plain version's per call (fewer reps:
         # its hundreds of small launches a call make a profile slow to read)
         t = time.perf_counter()
-        ms, plain_ms = device_time_ms(fn), device_time_ms(plain, reps=N_PLAIN_REPS, tries=1)
+        ms, plain_ms = device_time_ms(fn), device_time_ms(plain, reps=plain_reps, tries=1)
         b, by = bound(nbytes, ops)
         src, replaces, path = KERNELS[name]
         e = dict(
@@ -5278,6 +5584,10 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
         lambda: cascade_plain(Fo, bep, ben, beta),
         nbytes=4 * steps + 8 * Tb + 8 * Nb, ops=3 * steps,
         shape=f"{Nb}x{Tb} chunk_t=8, {steps} steps walked",
+        # the plain walk's host-dispatched launches took 55 s to profile
+        # at 10 calls on an H100 (700 W); 11 ms of device time a call needs
+        # no more than 2
+        plain_reps=2,
     )
 
     # B8 on the main path's widest bucket wave, its first stage's input:
@@ -5405,6 +5715,7 @@ def main() -> int:
     timed("4k", phase_families, report, launches)
     timed("4l", phase_decode, report, launches)
     timed("4m", phase_train, report, launches)
+    timed("4n", phase_sharded, report, launches, main_ctx, lattice_ctx, rank_ctx)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

@@ -4,12 +4,14 @@ ported slice.
 Each backend declares its capabilities, says whether it can run here, and
 constructs its executor.  ``host`` is the per-stage host loop
 (``ChunkedExecutor``, numpy control flow); ``device`` is the stage loop on
-the device with no host sync (``DeviceExecutor``).
+the device with no host sync (``DeviceExecutor``); ``sharded`` is that loop
+data-parallel over D logical shards of one device
+(``ShardedDeviceExecutor``).
 
 The runtime degradation ladder (``DegradationLadder``): when a rung's
 executor construction or a device wave fails with an injected fault
 (``testing.faults``), the caller retries with capped exponential backoff,
-then falls one rung (device -> host, ``LADDER_ORDER``) and records a
+then falls one rung (sharded -> device -> host, ``LADDER_ORDER``) and records a
 ``DegradationEvent``, logged at warning level.  ``CompiledCascade`` and the
 serving engines use it.  Unlike the reference, only injected faults
 (``FaultInjected``, ``WaveFailure``) are retried or fallen on (ROADMAP
@@ -35,12 +37,15 @@ from repro_torch.kernels.device_executor import (
     DevicePlan,
     WaveFailure,
 )
+from repro_torch.kernels.sharded_executor import ShardedDeviceExecutor
+from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.testing import faults
 
 __all__ = [
     "BackendCapabilities",
     "HostBackend",
     "DeviceBackend",
+    "ShardedBackend",
     "BackoffPolicy",
     "DegradationEvent",
     "DegradationLadder",
@@ -52,8 +57,8 @@ __all__ = [
 log = logging.getLogger("repro_torch.api")
 
 # the runtime ladder's rungs, top to bottom (the reference's negotiation
-# order without its sharded rung, ROADMAP A15)
-LADDER_ORDER = ("device", "host")
+# order)
+LADDER_ORDER = ("sharded", "device", "host")
 # the errors the ladder retries and falls on: injected faults only
 RETRYABLE = (faults.FaultInjected, WaveFailure)
 
@@ -67,11 +72,16 @@ class BackendCapabilities:
     that an admission ring refills mid-cascade), which ``StreamingServer``
     needs.  ``grouped``: the backend can rank ragged query groups (the
     host oracle ``run_grouped_host``, or the executor's ``run_grouped``),
-    which ``fit(groups=)`` needs."""
+    which ``fit(groups=)`` needs.  ``data_parallel``: the executor splits
+    the batch over shards, and takes the ``mesh`` / ``shards`` /
+    ``rebalance`` options; ``supports_rebalance``: it can repack survivors
+    across shards."""
 
     on_device: bool
     streaming: bool = False
     grouped: bool = False
+    data_parallel: bool = False
+    supports_rebalance: bool = False
 
 
 def _as_cascade_plan(plan: CascadePlan | DevicePlan) -> CascadePlan:
@@ -85,7 +95,7 @@ class HostBackend:
     name = "host"
     capabilities = BackendCapabilities(on_device=False, grouped=True)
 
-    def available(self) -> tuple[bool, str]:
+    def available(self, device=None) -> tuple[bool, str]:
         return faults.on_available(
             self.name, True, "host stage loop runs anywhere (numpy control flow)"
         )
@@ -118,7 +128,12 @@ class DeviceBackend:
     name = "device"
     capabilities = BackendCapabilities(on_device=True, streaming=True, grouped=True)
 
-    def available(self) -> tuple[bool, str]:
+    def available(self, device=None) -> tuple[bool, str]:
+        """A CUDA device is needed, unless ``device`` (the torch device the
+        caller runs on) is the CPU, where the loop takes the kernels' plain
+        versions."""
+        if device is not None and torch.device(device).type == "cpu":
+            return faults.on_available(self.name, True, "the CPU (plain kernel versions)")
         if torch.cuda.is_available():
             return faults.on_available(
                 self.name, True, f"{torch.cuda.device_count()} CUDA device(s)"
@@ -145,6 +160,73 @@ class DeviceBackend:
     def billing_key(self) -> str:
         """The perf gate's counter-key fragment."""
         return self.name
+
+
+class ShardedBackend:
+    """The data-parallel device stage loop (``ShardedDeviceExecutor``) over
+    D logical shards of one device.  It reports itself available from two
+    CUDA devices on, as the reference does from two XLA devices, so
+    ``"auto"`` never picks it on one card; named with ``shards=`` it runs
+    on any device (ROADMAP C15)."""
+
+    name = "sharded"
+    min_devices = 2
+    capabilities = BackendCapabilities(
+        on_device=True, streaming=True, grouped=True, data_parallel=True,
+        supports_rebalance=True,
+    )
+
+    def available(self, n_devices: int | None = None, device=None) -> tuple[bool, str]:
+        """From ``min_devices`` CUDA devices on (``n_devices`` overrides the
+        count), whatever the torch ``device``: a shard count is asked for by
+        naming the backend."""
+        nd = torch.cuda.device_count() if n_devices is None else int(n_devices)
+        if nd < self.min_devices:
+            return faults.on_available(
+                self.name, False,
+                f"{nd} CUDA device(s) < {self.min_devices}; name the backend "
+                "with shards= to run logical shards on one device",
+            )
+        return faults.on_available(self.name, True, f"{nd} CUDA device(s)")
+
+    def resolve_mesh(self, mesh=None, shards: int | None = None, model_shards: int = 1,
+                     device="cuda"):
+        """The mesh the executor will run on: an explicit mesh wins, else a
+        ``("data",)`` mesh of ``shards`` (default: one a CUDA device)
+        logical shards on ``device``.  ``model_shards > 1`` raises (ROADMAP
+        A15, second part)."""
+        if mesh is not None:
+            return mesh
+        n = int(shards) if shards else max(1, torch.cuda.device_count())
+        return make_serving_mesh(n, model_shards, device=device)
+
+    def make_executor(
+        self,
+        plan: CascadePlan | DevicePlan,
+        *,
+        scorer: BoundScorer,
+        mesh=None,
+        shards: int | None = None,
+        model_shards: int = 1,
+        block_n: int = DEFAULT_BLOCK_N,
+        rebalance: bool = False,
+        rebalance_ratio: float = 1.25,
+        megakernel: bool | None = None,
+        device="cuda",
+        capture: bool = True,
+        check_finite: bool = False,
+    ) -> ShardedDeviceExecutor:
+        faults.on_make_executor(self.name)
+        return ShardedDeviceExecutor(
+            plan, scorer, self.resolve_mesh(mesh, shards, model_shards, device=device),
+            block_n=block_n, rebalance=rebalance, rebalance_ratio=rebalance_ratio,
+            megakernel=megakernel, capture=capture, check_finite=check_finite,
+        )
+
+    def billing_key(self, shards: int, rebalance: bool = False) -> str:
+        """The perf gate's counter-key fragment, ``sharded<D>[r]`` (the
+        reference's 1-D names)."""
+        return f"{self.name}{int(shards)}{'r' if rebalance else ''}"
 
 
 # -- graceful degradation ------------------------------------------------
@@ -181,17 +263,17 @@ class BackoffPolicy:
         )
 
 
-def fallback_rung(name: str, accept: Callable | None = None):
+def fallback_rung(name: str, accept: Callable | None = None, device=None):
     """The first AVAILABLE backend strictly below ``name`` in
     ``LADDER_ORDER`` (optionally also satisfying ``accept(backend)``), or
-    None at the floor.  A backend outside the ladder may fall to any
-    rung."""
+    None at the floor; ``device`` is the torch device the rungs run on.  A
+    backend outside the ladder may fall to any rung."""
     from repro_torch.api.registry import get_backend
 
     start = LADDER_ORDER.index(name) + 1 if name in LADDER_ORDER else 0
     for lower in LADDER_ORDER[start:]:
         b = get_backend(lower)
-        ok, _ = b.available()
+        ok, _ = b.available(device=device)
         if ok and (accept is None or accept(b)):
             return b
     return None
@@ -206,7 +288,8 @@ class DegradationLadder:
     event) or re-raises when the floor is reached.  Only ``RETRYABLE``
     errors (injected faults) are retried: a CUDA error, a caller bug
     (``ValueError`` / ``TypeError``) and every other error propagate
-    untouched, with no event.
+    untouched, with no event.  ``device`` is the torch device the rungs
+    run on (on the CPU the device rung is a fall target too).
     """
 
     def __init__(
@@ -214,7 +297,9 @@ class DegradationLadder:
         backoff: BackoffPolicy | None = None,
         sleep: Callable[[float], None] | None = None,
         events: list | None = None,
+        device=None,
     ):
+        self.device = device
         self.backoff = backoff or BackoffPolicy()
         self.sleep = time.sleep if sleep is None else sleep
         self.events: list[DegradationEvent] = events if events is not None else []
@@ -250,7 +335,7 @@ class DegradationLadder:
         """Next usable rung below ``from_name``; records the fall.  At the
         floor the original ``error`` is re-raised: degradation never
         swallows a failure it cannot route around."""
-        nxt = fallback_rung(from_name, accept=accept)
+        nxt = fallback_rung(from_name, accept=accept, device=self.device)
         if nxt is None:
             raise error
         self._record(

@@ -2,7 +2,7 @@
 counterpart of ``repro.api.pipeline``.
 
     fitted   = api.fit(scores_or_score_fn, X, beta=..., alpha=...)
-    compiled = fitted.compile("auto")          # or "host" | "device"
+    compiled = fitted.compile("auto")          # or "host" | "device" | "sharded"
     result   = compiled.evaluate(scores=F_test)
     server   = compiled.serve(score_fn=score_fn, batch_size=256)
 
@@ -20,10 +20,11 @@ grouped fit, a ``GroupedRankServer``) on the same backend.
 the CPU is named; ``"auto"`` is always the device backend, and ``host``
 runs only when named or reached down the runtime degradation ladder
 (``api.backends.DegradationLadder``): an injected construction or wave
-fault is retried with backoff, then falls device -> host, each step
-recorded on ``CompiledCascade.degradation_events``.  Any other error
-propagates (ROADMAP C11).  The mesh and shard options, whose executors
-are not ported, raise ``ValueError`` naming ROADMAP A15.
+fault is retried with backoff, then falls sharded -> device -> host, each
+step recorded on ``CompiledCascade.degradation_events``.  Any other error
+propagates (ROADMAP C11).  ``compile("sharded", shards=D)`` runs the
+data-parallel executor over D logical shards of the device; a model axis
+(``model_shards > 1``) raises, naming ROADMAP A15's second part.
 
 A model-backed fit (``fit(NeuralScorer(params, cfg, seq_len), tokens)``)
 calibrates on the scorer's own per-block scores, pins the fields its
@@ -55,14 +56,10 @@ from repro_torch.kernels.device_executor import (
     DevicePlan,
     matrix_stage_scorer,
 )
+from repro_torch.launch.mesh import MODEL_AXIS_TODO
 from repro_torch.ranking import GroupedRankServer, fit_grouped, group_offsets
 
 __all__ = ["FitConfig", "FittedCascade", "CompiledCascade", "fit"]
-
-_SHARDED_TODO = (
-    "mesh/shards/model_shards/rebalance need the sharded executors, not "
-    "ported yet (ROADMAP A15)"
-)
 
 
 def _numpy(a) -> np.ndarray:
@@ -260,8 +257,15 @@ class FittedCascade:
     ) -> "CompiledCascade":
         """Bind the cascade to an execution backend.
 
-        ``backend``: ``"auto"`` (the device backend), ``"device"``,
-        ``"host"``, or a backend instance.  ``device``: the torch device
+        ``backend``: ``"auto"`` (``negotiate()``'s rung: ``device`` on one
+        card), ``"device"``, ``"sharded"``, ``"host"``, or a backend
+        instance.  A named data-parallel rung that is unavailable raises
+        here with its reason; an explicit ``shards=`` or ``mesh=`` overrides
+        its two-device minimum, since its logical shards share one device
+        (ROADMAP C15), but not an injected outage or a dropped device.
+        Data-parallel options: ``mesh`` (a ``launch.mesh.ServingMesh``),
+        ``shards`` and ``rebalance``; ``model_shards > 1`` raises (ROADMAP
+        A15, second part).  ``device``: the torch device
         the executor (and the score functions' inputs) live on; the default
         card raises without one, ``"cpu"`` runs the kernels' plain
         versions.  Host-only options: ``decide`` (``"reference"``, the
@@ -273,8 +277,8 @@ class FittedCascade:
         calibrated.  ``backoff`` / ``sleep`` tune the runtime
         degradation ladder (``sleep`` is injectable so tests never wait).
         """
-        if mesh is not None or shards is not None or int(model_shards) > 1 or rebalance:
-            raise ValueError(_SHARDED_TODO)
+        if int(model_shards) > 1:
+            raise ValueError(MODEL_AXIS_TODO)
         if scorer is None:
             scorer = self.scorer
         if scorer is not None and not isinstance(scorer, StageScorer):
@@ -290,6 +294,18 @@ class FittedCascade:
                     f"unknown backend {backend!r}; registered backends: "
                     f"{list(backend_names())} (or {AUTO!r})"
                 ) from None
+            if b.capabilities.data_parallel:
+                ok, why = b.available()
+                if not ok and (mesh is not None or shards is not None):
+                    # logical shards always cover the count asked for; the
+                    # recheck keeps the other reasons (an injected outage,
+                    # a dropped device)
+                    ok, why = b.available(n_devices=b.min_devices)
+                if not ok:
+                    raise ValueError(
+                        f"backend {backend!r} is unavailable here: {why} "
+                        f"(compile({AUTO!r}) negotiates a usable rung instead)"
+                    )
         else:
             b = resolve_backend(backend, device=dev)
         caps = b.capabilities
@@ -297,6 +313,10 @@ class FittedCascade:
             for opt, val in (("decide", decide), ("bill_block", bill_block)):
                 if val is not None:
                     raise ValueError(f"{opt!r} is a host-backend option; backend is {b.name!r}")
+        if not caps.data_parallel and (mesh is not None or shards is not None or rebalance):
+            raise ValueError(
+                f"mesh/shards/rebalance require a data-parallel backend (backend is {b.name!r})"
+            )
         if self.grouped is not None and not caps.grouped:
             raise ValueError(
                 f"fit(groups=...) needs a backend with the grouped capability; "
@@ -305,7 +325,7 @@ class FittedCascade:
         return CompiledCascade(
             fitted=self, backend=b, plan=self.plan(chunk_t), device=dev,
             block_n=block_n, decide=decide, bill_block=bill_block, scorer=scorer,
-            backoff=backoff, sleep=sleep,
+            mesh=mesh, shards=shards, rebalance=rebalance, backoff=backoff, sleep=sleep,
         )
 
 
@@ -315,7 +335,9 @@ class CompiledCascade:
     On-device backends construct their executor here; the host backend
     binds a fresh ``ChunkedExecutor`` per call.  ``serve`` builds a server
     on the same backend and device.  An injected construction fault is
-    retried, then falls a rung (``degradation_events``).
+    retried, then falls a rung (``degradation_events``); the data-parallel
+    options travel only to a data-parallel rung, so a fall from sharded to
+    device drops them.
     """
 
     def __init__(
@@ -329,6 +351,9 @@ class CompiledCascade:
         decide: str | None = None,
         bill_block: int | None = None,
         scorer: StageScorer | None = None,
+        mesh=None,
+        shards: int | None = None,
+        rebalance: bool = False,
         backoff: BackoffPolicy | None = None,
         sleep=None,
     ):
@@ -342,8 +367,11 @@ class CompiledCascade:
             raise ValueError(f"decide must be 'reference' or 'kernel', got {decide!r}")
         self.bill_block = bill_block
         self.scorer_template = scorer
+        self.mesh = mesh
+        self.shards = shards
+        self.rebalance = bool(rebalance)
         self.last_rank_stats = None
-        self.ladder = DegradationLadder(backoff=backoff, sleep=sleep)
+        self.ladder = DegradationLadder(backoff=backoff, sleep=sleep, device=self.device)
         self._executor = None
         try:
             self._bind_backend(backend)
@@ -376,13 +404,23 @@ class CompiledCascade:
             if template is not None
             else matrix_stage_scorer(dplan, device=self.device)
         )
-        bn = DEFAULT_BLOCK_N if self.block_n is None else self.block_n
-        self._executor = self.ladder.attempt(
-            "construct", backend.name,
-            lambda: backend.make_executor(
-                dplan, scorer=self.scorer, block_n=bn, device=self.device
-            ),
+        opts = dict(
+            scorer=self.scorer, device=self.device,
+            block_n=DEFAULT_BLOCK_N if self.block_n is None else self.block_n,
         )
+        if backend.capabilities.data_parallel:
+            opts.update(self._data_parallel_opts())
+        self._executor = self.ladder.attempt(
+            "construct", backend.name, lambda: backend.make_executor(dplan, **opts)
+        )
+
+    def _data_parallel_opts(self) -> dict:
+        """The options a data-parallel rung takes (the ones given)."""
+        opts = {"mesh": self.mesh, "shards": self.shards}
+        opts = {k: v for k, v in opts.items() if v is not None}
+        if self.rebalance:
+            opts["rebalance"] = True
+        return opts
 
     @property
     def backend_name(self) -> str:
@@ -663,6 +701,10 @@ class CompiledCascade:
 
         if self.block_n is not None:
             server_kw.setdefault("block_n", self.block_n)
+        if self.backend.capabilities.data_parallel:
+            server_kw["backend_opts"] = {
+                **self._data_parallel_opts(), **server_kw.get("backend_opts", {})
+            }
         common = dict(
             score_fn=self.fitted.score_fn if score_fn is None else score_fn,
             chunk_score_fn=chunk_score_fn,
@@ -678,7 +720,7 @@ class CompiledCascade:
             if not self.backend.capabilities.streaming:
                 raise ValueError(
                     f"backend {self.backend.name!r} does not support streaming "
-                    "admission; compile onto 'device'"
+                    "admission; compile onto 'device' or 'sharded'"
                 )
             if policy != "sorted-kernel":
                 raise ValueError(

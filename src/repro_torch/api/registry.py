@@ -2,21 +2,23 @@
 ``repro.api.registry`` for the ported slice.
 
 Every entry point reaches the executors through this table;
-``register_backend`` adds a backend.  ``"auto"`` always resolves to
-``device``, never to ``host``: the host loop runs only when it is named,
-so a missing card is never hidden behind a slower path.  ``negotiate``
-walks ``NEGOTIATION_ORDER`` (the device backend alone: the reference's
-sharded rung is ROADMAP A15, and its host floor is not a rung here) and
-raises with every rung's reason when none is available.  Without a CUDA
-device ``"auto"`` raises, unless the caller named the CPU as the torch
-device (the device loop then runs the kernels' plain versions, as asked).
+``register_backend`` adds a backend.  ``"auto"`` never resolves to
+``host``: the host loop runs only when it is named, so a missing card is
+never hidden behind a slower path.  ``negotiate`` walks
+``NEGOTIATION_ORDER`` (sharded, then device: the reference's order without
+its host floor) and raises with every rung's reason when none is
+available.  ``sharded`` is available from two CUDA devices on, so on one
+card ``"auto"`` is ``device``, as the reference's is on one XLA device.
+Without a CUDA device ``"auto"`` raises, unless the caller named the CPU
+as the torch device (the device loop then runs the kernels' plain
+versions, as asked).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.api.backends import DeviceBackend, HostBackend
+from repro_torch.api.backends import DeviceBackend, HostBackend, ShardedBackend
 
 __all__ = [
     "AUTO",
@@ -31,7 +33,7 @@ __all__ = [
 AUTO = "auto"
 
 # "auto" preference; the host loop is never a rung
-NEGOTIATION_ORDER = ("device",)
+NEGOTIATION_ORDER = ("sharded", "device")
 
 _BACKENDS: dict = {}
 
@@ -81,7 +83,7 @@ def negotiate():
 
 def resolve_backend(spec=AUTO, device=None):
     """A backend instance passes through; any name but ``"auto"`` is looked
-    up.  ``"auto"`` is the device backend: ``negotiate()``, unless
+    up.  ``"auto"`` is ``negotiate()``'s rung, or the device backend when
     ``device`` (the torch device the caller asked for) is the CPU."""
     if not isinstance(spec, str):
         return spec
@@ -92,6 +94,6 @@ def resolve_backend(spec=AUTO, device=None):
     return get_backend(spec)
 
 
-for _b in (HostBackend(), DeviceBackend()):
+for _b in (HostBackend(), DeviceBackend(), ShardedBackend()):
     register_backend(_b)
 del _b

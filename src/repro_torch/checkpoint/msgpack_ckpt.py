@@ -27,7 +27,7 @@ from repro_torch.tree import flatten, path_key, tree_map_with_path
 
 __all__ = ["latest_step", "pack", "restore_checkpoint", "save_checkpoint", "unpack"]
 
-_SHARDED_TODO = "shardings needs the sharded executors, not ported yet (ROADMAP A15)"
+_SHARDED_TODO = "shardings needs the model axis, not ported yet (ROADMAP A15, second part)"
 
 # torch dtype <-> the dtype string of the reference's manifest
 _DTYPES = {

@@ -11,8 +11,8 @@ the running sums in float64 as the reference does.  Its choices equal the
 numpy optimizer's (ties broken identically by the stable order), up to
 the float32 thresholds.
 
-A mesh over several devices is the sharded slice (ROADMAP A15): the port
-runs the sweep on one device.
+A mesh over several devices is the model axis of the sharded slice
+(ROADMAP A15, second part): the port runs the sweep on one device.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ from repro_torch.device import resolve_device
 __all__ = ["sweep_candidates", "fit_qwyc_sharded"]
 
 _MESH_TODO = (
-    "mesh= shards the candidate sweep over devices, which needs the "
-    "sharded executors, not ported yet (ROADMAP A15); the port sweeps on one "
+    "mesh= shards the candidate sweep over devices, which needs the model "
+    "axis, not ported yet (ROADMAP A15, second part); the port sweeps on one "
     "device (mesh=None)"
 )
 

@@ -12,6 +12,8 @@ megakernel:      B4, the fused stage step (score + decide + block prefix);
 lattice_kernel:  B5, multilinear lattice scores.
 device_executor: the whole stage loop on the device, no host sync, the
                  streaming admission loop and the grouped (ranking) loop.
+sharded_executor: those loops data-parallel over D logical shards of the
+                 device.
 ops:             public entry points over the kernels.
 
 Sources live in ``repro_torch/csrc/`` and are compiled by ``_build`` at

@@ -716,26 +716,12 @@ def _lane_pack(pack: torch.Tensor, B: int) -> torch.Tensor:
     return torch.where((pack < cap_g)[:, None], lanes, cap_g * B).reshape(cap_g * B)
 
 
-class DeviceExecutor:
-    """Runs a ``CascadePlan`` on one device with no host sync in the stage
-    loop (see the module docstring).
-
-    Billing: a stage that ran computes ``ceil(n_in / bn) * bn`` rows of its
-    W-wide slab, ``bn`` being the scorer's kernel block (its block guard
-    skips row blocks past the live count), the same accounting as the
-    reference.  ``megakernel`` selects the fused stage step: ``None``
-    (default) turns it on when the scorer carries f32 ``ParamSlabs``;
-    ``True`` also runs quantised slabs fused (their results certified by
-    the tolerance oracle, not bit equality); ``False`` forces the
-    multi-kernel path, which scores from the f32 params.  ``device`` defaults to the
-    card; on ``"cpu"`` every kernel wrapper takes its plain version.
-    ``capture`` (default True) replays each program key's loop as a CUDA
-    graph on the card; False keeps the eager loop there.  ``traces``
-    counts the program keys run (see the module docstring).
-    ``check_finite`` rejects a batch holding a non-finite value before its
-    wave (``check_batch_finite``).  Every wave goes through
-    ``launch_wave`` under the executor name ``"device"``.
-    """
+class _DeviceLoops:
+    """What the device executors share (``DeviceExecutor`` here, the
+    data-parallel ``ShardedDeviceExecutor``): the plan's tables on the
+    device, the megakernel policy, the operand cast, and the compiled
+    programs, one per key (a CUDA graph each on the card; see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -792,10 +778,6 @@ class DeviceExecutor:
         if self.megakernel and sl.x_dtype is not None and x.dtype != sl.x_dtype:
             return x.to(sl.x_dtype)
         return x
-
-    def _cap(self, n: int) -> int:
-        b = self.block_n
-        return -(-max(n, 1) // b) * b
 
     # -- compiled programs: one trace per key, a CUDA graph each on the card
 
@@ -865,6 +847,32 @@ class DeviceExecutor:
         buf[:m].copy_(x[:m])
         if m < buf.shape[0]:
             buf[m:].zero_()
+
+
+class DeviceExecutor(_DeviceLoops):
+    """Runs a ``CascadePlan`` on one device with no host sync in the stage
+    loop (see the module docstring).
+
+    Billing: a stage that ran computes ``ceil(n_in / bn) * bn`` rows of its
+    W-wide slab, ``bn`` being the scorer's kernel block (its block guard
+    skips row blocks past the live count), the same accounting as the
+    reference.  ``megakernel`` selects the fused stage step: ``None``
+    (default) turns it on when the scorer carries f32 ``ParamSlabs``;
+    ``True`` also runs quantised slabs fused (their results certified by
+    the tolerance oracle, not bit equality); ``False`` forces the
+    multi-kernel path, which scores from the f32 params.  ``device`` defaults to the
+    card; on ``"cpu"`` every kernel wrapper takes its plain version.
+    ``capture`` (default True) replays each program key's loop as a CUDA
+    graph on the card; False keeps the eager loop there.  ``traces``
+    counts the program keys run (see the module docstring).
+    ``check_finite`` rejects a batch holding a non-finite value before its
+    wave (``check_batch_finite``).  Every wave goes through
+    ``launch_wave`` under the executor name ``"device"``.
+    """
+
+    def _cap(self, n: int) -> int:
+        b = self.block_n
+        return -(-max(n, 1) // b) * b
 
     # -- the batch stage loop ---------------------------------------------
 

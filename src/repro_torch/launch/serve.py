@@ -13,7 +13,14 @@ split through ``QWYCServer`` and reports speedup and faithfulness.
         --ensemble lattice --T 500 --scale 1.0 --alpha 0.005 --mode neg_only
 
 ``--backend`` names the execution backend: ``auto`` (the default: the
-device backend, never the host loop), ``device`` or ``host``.
+device backend on one card, never the host loop), ``device``, ``sharded``
+or ``host``.  ``--backend sharded --backend-shards D`` splits every flush
+(``D x --batch-size`` rows) over D logical shards of the card, and
+``--rebalance`` repacks the survivors across them when their occupancy
+skews:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --T 500 --scale 1.0 \
+        --alpha 0.005 --backend sharded --backend-shards 4 --batch-size 64
 ``--device`` picks the torch device: ``cuda`` (the default, an error
 without a card) or ``cpu``, which runs every kernel's plain version.
 ``--streaming`` serves through ``StreamingServer`` (continuous batching)
@@ -39,7 +46,9 @@ Guarded serving: ``--chaos-seed S`` arms a seeded ``FaultPlan`` around the
 serving loop (``--chaos-poison F`` poisons that fraction of the test rows,
 which the quarantine answers; ``--chaos-wave-failures K`` fails the first
 K device waves, which the degradation ladder retries, then falls to the
-host), ``--watchdog`` runs the drift watchdog over the audit stream, and
+host; ``--chaos-drop-device`` makes the sharded backend lose a device,
+which falls sharded -> device), ``--watchdog`` runs the drift watchdog
+over the audit stream, and
 ``--no-quarantine`` turns the admission guard off.  A SIGINT or SIGTERM
 during the submit loop stops admission, drains the queue and still prints
 the final stats.
@@ -65,6 +74,7 @@ from repro_torch.kernels import ops
 from repro_torch.ranking import group_offsets, ndcg_at_k
 from repro_torch.serving.engine import BACKENDS as POLICIES
 from repro_torch.serving.engine import QWYCServer, StreamingServer
+from repro_torch.launch.mesh import MODEL_AXIS_TODO
 from repro_torch.testing import FaultPlan
 
 # row-block size for the lazy chunked score kernels: survivors are padded
@@ -87,6 +97,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument(
         "--backend", default="auto", choices=("auto",) + backend_names(),
         help="execution backend (auto = device, never host)",
+    )
+    ap.add_argument(
+        "--backend-shards", type=int, default=None,
+        help="data-parallel width of --backend sharded (logical shards of the "
+        "device; under --backend auto it names the sharded backend)",
+    )
+    ap.add_argument(
+        "--model-shards", type=int, default=None,
+        help="model-parallel width: not ported (raises unless 1)",
+    )
+    ap.add_argument(
+        "--rebalance", action="store_true",
+        help="sharded backend: repack the survivors across shards between "
+        "stages when their occupancy skews",
     )
     ap.add_argument("--policy", default="sorted-kernel", choices=POLICIES)
     ap.add_argument("--batch-size", type=int, default=256)
@@ -157,8 +181,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--chaos-drop-device", action="store_true",
-        help="report a mesh device of the sharded backend as lost (not "
-        "ported: raises, ROADMAP A15)",
+        help="under --chaos-seed, the sharded backend loses a device: its "
+        "rung reports down and its waves fail, so the ladder falls sharded "
+        "-> device",
     )
     ap.add_argument(
         "--watchdog", action="store_true",
@@ -185,7 +210,24 @@ def _ragged_sizes(n: int, mean: int, rng) -> np.ndarray:
     return np.asarray(sizes, dtype=np.int64)
 
 
-def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device) -> None:
+def resolve_backend_args(args) -> tuple[str, dict]:
+    """(exec_backend name, backend_opts) from parsed CLI args: an explicit
+    shard count under ``--backend auto`` is a request for the sharded
+    backend."""
+    backend = args.backend
+    opts: dict = {}
+    if args.model_shards is not None and args.model_shards > 1:
+        raise ValueError(MODEL_AXIS_TODO)
+    if args.backend_shards is not None:
+        opts["shards"] = int(args.backend_shards)
+        if backend == "auto":
+            backend = "sharded"
+    if args.rebalance:
+        opts["rebalance"] = True
+    return backend, opts
+
+
+def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device, backend_opts) -> None:
     """``--groups`` mode: ragged ranking queries through the grouped
     cascade (fit group thresholds -> compile -> GroupedRankServer)."""
     rng = np.random.default_rng(GROUPS_SEED)
@@ -200,7 +242,7 @@ def _serve_ranking(args, ds, score_fn, F_train, beta, backend, device) -> None:
         f"(mean {sizes_tr.mean():.1f} docs), S={gp.S}, k={gp.k}, "
         f"train disagreement {gp.train_disagreement:.4f} (alpha={args.alpha})"
     )
-    compiled = fitted.compile(backend, device=device)
+    compiled = fitted.compile(backend, device=device, **backend_opts)
     server = compiled.serve(
         score_fn=score_fn, streaming=args.streaming, batch_size=args.batch_size
     )
@@ -249,13 +291,17 @@ def main(argv=None) -> None:
             poison_fraction=args.chaos_poison,
             poison_mode="mix",
             wave_failures=args.chaos_wave_failures,
+            # device loss kills the SHARDED rung's waves; the rungs below
+            # stay healthy, so there is somewhere to fall to
+            wave_fail_backend="sharded" if args.chaos_drop_device else None,
             drop_device=args.chaos_drop_device,
         )
-    elif args.chaos_drop_device:
-        FaultPlan(drop_device=True)  # raises, naming its ROADMAP item
     device = resolve_device(args.device)
-    backend = resolve_backend(args.backend, device=device)
+    backend_name, backend_opts = resolve_backend_args(args)
+    backend = resolve_backend(backend_name, device=device)
     on_device = backend.capabilities.on_device
+    if backend_opts.get("rebalance") and not backend.capabilities.supports_rebalance:
+        ap.error(f"--rebalance requires the sharded backend (resolved {backend.name!r})")
     if args.streaming and not backend.capabilities.streaming:
         ap.error(
             f"--streaming needs an on-device backend (resolved {backend.name!r}; "
@@ -317,7 +363,7 @@ def main(argv=None) -> None:
     x_train = torch.from_numpy(ds.x_train).to(device)
     F_train = score_fn(x_train).cpu().numpy().astype(np.float64)
     if args.groups is not None:
-        _serve_ranking(args, ds, score_fn, F_train, beta, backend, device)
+        _serve_ranking(args, ds, score_fn, F_train, beta, backend, device, backend_opts)
         return
     qwyc = fit_qwyc(F_train, beta=beta, alpha=args.alpha, mode=args.mode)
     print(
@@ -340,6 +386,7 @@ def main(argv=None) -> None:
         audit_full_scores=audit,
         score_block_n=1 if args.eager else SCORE_BLOCK_N,
         exec_backend=backend,
+        backend_opts=backend_opts,
         device=device,
         quarantine=args.quarantine,
         watchdog=True if args.watchdog else None,
@@ -358,6 +405,9 @@ def main(argv=None) -> None:
     else:
         server = QWYCServer(qwyc, backend=args.policy, **common_kw)
         arrivals = None
+    if server.mesh is not None:
+        print(f"[serve] sharded serving mesh: {server.n_shards} logical shards on "
+              f"{server.mesh.device}")
     x_test = ds.x_test
     if chaos is not None:
         if args.chaos_poison > 0:
@@ -415,7 +465,8 @@ def main(argv=None) -> None:
         )
     print(
         f"[serve] {st.n_requests} requests in {st.n_batches} batches "
-        f"({server.exec.name} backend, "
+        f"({server.exec.name} backend"
+        f"{f', {server.n_shards} shards' if server.exec.capabilities.data_parallel else ''}, "
         f"{'streaming' if args.streaming else args.policy + ' policy'}, "
         f"{'eager' if args.eager else 'lazy'})\n"
         f"        mean models {st.mean_models:.2f}/{args.T}  "

@@ -17,7 +17,7 @@ Knobs, as the reference's:
   taken with respect to the cast copies, clipped, then cast back to the
   masters' dtype for the update.
 
-``residual_sharding`` needs the sharded executors (ROADMAP A15), and
+``residual_sharding`` needs the model axis (ROADMAP A15, second part), and
 ``unroll`` has no meaning for a Python loop over the layers: neither is
 taken.
 """

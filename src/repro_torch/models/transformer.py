@@ -41,7 +41,7 @@ from repro_torch.tree import tree_map
 Params = dict[str, Any]
 
 _SHARDED_TODO = (
-    "residual_sharding needs the sharded executors, not ported yet (ROADMAP A15)"
+    "residual_sharding needs the model axis, not ported yet (ROADMAP A15, second part)"
 )
 
 

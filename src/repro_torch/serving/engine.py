@@ -1,6 +1,6 @@
 """Batched-request QWYC serving engine, the counterpart of
 ``repro.serving.engine`` (``QWYCServer`` and ``StreamingServer``, with
-guarded serving; the mesh is a later slice, ROADMAP A15).
+guarded serving).
 
 Requests (feature vectors) arrive one at a time; the server micro-batches
 them and runs the cascade through an execution backend:
@@ -9,6 +9,9 @@ them and runs the cascade through an execution backend:
     stage loop on the device with no host sync
     (``kernels/device_executor.py``), scoring with ``scorer=`` (a
     ``StageScorer`` template) or, eagerly, from ``score_fn``'s matrix.
+  * ``exec_backend="sharded"``: that loop data-parallel over D logical
+    shards of the device (``kernels/sharded_executor.py``); a flush serves
+    ``shards x batch_size`` rows.
   * ``exec_backend="host"`` (only when named): the per-stage host loop
     over ``chunk_score_fn`` or ``score_fn``, the semantics oracle.
 
@@ -39,7 +42,7 @@ answers a rejected row at drain time with ``{"quarantined": True,
 reaches a device batch.  ``watchdog`` runs the sequential drift test over
 the audit stream (``serving/watchdog.py``) and widens the thresholds of
 the next flushes on alarm.  A wave that fails with an injected fault is
-retried with backoff, then falls device -> host
+retried with backoff, then falls sharded -> device -> host
 (``api.backends.DegradationLadder``), recorded in
 ``ServeStats.degradation_events``; any other error propagates (ROADMAP
 C11).
@@ -55,13 +58,14 @@ import numpy as np
 import torch
 
 from repro_torch.api.backends import RETRYABLE, BackoffPolicy, DegradationLadder
-from repro_torch.api.registry import resolve_backend
+from repro_torch.api.registry import AUTO, resolve_backend
 from repro_torch.api.scorers import StageScorer
 from repro_torch.core.executor import CascadePlan, matrix_producer
 from repro_torch.core.qwyc import QWYCModel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.device_executor import DevicePlan, matrix_stage_scorer
+from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS_TODO
 from repro_torch.serving.watchdog import DriftWatchdog, WatchdogConfig, widen_plan
 
 __all__ = ["ServeStats", "QWYCServer", "StreamingServer", "BACKENDS"]
@@ -168,6 +172,8 @@ class QWYCServer:
         scorer: StageScorer | None = None,
         exec_backend="auto",
         backend_opts: dict | None = None,
+        mesh=None,
+        rebalance: bool = False,
         device="cuda",
         quarantine: bool = True,
         watchdog: bool | WatchdogConfig | DriftWatchdog | None = None,
@@ -185,7 +191,12 @@ class QWYCServer:
         for the diff-vs-full accounting (audit work, billed apart).
         ``score_block_n`` is ``chunk_score_fn``'s row-block granularity,
         which the host loop bills at.  ``backend_opts`` forwards options
-        (``megakernel=``) to the backend's ``make_executor``.  ``device``
+        (``megakernel=``; for the sharded backend ``shards=``, ``mesh=``,
+        ``rebalance=``, ``rebalance_ratio=``) to the backend's
+        ``make_executor``; ``mesh=`` and ``rebalance=`` are spellings of the
+        same entries, and a mesh or a shard count under ``"auto"`` means
+        the sharded backend, whose flushes serve ``batch_size`` rows a
+        shard.  ``device``
         defaults to the card and raises without one; ``"cpu"`` runs every
         kernel's plain version.
 
@@ -197,16 +208,38 @@ class QWYCServer:
         audited configuration (``score_fn``, or ``chunk_score_fn`` with
         ``audit_full_scores=True``).  ``backoff`` / ``sleep`` tune the
         degradation ladder that retries a wave failed by an injected fault
-        and falls device -> host (``sleep`` is injectable so tests never
-        wait); its history lands in ``ServeStats.degradation_events``.
+        and falls sharded -> device -> host (``sleep`` is injectable so
+        tests never wait); its history lands in
+        ``ServeStats.degradation_events``.
         """
         if scorer is not None and not isinstance(scorer, StageScorer):
             raise TypeError(
                 f"scorer= must be a repro_torch StageScorer, got {type(scorer).__name__}"
             )
         self.torch_device = resolve_device(device)
+        opts = dict(backend_opts or {})
+        if mesh is not None:
+            opts.setdefault("mesh", mesh)
+        if rebalance:
+            opts["rebalance"] = True
+        if int(opts.pop("model_shards", None) or 1) > 1:
+            raise ValueError(MODEL_AXIS_TODO)
+        if exec_backend == AUTO and ("mesh" in opts or "shards" in opts):
+            # an explicit mesh or shard count is a request for the sharded
+            # backend, not for whatever "auto" negotiates
+            exec_backend = "sharded"
         self.exec = resolve_backend(exec_backend, device=self.torch_device)
-        on_device = self.exec.capabilities.on_device
+        caps = self.exec.capabilities
+        if opts.get("rebalance") and not caps.supports_rebalance:
+            raise ValueError(
+                "rebalance=True requires the sharded backend "
+                f"(exec_backend is {self.exec.name!r}: nothing to repack)"
+            )
+        if not caps.data_parallel and ("mesh" in opts or "shards" in opts):
+            raise ValueError(
+                f"mesh/shards require a data-parallel backend (exec_backend is {self.exec.name!r})"
+            )
+        on_device = caps.on_device
         if score_fn is None and chunk_score_fn is None and (not on_device or scorer is None):
             raise ValueError(
                 "need score_fn, chunk_score_fn, or the device backend with scorer="
@@ -228,8 +261,20 @@ class QWYCServer:
         self.score_block_n = max(1, int(score_block_n))
         self.on_device = on_device
         self.scorer_template = scorer
-        self._exec_opts = dict(backend_opts or {})
-        self.flush_size = batch_size
+        self.mesh = None
+        self.n_shards = 1
+        if caps.data_parallel:
+            # the server needs the shard count up front, to size its flush
+            self.mesh = self.exec.resolve_mesh(
+                opts.pop("mesh", None), opts.pop("shards", None), device=self.torch_device
+            )
+            opts["mesh"] = self.mesh
+            self.n_shards = int(self.mesh.shape[DATA_AXIS])
+        self.rebalance = bool(opts.get("rebalance", False))
+        self._exec_opts = opts
+        # data-parallel serving scales the flush with the shards: batch_size
+        # rows a shard
+        self.flush_size = batch_size * self.n_shards
         self.plan = CascadePlan.from_qwyc(qwyc, chunk_t=chunk_t)
         self.stats = ServeStats()
         self._queue: list[np.ndarray] = []
@@ -247,7 +292,8 @@ class QWYCServer:
         self.quarantine = bool(quarantine)
         self._row_shape: tuple | None = None  # admission shape lock
         self.ladder = DegradationLadder(
-            backoff=backoff, sleep=sleep, events=self.stats.degradation_events
+            backoff=backoff, sleep=sleep, events=self.stats.degradation_events,
+            device=self.torch_device,
         )
         if watchdog is True:
             watchdog = WatchdogConfig(p0=float(getattr(qwyc, "alpha", 0.0) or 0.0))
@@ -428,6 +474,12 @@ class QWYCServer:
         nxt = self.ladder.fall("wave", self.exec.name, error, accept=accept)
         self.exec = nxt
         self.on_device = nxt.capabilities.on_device
+        if not nxt.capabilities.data_parallel:
+            # the data-parallel options do not travel down; flush_size stays
+            # (the device loop pads a flush through capacity=)
+            for k in ("mesh", "shards", "rebalance", "rebalance_ratio"):
+                self._exec_opts.pop(k, None)
+            self.rebalance = False
         if not self.on_device:
             self.scorer_template = None
         self._dev = None

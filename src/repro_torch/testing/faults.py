@@ -16,8 +16,10 @@ production code carries:
   as ``WaveFailure`` so retry/backoff sees one exception type.  These
   injected faults are the only errors the port's ladder retries or falls
   on (ROADMAP C11): a real CUDA error propagates.
-* **Device loss** (``drop_device=True``) is a mesh fault of the sharded
-  backend (ROADMAP A15); the port raises when a plan asks for it.
+* **Device loss** (``drop_device=True``) — the sharded backend loses a
+  device of its mesh: it reports itself unavailable and every
+  ``make_executor`` call on it raises, so the ladder falls sharded ->
+  device.
 
 Everything derives from ``seed``, so a chaos run is exactly
 reproducible: same plan, same batch, same faults, same recovery.
@@ -52,11 +54,6 @@ class FaultInjected(RuntimeError):
 
 
 _ACTIVE: "FaultPlan | None" = None
-
-_DROP_DEVICE_TODO = (
-    "drop_device simulates losing a device of the sharded backend's mesh, "
-    "which is not ported yet (ROADMAP A15)"
-)
 
 
 def active() -> "FaultPlan | None":
@@ -111,7 +108,7 @@ class FaultPlan:
     fail_on_call: int = 1
     fail_calls: int | None = None
     fail_available: bool = False
-    drop_device: bool = False  # sharded mesh loses a device (ROADMAP A15)
+    drop_device: bool = False  # sharded mesh loses a device
     # -- wave faults ----------------------------------------------------
     wave_failures: int = 0
     wave_fail_backend: str | None = None
@@ -119,8 +116,6 @@ class FaultPlan:
     injected: dict = dataclasses.field(default_factory=dict, init=False)
 
     def __post_init__(self):
-        if self.drop_device:
-            raise ValueError(_DROP_DEVICE_TODO)
         if self.poison_mode not in ("nan", "inf", "mix"):
             raise ValueError(f"poison_mode must be nan|inf|mix, got {self.poison_mode!r}")
         if not 0.0 <= self.poison_fraction <= 1.0:
@@ -146,12 +141,18 @@ class FaultPlan:
 
     def _backend_down(self, name: str) -> str | None:
         """Reason string when ``name`` should report unavailable."""
+        if self.drop_device and name == "sharded":
+            return (
+                f"injected device loss (FaultPlan seed={self.seed}): a mesh "
+                "device dropped out"
+            )
         if self.fail_available and name == self.fail_backend:
             return f"injected outage (FaultPlan seed={self.seed})"
         return None
 
     def _on_make_executor(self, name: str) -> None:
-        if name != self.fail_backend:
+        lost = self.drop_device and name == "sharded"
+        if not lost and name != self.fail_backend:
             return
         cnt = self._make_calls.get(name, 0) + 1
         self._make_calls[name] = cnt
@@ -163,8 +164,9 @@ class FaultPlan:
         ):
             return
         self.injected["make_executor"] += 1
+        kind = "device loss" if lost else "construction fault"
         raise FaultInjected(
-            f"injected construction fault: {name}.make_executor call #{cnt} "
+            f"injected {kind}: {name}.make_executor call #{cnt} "
             f"(FaultPlan seed={self.seed})"
         )
 

@@ -137,8 +137,18 @@ def test_fault_plan_arming_window_and_a15():
     with FaultPlan(seed=5, fail_backend="host", fail_available=True):
         ok, why = api.get_backend("host").available()
         assert not ok and "injected outage" in why
-    with pytest.raises(ValueError, match="ROADMAP A15"):
-        FaultPlan(drop_device=True)
+    # device loss: the sharded rung reports down (its reason the reference's)
+    # and refuses construction; the rungs below stay up
+    with FaultPlan(seed=6, drop_device=True) as fp:
+        ok, why = api.get_backend("sharded").available(n_devices=4)
+        with JFaultPlan(seed=6, drop_device=True):
+            assert (ok, why) == jbackends.ShardedBackend().available(n_devices=4)
+        assert not ok and "injected device loss" in why
+        with pytest.raises(FaultInjected, match="injected device loss: sharded.make_executor"):
+            faults.on_make_executor("sharded")
+        faults.on_make_executor("device")
+        assert fallback_rung("sharded", device="cpu").name == "device"
+    assert fp.injected["make_executor"] == 1
 
 
 # ------------------------------------------------- NaN decide confinement
@@ -663,10 +673,17 @@ def test_serve_cli_chaos_flags(capsys):
     assert "ladder 1 same-rung recovery(ies)" in out and "100 admitted" in out
     with pytest.raises(WaveFailure):
         serve.main(CLI + ["--chaos-seed", "3", "--chaos-wave-failures", "3", "--streaming"])
-    with pytest.raises(ValueError, match="ROADMAP A15"):
-        serve.main(CLI + ["--chaos-drop-device"])
-    with pytest.raises(ValueError, match="ROADMAP A15"):
-        serve.main(CLI + ["--chaos-seed", "1", "--chaos-drop-device"])
+    # device loss under a seed: the sharded rung's construction fails and
+    # the ladder falls one rung, serving every request
+    sharded = ["--backend", "sharded", "--backend-shards", "4"]
+    serve.main(CLI + sharded + ["--chaos-seed", "1", "--chaos-drop-device"])
+    out = capsys.readouterr().out
+    assert "ladder sharded->device" in out and "100 requests" in out
+    assert "(device backend, sorted-kernel" in out
+    # without a seed no plan is armed: the sharded rung serves
+    serve.main(CLI + sharded + ["--chaos-drop-device"])
+    out = capsys.readouterr().out
+    assert "(sharded backend, 4 shards" in out and "ladder" not in out
 
 
 def test_serve_cli_falls_to_host_and_no_quarantine(capsys):

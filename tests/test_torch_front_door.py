@@ -396,10 +396,11 @@ def test_register_backend_matches_jax(monkeypatch):
 
 
 def test_negotiate_never_lands_on_host(monkeypatch):
-    """The port negotiates over the device rung only: a card gives
-    ``device``; none raises with every rung's reason, where the reference
-    falls to its host floor."""
-    assert registry.NEGOTIATION_ORDER == ("device",)
+    """The port negotiates over the sharded and device rungs: one card
+    gives ``device`` (the sharded rung wants two, as the reference's wants
+    two XLA devices), two give ``sharded``; none raises with every rung's
+    reason, where the reference falls to its host floor."""
+    assert registry.NEGOTIATION_ORDER == ("sharded", "device")
     assert jregistry.negotiate(n_devices=0).name == "host"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device: no CUDA device \\(torch.cuda") as e:
@@ -412,3 +413,6 @@ def test_negotiate_never_lands_on_host(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert api.negotiate().name == "device"
     assert registry.resolve_backend("auto").name == "device"
+    assert jregistry.negotiate(n_devices=1).name == "device"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert api.negotiate().name == "sharded" == jregistry.negotiate(n_devices=2).name

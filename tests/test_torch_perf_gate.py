@@ -43,16 +43,20 @@ def _reachable():
 
 
 def test_every_baseline_key_is_reachable_or_pending(counters):
-    """127 keys: 51 reachable (the port produces exactly these) and 76
-    pending, every one ``*.sharded*`` (A15), with its queue item."""
+    """127 keys: 111 reachable (the port produces exactly these) and 16
+    pending, every one a 2-D mesh key (``*.sharded1x4*`` or
+    ``*.sharded2x2*``, A15's second part), with its queue item."""
     pending = {k: gate.pending_reason(k) for k in BASELINE if gate.pending_reason(k)}
     assert len(BASELINE) == 127
     assert set(counters) == set(_reachable())
     assert set(counters) | set(pending) == set(BASELINE)
     assert not set(counters) & set(pending)
-    assert (len(counters), len(pending)) == (51, 76)
-    assert all(fnmatch.fnmatchcase(k, "*.sharded*") for k in pending)
-    assert all("A15" in r and "queue A item" in r for r in pending.values())
+    assert (len(counters), len(pending)) == (111, 16)
+    assert all(
+        fnmatch.fnmatchcase(k, "*.sharded1x4*") or fnmatch.fnmatchcase(k, "*.sharded2x2*")
+        for k in pending
+    )
+    assert all("A15, second part" in r and "queue A item" in r for r in pending.values())
 
 
 @pytest.mark.parametrize("key", _reachable())
@@ -61,8 +65,9 @@ def test_reachable_key_equals_baseline(counters, key):
 
 
 def test_traces_keys_reachable(counters):
-    """Every single-device ``*.traces`` key: one program per shape, three
-    for the three bucket shapes (batch and streaming grouped)."""
+    """Every ``*.traces`` key, single-device and sharded: one program per
+    shape, three for the three bucket shapes (batch and streaming grouped,
+    and the sharded grouped loop)."""
     traces = {k: v for k, v in counters.items() if k.endswith(".traces")}
     assert traces == {
         "both.device.traces": 1, "both.device.multikernel.traces": 1,
@@ -71,6 +76,16 @@ def test_traces_keys_reachable(counters):
         "stream.device.mk.traces": 1, "stream.device.multikernel.traces": 1,
         "stream.device.traces": 1, "ranking.device.traces": 3,
         "ranking.stream.device.traces": 3,
+        **{
+            f"{mode}.sharded{d}{r}.traces": 1
+            for mode in ("both", "neg_only") for d in (2, 4) for r in ("", "r")
+        },
+        **{
+            f"{mode}.sharded{d}.multikernel.traces": 1
+            for mode in ("both", "neg_only") for d in (2, 4)
+        },
+        "serve.sharded4.traces": 1, "stream.sharded4.traces": 1,
+        "ranking.sharded4.traces": 3,
     }
 
 
@@ -93,11 +108,11 @@ def test_compare_fails_on_key_drift(counters):
     assert any("not produced: both.host.stages" in f for f in gate.compare(BASELINE, missing))
     extra = dict(counters, **{"both.device.fused.scores": 1})
     assert any("not in the baseline" in f for f in gate.compare(BASELINE, extra))
-    produced = dict(counters, **{"both.sharded2.scores": BASELINE["both.sharded2.scores"]})
+    produced = dict(counters, **{"both.sharded2x2.scores": BASELINE["both.sharded2x2.scores"]})
     assert any("pending key produced" in f for f in gate.compare(BASELINE, produced))
 
 
 def test_main_check_passes_on_cpu(capsys):
     assert gate.main(["--device", "cpu", "--check"]) == 0
     out = capsys.readouterr().out
-    assert "51 reachable, 76 pending" in out and "[perf-gate] OK" in out
+    assert "111 reachable, 16 pending" in out and "[perf-gate] OK" in out

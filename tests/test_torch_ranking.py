@@ -553,9 +553,11 @@ def test_api_fit_with_a_score_function_and_rank_x(bench):
 def test_api_unported_and_invalid_options_raise(bench):
     F, sizes, *_ = bench
     fitted = api.fit(F, groups=sizes, topk=K, alpha=0.05, chunk_t=CHUNK_T)
-    for kw in ({"mesh": object()}, {"shards": 2}, {"model_shards": 2}, {"rebalance": True}):
-        with pytest.raises(ValueError, match="ROADMAP A15"):
+    for kw in ({"mesh": object()}, {"shards": 2}, {"rebalance": True}):
+        with pytest.raises(ValueError, match="require a data-parallel backend"):
             fitted.compile("device", device="cpu", **kw)
+    with pytest.raises(ValueError, match="ROADMAP A15, second part"):
+        fitted.compile("sharded", device="cpu", shards=2, model_shards=2)
     # the degradation ladder is ported: backoff / sleep tune it
     from repro_torch.api.backends import BackoffPolicy
 
@@ -575,6 +577,9 @@ def test_api_unported_and_invalid_options_raise(bench):
     with pytest.raises(ValueError, match="host-backend option"):
         fitted.compile("device", device="cpu", decide="kernel")
     with pytest.raises(ValueError, match="unknown backend"):
+        fitted.compile("mesh2d", device="cpu")
+    # the sharded rung wants two CUDA devices unless a shard count is named
+    with pytest.raises(ValueError, match="'sharded' is unavailable here: 0 CUDA device"):
         fitted.compile("sharded", device="cpu")
     with pytest.raises(ValueError, match="stage layout"):
         fitted.compile("device", device="cpu", chunk_t=CHUNK_T + 1).rank(scores=F, groups=sizes)

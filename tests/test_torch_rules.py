@@ -321,6 +321,6 @@ def test_baseline_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         expert_contributions(p, np.zeros((3, 2)), np.zeros(2),
                              types.SimpleNamespace(n_experts=2, top_k=1))
-    assert backends.LADDER_ORDER == ("device", "host")
-    assert registry.NEGOTIATION_ORDER == ("device",)
+    assert backends.LADDER_ORDER == ("sharded", "device", "host")
+    assert registry.NEGOTIATION_ORDER == ("sharded", "device")
     assert backends.fallback_rung("device").name == "host"
