@@ -36,11 +36,8 @@ ROOT = Path(__file__).resolve().parents[2]
 BASELINE = ROOT / "benchmarks" / "results" / "baseline_billing.json"
 
 # baseline key patterns the port cannot produce yet, with the queue item
-# (ROADMAP.md, queue A) that brings each
-PENDING = (
-    ("*.sharded1x4*", "A15, second part (queue A item 8): the 2-D mesh executor"),
-    ("*.sharded2x2*", "A15, second part (queue A item 8): the 2-D mesh executor"),
-)
+# (ROADMAP.md, queue A) that brings each: none since the 2-D mesh keys
+PENDING: tuple = ()
 
 
 def pending_reason(key: str) -> str | None:
@@ -185,6 +182,23 @@ def collect_counters(device: str) -> dict[str, int]:
             ) == c[f"{base}.crit_blocks"]
             c[f"{base}.multikernel.scores"] = int(sfres.scores_computed)
             c[f"{base}.multikernel.traces"] = int(sx_fb.traces)
+
+        # the 2-D ("data", "model") mesh: every stage's columns split over
+        # the model shards and summed once a stage step; the bill counts the
+        # padded width w_global = M * ceil(W / M)
+        for dd, mm in ((2, 2), (1, 4)):
+            sx2 = SHARDED.make_executor(
+                dplan, scorer=scorer(dplan), shards=dd, model_shards=mm, block_n=64,
+                device=dev,
+            )
+            r2 = sx2.run(Fo, n)
+            assert np.array_equal(r2.decisions, ev["decisions"])
+            info2 = sx2.last_run_info
+            q2 = f"{p}.{SHARDED.billing_key(shards=dd, model_shards=mm)}"
+            c[f"{q2}.scores"] = int(r2.scores_computed)
+            c[f"{q2}.stages"] = int(info2["stages_run"])
+            c[f"{q2}.psums"] = int(info2["per_coord_psums"].sum())
+            c[f"{q2}.traces"] = int(sx2.traces)
 
     # serving-path billing: the lazy host loop (the reference server's
     # default backend is the host loop; the port runs it only when named)

@@ -115,10 +115,10 @@ Phases, each of which stops the run on failure:
    and launch counts equal; one graph a server (one a bucket shape for
    ranking), none recaptured.
 4f. The port's billing gate (``benchmarks/torch/perf_gate.py --device
-   cuda --check``): the reference gate's fixtures on the card, the 51
-   reachable keys (the ``*.traces`` keys among them) equal to
-   ``benchmarks/results/baseline_billing.json``, the 76 others pending
-   (``*.sharded*``).
+   cuda --check``): the reference gate's fixtures on the card, all 127
+   keys (the ``*.traces`` keys and the 2-D mesh's ``*.sharded1x4*`` /
+   ``*.sharded2x2*`` among them) equal to
+   ``benchmarks/results/baseline_billing.json``, none pending.
 4g. Grouped streaming: phase 4d's fit (no new fit) serves the 126 test
    queries through ``serve(streaming=True)`` under ``skip-ahead`` and
    ``wait``, each query at its seed-2028 Poisson arrival at 4.0 queries a
@@ -232,10 +232,26 @@ Phases, each of which stops the run on failure:
    process of its own, which must print ``OK``.  To run 4l and 4m alone,
    call ``chip_smoke.phase_decode({"card": ...}, {})`` and
    ``chip_smoke.phase_train({"card": ...}, {})`` (no kernel build needed).
+4n. The data-parallel executor over D logical shards of the card on
+   phase 4's, 4b's and 4d's fits (batch, streaming, ranking, the
+   launcher), held to those phases and to ``capture=False``; flush walls
+   at D = 1 / 2 / 4 beside the 1-D flush.
+4o. The 2-D ``("data", "model")`` executor on the same fits: exp1's trees
+   at 1x4, 2x2 and 4x1 logical shards (``MESH2D_SHAPES``; a flush of 256,
+   ``megakernel=False``), policies ``kernel`` and ``sorted-kernel``,
+   captured and ``capture=False``, and exp4's lattices at 2x2: verdicts,
+   exits and ``g_final`` bits equal to phase 4's and 4b's unfused (B3 /
+   B5 + B2's step form) flushes, each flush's bill equal to its
+   ``per_coord_scores`` (and ``per_shard_n_in``) recount, exactly D x M x
+   S B3 (or B5) and D x S B2 step-form launches a flush (plus the sort
+   key); then the captured flush's median wall, launches and busy share
+   at each shape beside the 1-D unfused flush, and the slab bytes a model
+   shard holds against the 1-D slab.
 5. Times, after a warm-up, each served path captured and (beside it) with
    ``capture=False``: the per-flush latency of both servers at batch
    128 / 256 / 1024, fused and unfused (host clock, median and p90 of 100
-   flushes), the device's busy share of a batch-256 flush (profiler device
+   flushes captured, ``N_FLUSH_EAGER`` with ``capture=False``; streaming:
+   ``N_DRAINS`` drains captured, ``N_DRAINS_EAGER`` eager), the device's busy share of a batch-256 flush (profiler device
    time over the unprofiled median flush; the profile must see as many of
    the port's kernels as the flush launched); the streaming servers' drains
    (requests/s, wave and step wall times, steps and syncs per wave,
@@ -289,8 +305,10 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) op/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# flush-latency samples per (batch, path), after N_WARM unrecorded flushes
-N_WARM, N_FLUSH = 5, 100
+# flush-latency samples per (batch, path), after N_WARM unrecorded flushes;
+# the eager loop's (capture=False, 40-90 ms a flush) are fewer, to make
+# room for phase 4o
+N_WARM, N_FLUSH, N_FLUSH_EAGER = 5, 100, 40
 # profiled calls of a kernel's plain version (a kernel's own: 50)
 N_PLAIN_REPS = 10
 # phase 4c's streaming servers: lane capacity, admission ring, arrival rates
@@ -299,7 +317,9 @@ N_PLAIN_REPS = 10
 # times N_DRAINS drains of the test rows at the heavy rate
 STREAM_CAP, STREAM_WINDOW, STREAM_RATES = 256, 1024, (256.0, 4.0)
 ARRIVAL_SEED = 2028
-N_DRAINS = 5
+# (the eager loop's, 0.15-0.55 s a wave, are N_DRAINS_EAGER, to make room
+# for phase 4o)
+N_DRAINS, N_DRAINS_EAGER = 5, 2
 # phase 4d's ranking configuration (the CLI's --groups 16 --topk 10, at the
 # middle of benchmarks/bench_ranking.py's alphas), queries per flush, and
 # phase 5's timed drains of the test queries
@@ -403,6 +423,9 @@ DECODE_CUTS = [("gemma2-2b", 2, {}), ("deepseek-v2-lite-16b", 2, {}),
 TRAIN_SEED, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_REMAT_STEPS = 2034, 4, 256, 6, 2
 TRAIN_LR, TRAIN_CLIP, TRAIN_CUT_B, TRAIN_CUT_S = 3e-4, 1.0, 2, 128
 TRAIN_BAND, TRAIN_MOVED_SHARE, TRAIN_BF16_LOSS = 1e-4, 1e-3, 1e-2
+# phase 4o: the 2-D mesh shapes (data shards, model shards) exp1 is served
+# at, a flush of 256 each; exp4 at 2x2
+MESH2D_SHAPES = ((1, 4), (2, 2), (4, 1))
 # tree depths phase 3 holds B4 and B7 tree to their plain versions at:
 # depths 1 and 10 (B3's old limit), exp1's and exp2_nomao's depths (5, 9), either
 # side of the scorer's unrolled group of 10 levels (8, 12; 12 is reached by
@@ -533,6 +556,12 @@ PATH_KERNELS = {
     "sharded_rank": {"gbt_scores", "cascade_group"},
     # the launcher: B3 for the calibration matrix and the sort key, B4 tree
     "sharded_cli": {"gbt_scores", "mega_stage_tree"},
+    # phase 4o, the 2-D mesh: B3 (or B5) once a (data, model) shard and a
+    # stage, B2's step form once a data shard and a stage; the sorted
+    # policy adds its sort key (B3 / B5)
+    "mesh2d": {"gbt_scores", "cascade_chunk_step"},
+    "mesh2d_sorted": {"gbt_scores", "cascade_chunk_step"},
+    "mesh2d_lattice_sorted": {"lattice_scores", "cascade_chunk_step"},
     # phase 4i: a sharded server that loses its device falls to the device
     # rung (sort key B3 + B4 tree); the launcher's --chaos-drop-device alike
     "guard_drop": {"gbt_scores", "mega_stage_tree"},
@@ -862,6 +891,29 @@ def w2_tables(rng, S: int, dev) -> tuple:
     ep[1], en[1] = np.inf, -np.inf
     col[S - 1, 1], ep[S - 1, 1], en[S - 1, 1] = False, np.inf, -np.inf
     return tuple(torch.from_numpy(a).to(dev) for a in (ep, en, col))
+
+
+def check_model_widths(check: Check, name: str, kernel, plain, scorer, fields, x, rows,
+                       nv) -> int:
+    """B3 or B5 as phase 4o's 2-D path launches them: each model shard's
+    (w_local, ...) slice of a stage (``scorer.model_partition``: W 8 over
+    M 2, 3 and 4 model shards, widths 4, 3 and 2; the last shard's slice
+    of a stage reaches into the next one, or past T in the last stage) on
+    ``rows`` at a full and a partial live count.  Returns the cases."""
+    n = 0
+    for M in (2, 3, 4):
+        mparams, _ = scorer.model_partition(M)
+        S, w_l = mparams[fields[0]].shape[1:3]
+        for stage in (0, 5, S - 1):
+            for j in range(M):
+                args = [mparams[f][j, stage].contiguous() for f in fields]
+                for n_valid in (nv(256), nv(100)):
+                    kw = dict(block_n=64, t0=0, t1=w_l, rows=rows, n_valid=n_valid)
+                    check.equal(name, f"model shards {M}: shard {j} of stage {stage} "
+                                f"n_valid {int(n_valid)}", kernel(*args, x, **kw),
+                                plain(*args, x, **kw))
+                    n += 1
+    return n
 
 
 def check_chunk_step(check: Check, dev, eps_pos, eps_neg, col_valid, cascade_chunk_step) -> None:
@@ -1213,6 +1265,10 @@ def phase_kernels(check: Check) -> dict:
                                     f"output {k}", a, b)
                     n_cases += 1
     log(f"[phase 3] B4 mega_stage tree + matrix (gathered, rows=) == plain ({n_cases} cases)")
+    n_cases = check_model_widths(check, "gbt_scores", gbt_scores_kernel, gbt_scores_plain, tree,
+                                 ("feats", "thrs", "leaves"), x_buf, rows, nv)
+    log(f"[phase 3] B3 gbt_scores at the model-shard widths 4, 3 and 2 (W 8 over 2, 3 and 4 "
+        f"model shards), rows= and n_valid == plain ({n_cases} cases)")
 
     # B5: exp4's widths (D 30, S 8, T 500), the calibration shape and stage
     # slabs, S in {1, 4, 8}; rows at the cube's corners (inputs 0 and 1)
@@ -1288,6 +1344,11 @@ def phase_kernels(check: Check) -> dict:
         lplan, theta8.cpu().numpy(), lfeats8.cpu().numpy(), block_n=64, device=dev
     )
     leps = (torch.from_numpy(lplan.eps_pos).to(dev), torch.from_numpy(lplan.eps_neg).to(dev))
+    n_cases = check_model_widths(check, "lattice_scores", lattice_scores_kernel,
+                                 lattice_scores_plain, lattice, ("theta", "feats"), xl_buf, rows,
+                                 nv)
+    log(f"[phase 3] B5 lattice_scores at the model-shard widths 4, 3 and 2, rows= and n_valid "
+        f"== plain ({n_cases} cases)")
     xr = xl_buf[rows].contiguous()
     n_cases, mid_block = 0, 0
     for stage in (0, 5, 63):
@@ -1686,7 +1747,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             chunk_t=8, **kw,
         )
 
-    out, per_flush, batch_g, results = {}, {}, {}, {}
+    out, per_flush, batch_g, results, unfused_g = {}, {}, {}, {}, {}
 
     def served(path, srv, twin):
         """``srv`` over the test rows, counted as ``path``, then held
@@ -1719,6 +1780,7 @@ def phase_main_path(report: dict, launches: dict) -> dict:
             mode, "cuda", backend_opts=eager_opts({"megakernel": False})))
         if res_off != res_card:
             raise AssertionError(f"{mode}: megakernel off != on")
+        unfused_g[mode] = np.concatenate([r.g_final for r in off.flush_results])
         # the unfused stage is B2's step form once a stage, never its
         # reference form
         n_stages = off._dev[0].dplan.S
@@ -1785,7 +1847,8 @@ def phase_main_path(report: dict, launches: dict) -> dict:
     report["launches"] = launches
     report["launches_per_flush"] = per_flush
     return dict(ds=ds, fits=fits, gbt=gbt, score_fn=score_fn, server=server,
-                F_train=F_train, F_test=F_test, batch_g=batch_g, beta=beta, results=results)
+                F_train=F_train, F_test=F_test, batch_g=batch_g, beta=beta, results=results,
+                unfused_g=unfused_g)
 
 
 def phase_lattice_path(report: dict, launches: dict) -> dict:
@@ -1918,8 +1981,10 @@ def phase_lattice_path(report: dict, launches: dict) -> dict:
     return dict(ds=ds, fit=fit, theta=theta, feats=feats, server=server,
                 F_ordered=torch.from_numpy(F_test).cuda()[:, order].contiguous(),
                 eps=(eps_pos, eps_neg), steps=int(ex_eager.sum()),
-                F_test=F_test.astype(np.float64),
-                batch_g=np.concatenate([r.g_final for r in srvs["lattice_fused"].flush_results]))
+                F_test=F_test.astype(np.float64), results=res["lattice_unfused"],
+                batch_g=np.concatenate([r.g_final for r in srvs["lattice_fused"].flush_results]),
+                unfused_g=np.concatenate(
+                    [r.g_final for r in srvs["lattice_unfused"].flush_results]))
 
 
 def stream_serve(server, x, arrivals) -> list[dict]:
@@ -4520,8 +4585,10 @@ def phase_train(report: dict, launches: dict) -> dict:
 def serve_billed(server, x, rebalanced: list | None = None) -> list[dict]:
     """``serve`` a sharded batch server flush by flush, and after each
     flush recount its bill from ``last_run_info``: every shard bills the
-    live blocks of its slice, ``ceil(n_in[k, s] / bn) * bn * W``.  Each
-    flush's rebalanced stages are appended to ``rebalanced``."""
+    live blocks of its slice, ``ceil(n_in[k, s] / bn) * bn * W`` (W the
+    padded ``w_global`` on a model axis, where the per-coordinate bill
+    ``per_coord_scores`` must add up to the same).  Each flush's rebalanced
+    stages are appended to ``rebalanced``."""
     import numpy as np
 
     for i in range(0, x.shape[0], server.flush_size):
@@ -4530,11 +4597,17 @@ def serve_billed(server, x, rebalanced: list | None = None) -> list[dict]:
         server.flush()
         ex, res = server._dev[0], server.flush_results[-1]
         info = ex.last_run_info
-        bn, W = ex._bn_bill(), ex.dplan.W
+        bn = ex._bn_bill()
+        W = ex._w_global if ex.model_shards > 1 else ex.dplan.W
         bill = int(((-(-info["per_shard_n_in"].astype(np.int64) // bn)) * bn * W).sum())
         if bill != res.scores_computed or info["per_shard_scores"].sum() != bill:
             raise AssertionError(f"sharded flush {i // server.flush_size}: billed "
                                  f"{res.scores_computed}, per_shard_n_in recounts {bill}")
+        coord = info.get("per_coord_scores")
+        if (coord is not None) != (ex.model_shards > 1) or (
+                coord is not None and int(coord.sum()) != bill):
+            raise AssertionError(f"sharded flush {i // server.flush_size}: billed {bill}, "
+                                 f"per_coord_scores {None if coord is None else coord.sum()}")
         if rebalanced is not None:
             rebalanced.append(info["rebalanced_stages"])
     return server.drain()
@@ -4753,12 +4826,142 @@ def phase_sharded(report: dict, launches: dict, main: dict, lmain: dict, rmain: 
     return out
 
 
+def slab_bytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def phase_mesh2d(report: dict, launches: dict, main: dict, lmain: dict) -> dict:
+    """Phase 4o: the 2-D ``("data", "model")`` executor over D x M logical
+    shards of the card, on phase 4's and 4b's fits (no new fit).  exp1's
+    test rows through ``QWYCServer(exec_backend="sharded",
+    backend_opts={"shards": D, "model_shards": M, "megakernel": False})``
+    at each of ``MESH2D_SHAPES`` (batch 256 / D: a flush of 256), under the
+    ``kernel`` and ``sorted-kernel`` policies, captured and held against
+    ``capture=False``; exp4's lattices at 2x2 (sorted-kernel).  Verdicts,
+    exits and ``g_final`` bits equal phase 4's / 4b's unfused flushes, every
+    flush's bill is recounted (``serve_billed``), and a flush launches
+    exactly D x M x S B3 (B5) and D x S B2 step forms (plus the sort key).
+    Then the median captured flush at each shape beside the 1-D unfused
+    flush, launches and busy share of one flush, and the slab bytes a
+    model shard holds."""
+    import numpy as np
+
+    from repro_torch.api.scorers import LatticeScorer, TreeScorer
+    from repro_torch.serving.engine import QWYCServer
+
+    ds, gbt, fit = main["ds"], main["gbt"], main["fits"]["both"]
+    x = ds.x_test
+    want_res, want_g = main["results"]["both"], main["unfused_g"]["both"].view(np.int32)
+    out: dict = {"batch": {}}
+
+    def server(d, m, policy="sorted-kernel", capture=True, **kw):
+        kw.setdefault("scorer", TreeScorer(gbt.feats, gbt.thrs, gbt.leaves))
+        kw.setdefault("fit", fit)
+        kw.setdefault("batch_size", 256 // d)
+        opts = {"shards": d, "model_shards": m, "megakernel": False,
+                **({} if capture else {"capture": False})}
+        return QWYCServer(kw.pop("fit"), exec_backend="sharded", device="cuda", backend=policy,
+                          chunk_t=8, backend_opts=opts, **kw)
+
+    def g_bits(srv):
+        return np.concatenate([r.g_final for r in srv.flush_results]).view(np.int32)
+
+    for (d, m), policy in itertools.product(MESH2D_SHAPES, ("kernel", "sorted-kernel")):
+        sorted_ = policy == "sorted-kernel"
+        key = f"mesh2d{'_sorted' if sorted_ else ''}/both/{d}x{m}"
+        t = time.perf_counter()
+        srv = server(d, m, policy)
+        res = counted(launches, key, lambda: serve_billed(srv, x))
+        eager_twin(launches, key, srv, res, server(d, m, policy, capture=False),
+                   lambda s: serve_billed(s, x))
+        if res != want_res or g_bits(srv).tolist() != want_g.tolist():
+            raise AssertionError(f"{key}: results or g_final bits != phase 4's unfused flushes")
+        ex, nb = srv._dev[0], srv.stats.n_batches
+        S = ex.dplan.S
+        want = {"gbt_scores": nb * (d * m * S + sorted_), "cascade_chunk_step": nb * d * S}
+        if launches[key] != want or ex.model_shards != m or ex.megakernel:
+            raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+        info = ex.last_run_info
+        out["batch"][key] = dict(
+            flushes=nb, stages=S, launches=launches[key],
+            scores_computed=srv.stats.scores_computed,
+            w_local=getattr(ex, "_w_local", ex.dplan.W),
+            w_global=getattr(ex, "_w_global", ex.dplan.W),
+            per_coord_psums_last_flush=(info["per_coord_psums"].tolist()
+                                        if "per_coord_psums" in info else None),
+            wall_s=time.perf_counter() - t,
+        )
+        log(f"[phase 4o] {key}: {nb} flushes of 256 over {d} x {m} shards, {S} stages, == "
+            f"phase 4's unfused verdicts and g_final bits, bills == per_coord_scores and "
+            f"per_shard_n_in recounts, one CUDA graph == capture=False; scores "
+            f"{srv.stats.scores_computed}; launches {launches[key]}")
+
+    # exp4's lattices at 2x2 against phase 4b's unfused flushes
+    lfit = lmain["fit"]
+    key = "mesh2d_lattice_sorted/neg_only/2x2"
+
+    def lserver(capture=True):
+        return server(2, 2, capture=capture, fit=lfit,
+                      scorer=LatticeScorer(lmain["theta"], lmain["feats"]))
+
+    lsrv = lserver()
+    lx = lmain["ds"].x_test
+    lres = counted(launches, key, lambda: serve_billed(lsrv, lx))
+    eager_twin(launches, key, lsrv, lres, lserver(False), lambda s: serve_billed(s, lx))
+    if lres != lmain["results"] or g_bits(lsrv).tolist() != lmain["unfused_g"].view(
+            np.int32).tolist():
+        raise AssertionError(f"{key}: results or g_final bits != phase 4b's unfused flushes")
+    nb, S = lsrv.stats.n_batches, lsrv._dev[0].dplan.S
+    want = {"lattice_scores": nb * (2 * 2 * S + 1), "cascade_chunk_step": nb * 2 * S}
+    if launches[key] != want:
+        raise AssertionError(f"{key}: launched {launches[key]}, expected {want}")
+    out["lattice"] = dict(flushes=nb, stages=S, launches=launches[key],
+                          scores_computed=lsrv.stats.scores_computed)
+    log(f"[phase 4o] {key}: {nb} flushes, == phase 4b's unfused verdicts and g_final bits, "
+        f"one CUDA graph == capture=False; launches {launches[key]}")
+
+    # the slab a model shard holds: its (S, w_local, ...) slices against
+    # the whole (S, W, ...) stage slab (the same slices at one model shard)
+    bound = TreeScorer(gbt.feats, gbt.thrs, gbt.leaves).bind(
+        srv._dev[0].dplan, device="cuda")
+    one = slab_bytes(bound.model_partition(1)[0])
+    out["slab_bytes"] = {"1d": one}
+    for d, m in MESH2D_SHAPES:
+        if m > 1:
+            part = bound.model_partition(m)[0]
+            out["slab_bytes"][f"M={m}"] = slab_bytes(part) // m
+    log(f"[phase 4o] exp1's stage slabs: {one} bytes whole, a model shard's "
+        f"{ {k: v for k, v in out['slab_bytes'].items() if k != '1d'} }")
+
+    # times: 100 captured flushes of 256 at each shape beside the 1-D
+    # unfused device flush, in one call; launches and the busy share of one
+    lat = {}
+    makers = {"device_unfused": lambda: main["server"]("both", "cuda",
+                                                       backend_opts={"megakernel": False})}
+    for d, m in MESH2D_SHAPES:
+        makers[f"{d}x{m}"] = lambda d=d, m=m: server(d, m)
+    for label, make in makers.items():
+        times = flush_samples(make(), x, 256)
+        lat[label] = dict(median_ms=statistics.median(times),
+                          p90_ms=statistics.quantiles(times, n=10)[-1], n=len(times))
+        busy = busy_share(make(), x, lat[label]["median_ms"], f"exp1 {label}")
+        lat[label].update(launches_per_flush=busy["launches"], busy_share=busy["busy_share"],
+                          device_busy_us=busy["device_busy_us"])
+        log(f"[phase 4o] exp1 flush of 256 ({label}, sorted-kernel, unfused, captured): "
+            f"median {lat[label]['median_ms']:.3f} ms, p90 {lat[label]['p90_ms']:.3f} ms over "
+            f"{len(times)} flushes; {busy['launches']} launches a flush, busy "
+            f"{busy['busy_share']:.2%}")
+    out["flush_latency"] = lat
+    report["mesh2d"] = out
+    return out
+
+
 def phase_gate(report: dict) -> None:
     """Phase 4f: the port's billing gate (``benchmarks/torch/perf_gate.py
     --device cuda --check``) on the card: the reference gate's fixtures
     through the port's kernels and captured loops, every reachable key
-    equal to ``benchmarks/results/baseline_billing.json``, every other key
-    pending with its queue item."""
+    equal to ``benchmarks/results/baseline_billing.json``: all 127 keys,
+    none pending."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -4771,21 +4974,21 @@ def phase_gate(report: dict) -> None:
     if failures:
         raise AssertionError("perf gate: " + "; ".join(failures))
     pending = sorted(k for k in baseline if gate.pending_reason(k) is not None)
-    if (len(counters), len(pending)) != (111, 16):
+    if (len(counters), len(pending)) != (127, 0):
         raise AssertionError(f"perf gate: {len(counters)} reachable keys, {len(pending)} "
-                             "pending; expected 111 and 16")
+                             "pending; expected 127 and 0")
     traces = {k: v for k, v in counters.items() if k.endswith(".traces")}
     report["perf_gate"] = dict(reachable=len(counters), pending=len(pending), counters=counters)
     log(f"[phase 4f] perf gate on the card: {len(counters)} reachable keys == baseline "
         f"(traces {traces}), {len(pending)} pending, {len(baseline)} accounted for")
 
 
-def flush_samples(srv, x, batch: int) -> list[float]:
-    """The wall of ``N_FLUSH`` flushes of ``batch`` rows of ``srv``, in ms,
+def flush_samples(srv, x, batch: int, n_flush: int = N_FLUSH) -> list[float]:
+    """The wall of ``n_flush`` flushes of ``batch`` rows of ``srv``, in ms,
     after ``N_WARM`` unrecorded ones: each the submit that fills the batch,
     ending in the flush's one transfer."""
     times = []
-    for k in range(N_WARM + N_FLUSH):
+    for k in range(N_WARM + n_flush):
         start = (k * batch) % (x.shape[0] - batch)
         rows = x[start : start + batch]
         for row in rows[:-1]:
@@ -4807,10 +5010,11 @@ def flush_latency(make_server, x, label: str, megakernels=(None, False),
     for batch, megakernel, capture in itertools.product((128, 256, 1024), megakernels, captures):
         # (a tree without the option runs its eager loop: a paired bench's parent)
         opts = {"megakernel": megakernel, **({} if capture else {"capture": False})}
-        times = flush_samples(make_server(batch_size=batch, backend_opts=opts), x, batch)
+        times = flush_samples(make_server(batch_size=batch, backend_opts=opts), x, batch,
+                              N_FLUSH if capture else N_FLUSH_EAGER)
         key = (f"batch{batch}" + ("" if megakernel is None else "_unfused")
                + ("" if capture else "_eager"))
-        # p90 of 100 samples has 10 beyond it
+        # p90 of 100 samples has 10 beyond it (of 40, 4)
         lat[key] = dict(
             median_ms=statistics.median(times),
             p90_ms=statistics.quantiles(times, n=10)[-1],
@@ -4942,9 +5146,10 @@ def unfused_calls(srv, x, label: str) -> dict:
     return dict(torch_ops=ops.n, stages=S, torch_ops_per_stage=ops.n / S, by_name=by_name)
 
 
-def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> dict:
+def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0],
+                  n_drains: int = N_DRAINS) -> dict:
     """Streaming at ``rate`` requests per step (default the heavy rate,
-    phase 4c's first): ``N_DRAINS`` drains of the test rows after one
+    phase 4c's first): ``n_drains`` drains of the test rows after one
     warm-up drain, each wave timed on the host clock (a wave ends in its
     results' transfer); then one wave's PyTorch operator calls, and one
     wave profiled for the device busy share over the unprofiled median
@@ -4976,7 +5181,7 @@ def stream_timing(make_server, x, label: str, rate: float = STREAM_RATES[0]) -> 
     walls.clear()
     per_step.clear()
     n0 = len(srv.stream_results)
-    for _ in range(N_DRAINS):
+    for _ in range(n_drains):
         t = time.perf_counter()
         stream_serve(srv, x, later(arrivals))
         drains.append(time.perf_counter() - t)
@@ -5248,15 +5453,18 @@ def phase_times(ctx: dict, main: dict, lmain: dict, smain: dict, rmain: dict, qm
             "exp4_rw2_joint": unfused_calls(lserver("cuda", backend_opts=unfused),
                                             lds.x_test, f"exp4_rw2_joint {label}"),
         }
+        drains = N_DRAINS if capture else N_DRAINS_EAGER
         report[f"stream_timing{sfx}"] = {
             cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", dict(opts)),
-                                smain["cells"][cell]["ds"].x_test, f"{cell} {label}")
+                                smain["cells"][cell]["ds"].x_test, f"{cell} {label}",
+                                n_drains=drains)
             for cell in smain["cells"]
         }
         # the unfused step (lane_fn + B6's step form), both cells at the heavy rate
         report[f"stream_timing_unfused{sfx}"] = {
             cell: stream_timing(lambda c=cell: smain["server"](c, "cuda", dict(unfused)),
-                                smain["cells"][cell]["ds"].x_test, f"{cell} unfused {label}")
+                                smain["cells"][cell]["ds"].x_test, f"{cell} unfused {label}",
+                                n_drains=drains)
             for cell in smain["cells"]
         }
         report[f"rank_stream_timing{sfx}"] = rank_stream_timing(rsmain, capture=capture)
@@ -5716,6 +5924,7 @@ def main() -> int:
     timed("4l", phase_decode, report, launches)
     timed("4m", phase_train, report, launches)
     timed("4n", phase_sharded, report, launches, main_ctx, lattice_ctx, rank_ctx)
+    timed("4o", phase_mesh2d, report, launches, main_ctx, lattice_ctx)
 
     # phase 5: times
     kernels = timed("5", phase_times, ctx, main_ctx, lattice_ctx, stream_ctx, rank_ctx,

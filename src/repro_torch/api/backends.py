@@ -5,7 +5,8 @@ Each backend declares its capabilities, says whether it can run here, and
 constructs its executor.  ``host`` is the per-stage host loop
 (``ChunkedExecutor``, numpy control flow); ``device`` is the stage loop on
 the device with no host sync (``DeviceExecutor``); ``sharded`` is that loop
-data-parallel over D logical shards of one device
+data-parallel over D logical shards of one device, and over a model axis
+of M column slices of each stage's slab when asked for
 (``ShardedDeviceExecutor``).
 
 The runtime degradation ladder (``DegradationLadder``): when a rung's
@@ -38,7 +39,7 @@ from repro_torch.kernels.device_executor import (
     WaveFailure,
 )
 from repro_torch.kernels.sharded_executor import ShardedDeviceExecutor
-from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.mesh import MODEL_AXIS, make_serving_mesh
 from repro_torch.testing import faults
 
 __all__ = [
@@ -75,13 +76,17 @@ class BackendCapabilities:
     which ``fit(groups=)`` needs.  ``data_parallel``: the executor splits
     the batch over shards, and takes the ``mesh`` / ``shards`` /
     ``rebalance`` options; ``supports_rebalance``: it can repack survivors
-    across shards."""
+    across shards.  ``model_parallel``: it takes a ``model_shards`` option
+    and splits each stage's param slab over a ``"model"`` mesh axis (a 2-D
+    ``("data", "model")`` mesh) for batch ``run``; its grouped and
+    streaming paths stay data-parallel only at ``model_shards > 1``."""
 
     on_device: bool
     streaming: bool = False
     grouped: bool = False
     data_parallel: bool = False
     supports_rebalance: bool = False
+    model_parallel: bool = False
 
 
 def _as_cascade_plan(plan: CascadePlan | DevicePlan) -> CascadePlan:
@@ -164,16 +169,16 @@ class DeviceBackend:
 
 class ShardedBackend:
     """The data-parallel device stage loop (``ShardedDeviceExecutor``) over
-    D logical shards of one device.  It reports itself available from two
-    CUDA devices on, as the reference does from two XLA devices, so
-    ``"auto"`` never picks it on one card; named with ``shards=`` it runs
-    on any device (ROADMAP C15)."""
+    D logical shards of one device, or D x M with a model axis.  It reports
+    itself available from two CUDA devices on, as the reference does from
+    two XLA devices, so ``"auto"`` never picks it on one card; named with
+    ``shards=`` it runs on any device (ROADMAP C15)."""
 
     name = "sharded"
     min_devices = 2
     capabilities = BackendCapabilities(
         on_device=True, streaming=True, grouped=True, data_parallel=True,
-        supports_rebalance=True,
+        supports_rebalance=True, model_parallel=True,
     )
 
     def available(self, n_devices: int | None = None, device=None) -> tuple[bool, str]:
@@ -191,14 +196,25 @@ class ShardedBackend:
 
     def resolve_mesh(self, mesh=None, shards: int | None = None, model_shards: int = 1,
                      device="cuda"):
-        """The mesh the executor will run on: an explicit mesh wins, else a
-        ``("data",)`` mesh of ``shards`` (default: one a CUDA device)
-        logical shards on ``device``.  ``model_shards > 1`` raises (ROADMAP
-        A15, second part)."""
+        """The mesh the executor will run on: an explicit mesh wins (its
+        ``"model"`` width must then equal ``model_shards`` when that is
+        above 1), else a ``("data",)`` mesh of ``shards`` logical shards on
+        ``device``, or with ``model_shards > 1`` a ``("data", "model")``
+        mesh of ``shards x model_shards``.  The default data width is the
+        CUDA devices left after the model axis takes its share (at least
+        1)."""
+        m = max(1, int(model_shards))
         if mesh is not None:
+            have = int(mesh.shape.get(MODEL_AXIS, 1))
+            if m > 1 and have != m:
+                raise ValueError(
+                    f"model_shards={m} conflicts with the explicit mesh "
+                    f"{tuple(mesh.shape.items())} (its 'model' axis is {have}-wide); "
+                    "pass one or the other"
+                )
             return mesh
-        n = int(shards) if shards else max(1, torch.cuda.device_count())
-        return make_serving_mesh(n, model_shards, device=device)
+        n = int(shards) if shards else max(1, torch.cuda.device_count() // m)
+        return make_serving_mesh(n, m, device=device)
 
     def make_executor(
         self,
@@ -223,10 +239,13 @@ class ShardedBackend:
             megakernel=megakernel, capture=capture, check_finite=check_finite,
         )
 
-    def billing_key(self, shards: int, rebalance: bool = False) -> str:
-        """The perf gate's counter-key fragment, ``sharded<D>[r]`` (the
-        reference's 1-D names)."""
-        return f"{self.name}{int(shards)}{'r' if rebalance else ''}"
+    def billing_key(self, shards: int, rebalance: bool = False, model_shards: int = 1) -> str:
+        """The perf gate's counter-key fragment, ``sharded<D>[r]``, or
+        ``sharded<D>x<M>[r]`` on a model axis (the reference's names)."""
+        shape = f"{int(shards)}"
+        if int(model_shards) > 1:
+            shape += f"x{int(model_shards)}"
+        return f"{self.name}{shape}{'r' if rebalance else ''}"
 
 
 # -- graceful degradation ------------------------------------------------

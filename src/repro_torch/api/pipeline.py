@@ -23,8 +23,9 @@ runs only when named or reached down the runtime degradation ladder
 fault is retried with backoff, then falls sharded -> device -> host, each
 step recorded on ``CompiledCascade.degradation_events``.  Any other error
 propagates (ROADMAP C11).  ``compile("sharded", shards=D)`` runs the
-data-parallel executor over D logical shards of the device; a model axis
-(``model_shards > 1``) raises, naming ROADMAP A15's second part.
+data-parallel executor over D logical shards of the device, and
+``model_shards=M`` adds a model axis (each stage's slab in M column slices,
+batch runs only).
 
 A model-backed fit (``fit(NeuralScorer(params, cfg, seq_len), tokens)``)
 calibrates on the scorer's own per-block scores, pins the fields its
@@ -56,7 +57,6 @@ from repro_torch.kernels.device_executor import (
     DevicePlan,
     matrix_stage_scorer,
 )
-from repro_torch.launch.mesh import MODEL_AXIS_TODO
 from repro_torch.ranking import GroupedRankServer, fit_grouped, group_offsets
 
 __all__ = ["FitConfig", "FittedCascade", "CompiledCascade", "fit"]
@@ -264,8 +264,10 @@ class FittedCascade:
         its two-device minimum, since its logical shards share one device
         (ROADMAP C15), but not an injected outage or a dropped device.
         Data-parallel options: ``mesh`` (a ``launch.mesh.ServingMesh``),
-        ``shards`` and ``rebalance``; ``model_shards > 1`` raises (ROADMAP
-        A15, second part).  ``device``: the torch device
+        ``shards`` and ``rebalance``; ``model_shards > 1`` also splits every
+        stage's param slab over a ``"model"`` mesh axis and needs a backend
+        whose capabilities carry ``model_parallel`` (batch runs only: a
+        grouped fit refuses it).  ``device``: the torch device
         the executor (and the score functions' inputs) live on; the default
         card raises without one, ``"cpu"`` runs the kernels' plain
         versions.  Host-only options: ``decide`` (``"reference"``, the
@@ -277,8 +279,7 @@ class FittedCascade:
         calibrated.  ``backoff`` / ``sleep`` tune the runtime
         degradation ladder (``sleep`` is injectable so tests never wait).
         """
-        if int(model_shards) > 1:
-            raise ValueError(MODEL_AXIS_TODO)
+        model_shards = max(1, int(model_shards))
         if scorer is None:
             scorer = self.scorer
         if scorer is not None and not isinstance(scorer, StageScorer):
@@ -296,7 +297,7 @@ class FittedCascade:
                 ) from None
             if b.capabilities.data_parallel:
                 ok, why = b.available()
-                if not ok and (mesh is not None or shards is not None):
+                if not ok and (mesh is not None or shards is not None or model_shards > 1):
                     # logical shards always cover the count asked for; the
                     # recheck keeps the other reasons (an injected outage,
                     # a dropped device)
@@ -317,6 +318,16 @@ class FittedCascade:
             raise ValueError(
                 f"mesh/shards/rebalance require a data-parallel backend (backend is {b.name!r})"
             )
+        if model_shards > 1 and not caps.model_parallel:
+            raise ValueError(
+                f"model_shards requires a model-parallel backend (backend is {b.name!r}; "
+                "the built-in 'sharded' rung carries the capability)"
+            )
+        if model_shards > 1 and self.grouped is not None:
+            raise ValueError(
+                "model_shards > 1 is batch-run only: the grouped (ranking) decide "
+                "stays data-parallel; compile with model_shards=1 for grouped serving"
+            )
         if self.grouped is not None and not caps.grouped:
             raise ValueError(
                 f"fit(groups=...) needs a backend with the grouped capability; "
@@ -325,7 +336,8 @@ class FittedCascade:
         return CompiledCascade(
             fitted=self, backend=b, plan=self.plan(chunk_t), device=dev,
             block_n=block_n, decide=decide, bill_block=bill_block, scorer=scorer,
-            mesh=mesh, shards=shards, rebalance=rebalance, backoff=backoff, sleep=sleep,
+            mesh=mesh, shards=shards, model_shards=model_shards, rebalance=rebalance,
+            backoff=backoff, sleep=sleep,
         )
 
 
@@ -336,8 +348,8 @@ class CompiledCascade:
     binds a fresh ``ChunkedExecutor`` per call.  ``serve`` builds a server
     on the same backend and device.  An injected construction fault is
     retried, then falls a rung (``degradation_events``); the data-parallel
-    options travel only to a data-parallel rung, so a fall from sharded to
-    device drops them.
+    options travel only to a data-parallel rung, and ``model_shards`` only
+    to a model-parallel one, so a fall from sharded to device drops them.
     """
 
     def __init__(
@@ -353,6 +365,7 @@ class CompiledCascade:
         scorer: StageScorer | None = None,
         mesh=None,
         shards: int | None = None,
+        model_shards: int = 1,
         rebalance: bool = False,
         backoff: BackoffPolicy | None = None,
         sleep=None,
@@ -369,6 +382,7 @@ class CompiledCascade:
         self.scorer_template = scorer
         self.mesh = mesh
         self.shards = shards
+        self.model_shards = max(1, int(model_shards))
         self.rebalance = bool(rebalance)
         self.last_rank_stats = None
         self.ladder = DegradationLadder(backoff=backoff, sleep=sleep, device=self.device)
@@ -409,15 +423,18 @@ class CompiledCascade:
             block_n=DEFAULT_BLOCK_N if self.block_n is None else self.block_n,
         )
         if backend.capabilities.data_parallel:
-            opts.update(self._data_parallel_opts())
+            opts.update(self._data_parallel_opts(backend))
         self._executor = self.ladder.attempt(
             "construct", backend.name, lambda: backend.make_executor(dplan, **opts)
         )
 
-    def _data_parallel_opts(self) -> dict:
-        """The options a data-parallel rung takes (the ones given)."""
+    def _data_parallel_opts(self, backend) -> dict:
+        """The options a data-parallel rung takes (the ones given);
+        ``model_shards`` only when the rung is model-parallel."""
         opts = {"mesh": self.mesh, "shards": self.shards}
         opts = {k: v for k, v in opts.items() if v is not None}
+        if self.model_shards > 1 and backend.capabilities.model_parallel:
+            opts["model_shards"] = self.model_shards
         if self.rebalance:
             opts["rebalance"] = True
         return opts
@@ -703,7 +720,7 @@ class CompiledCascade:
             server_kw.setdefault("block_n", self.block_n)
         if self.backend.capabilities.data_parallel:
             server_kw["backend_opts"] = {
-                **self._data_parallel_opts(), **server_kw.get("backend_opts", {})
+                **self._data_parallel_opts(self.backend), **server_kw.get("backend_opts", {})
             }
         common = dict(
             score_fn=self.fitted.score_fn if score_fn is None else score_fn,

@@ -11,8 +11,11 @@ the running sums in float64 as the reference does.  Its choices equal the
 numpy optimizer's (ties broken identically by the stable order), up to
 the float32 thresholds.
 
-A mesh over several devices is the model axis of the sharded slice
-(ROADMAP A15, second part): the port runs the sweep on one device.
+With a ``mesh`` (a ``launch.mesh.ServingMesh``), the reference shards the
+candidate axis over the mesh's last axis whenever its width divides the
+candidate count.  The port's mesh is logical shards of one device (ROADMAP
+C15), so a mesh only picks that device: each candidate's search is its own
+column's, and one sweep over all of them gives the reference's model.
 """
 
 from __future__ import annotations
@@ -24,15 +27,9 @@ import torch
 
 from repro_torch.core.qwyc import QWYCModel
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import ServingMesh
 
 __all__ = ["sweep_candidates", "fit_qwyc_sharded"]
-
-_MESH_TODO = (
-    "mesh= shards the candidate sweep over devices, which needs the model "
-    "axis, not ported yet (ROADMAP A15, second part); the port sweeps on one "
-    "device (mesh=None)"
-)
-
 
 def _search(vals, err_flag, budget, descending: bool):
     """One side's exact threshold search for every candidate column.
@@ -110,11 +107,14 @@ def fit_qwyc_sharded(
     device="cuda",
 ) -> QWYCModel:
     """QWYC Algorithm 1 with the candidate sweep on ``device`` (the card by
-    default).  Each step uploads the active rows' candidate sums as float32
-    and reads back the K thresholds and counts."""
-    if mesh is not None:
-        raise ValueError(_MESH_TODO)
-    dev = resolve_device(device)
+    default), or on ``mesh``'s device (see the module docstring).  Each step uploads the active rows' candidate sums
+    as float32 and reads back the K thresholds and counts."""
+    if mesh is not None and not isinstance(mesh, ServingMesh):
+        raise ValueError(
+            "mesh= takes a launch.mesh.ServingMesh (ROADMAP A15, C15: logical shards "
+            f"of one device), got {type(mesh).__name__}"
+        )
+    dev = resolve_device(device) if mesh is None else mesh.device
     F = np.asarray(scores, dtype=np.float64)
     n, T = F.shape
     full_pos = F.sum(1) >= beta
@@ -133,7 +133,8 @@ def fit_qwyc_sharded(
             break
         cands = perm[r:]
         G = torch.from_numpy((g[act, None] + F[np.ix_(act, cands)]).astype(np.float32)).to(dev)
-        res = sweep_candidates(G, torch.from_numpy(full_pos[act]).to(dev), budget, mode=mode)
+        fp = torch.from_numpy(full_pos[act]).to(dev)
+        res = sweep_candidates(G, fp, budget, mode=mode)
         n_exited = res["n_exited"].cpu().numpy()
         with np.errstate(divide="ignore"):
             J = np.where(n_exited > 0, act.size / np.maximum(n_exited, 1), np.inf)

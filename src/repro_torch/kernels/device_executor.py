@@ -139,6 +139,7 @@ from repro_torch.kernels.cascade_kernel import (
 )
 from repro_torch.kernels.lattice_kernel import lattice_scores_kernel
 from repro_torch.kernels.tree_kernel import gbt_scores_kernel
+from repro_torch.launch.shardings import split_columns, stage_column_slices
 from repro_torch.testing import faults
 
 __all__ = [
@@ -310,6 +311,15 @@ class BoundScorer:
     through the fused step (B7).  A stateful scorer gives ``stage_fn`` /
     ``lane_stage_fn`` (the protocol's signatures) instead of ``fn`` /
     ``lane_fn``.
+    ``model_partition`` (optional): the ticket onto a 2-D ``("data",
+    "model")`` mesh.  ``model_partition(M) -> (mparams, col_fn)``:
+    ``mparams`` is a dict of stage-stacked slab slices with a leading
+    model-shard axis (``(M, S, w_local, ...)``, from
+    ``launch.shardings.stage_column_slices``), and ``col_fn(mp, x, rows, s,
+    t0, c0, n_valid) -> (cap, w_local)`` scores only cascade columns [t0 +
+    c0, t0 + c0 + w_local) of stage ``s`` from one shard's slice ``mp``
+    (``mparams`` without its leading axis).  A scorer without one cannot
+    run at ``model_shards > 1``.
     """
 
     fn: Callable | None
@@ -321,6 +331,7 @@ class BoundScorer:
     state_spec: dict = dataclasses.field(default_factory=dict)
     stage_fn: Callable | None = None
     lane_stage_fn: Callable | None = None
+    model_partition: Callable | None = None
 
     @property
     def stateful(self) -> bool:
@@ -391,7 +402,51 @@ def matrix_stage_scorer(
         idx = t0_lane.long()[:, None] + torch.arange(W, device=x.device)
         return torch.gather(x[rows], 1, idx)
 
-    return BoundScorer(fn=fn, prepare=prepare, width=W, slabs=slabs, lane_fn=lane_fn)
+    def model_partition(model_shards: int):
+        w_l, w_g = split_columns(W, model_shards)
+
+        def col_fn(mp, x, rows, s, t0, c0, n_valid):
+            # x is padded to T_pad = max(t0) + W, and a slice past its end
+            # returns fewer columns: the last shard's slice of the last
+            # stage may reach w_g - W columns further, which read as zeros
+            # (the reference pads x[rows] by w_g - W before its slice)
+            cols = x[rows, t0 + c0 : t0 + c0 + w_l]
+            return torch.nn.functional.pad(cols, (0, w_l - cols.shape[1]))
+
+        # the slab is the operand itself: each model shard reads its columns
+        return {}, col_fn
+
+    return BoundScorer(
+        fn=fn, prepare=prepare, width=W, slabs=slabs, lane_fn=lane_fn,
+        model_partition=model_partition,
+    )
+
+
+def _slab_partition(dplan: DevicePlan, params: dict, kernel, block_n: int, device):
+    """The ``model_partition`` hook of a scorer whose stage slab is
+    ``params`` (name -> cascade-ordered array, in ``kernel``'s argument
+    order): model shard j's ``(S, w_local, ...)`` column slices, and a
+    ``col_fn`` launching ``kernel`` (B3 or B5) on stage s's slice."""
+
+    def model_partition(model_shards: int):
+        w_l, w_g = split_columns(dplan.W, model_shards)
+        mparams = {
+            name: stage_column_slices(a, dplan.stage_t0, w_l, w_g, device=device)
+            for name, a in params.items()
+        }
+
+        def col_fn(mp, x, rows, s, t0, c0, n_valid):
+            # a tree's or lattice's score depends on its own params only, so
+            # the kernel over the shard's (w_l, ...) slice gives its columns
+            # bit for bit
+            return kernel(
+                *(mp[name][s] for name in params), x, block_n=block_n, t0=0, t1=w_l,
+                rows=rows, n_valid=n_valid,
+            )
+
+        return mparams, col_fn
+
+    return model_partition
 
 
 def tree_stage_scorer(
@@ -446,7 +501,16 @@ def tree_stage_scorer(
         return mk.lane_scores("tree", x[rows], lane, W)
 
     return BoundScorer(
-        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn
+        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn,
+        model_partition=_slab_partition(
+            dplan,
+            {
+                "feats": feats_o,
+                "thrs": np.asarray(thrs_ordered, np.float32),
+                "leaves": np.asarray(leaves_ordered, np.float32),
+            },
+            gbt_scores_kernel, block_n, dev,
+        ),
     )
 
 
@@ -496,7 +560,10 @@ def lattice_stage_scorer(
         return mk.lane_scores("lattice", x[rows], lane, W)
 
     return BoundScorer(
-        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn
+        fn=fn, prepare=prepare, width=W, block_n=block_n, slabs=slabs, lane_fn=lane_fn,
+        model_partition=_slab_partition(
+            dplan, {"theta": theta_o, "feats": feats_o}, lattice_scores_kernel, block_n, dev
+        ),
     )
 
 

@@ -1,6 +1,5 @@
-"""Data-parallel cascade executor: the device stage loops over D logical
-shards of one card, the counterpart of ``repro.kernels.sharded_executor``
-(its data axis).
+"""Sharded cascade executor: the device stage loops over D x M logical
+shards of one card, the counterpart of ``repro.kernels.sharded_executor``.
 
 The reference splits the batch over a mesh's ``"data"`` axis with
 ``shard_map``: each XLA device runs the single-device loop over its own
@@ -33,6 +32,21 @@ on the same card, and the collectives become reductions over that axis:
 * **Exactly-once results.**  Exits scatter by global row id into shared
   (cap_g + 1,) outputs (trash slot cap_g): a row lives on one shard at a
   time, so, unlike the reference, no sum over shards assembles them.
+
+**The model axis** (a ``("data", "model")`` mesh with M > 1, batch
+``run`` only).  Every stage's slab is split into M contiguous column
+slices of ``w_local = ceil(W / M)`` columns (the scorer's
+``model_partition`` hook, ``launch.shardings``); model shard j of data
+shard k scores only columns [t0 + j * w_local, + w_local) of stage s over
+shard k's rows, each block is zero-padded to ``w_global = M * w_local``
+columns, and the M blocks are summed (the reference's one ``psum`` over
+``"model"``) and cut to W.  Downstream of the sum (B2's step form, the
+exit scatters, the repack, the census, the rebalance) everything is the
+data axis's, run once a data shard where the reference replicates it over
+the model shards.  A stage bills ``w_global`` columns.  The fused stage
+step, stateful scorers, scorers without the hook and M > W are refused,
+as are streaming and grouped runs; with M = 1 the 1-D program runs as it
+was (results, bill, launches and ``traces``).
 
 Streaming (``run_stream``) deals the pending rows round robin (request i
 waits in shard ``i % D``'s ring, each ring's trash id ``R_g``) and ends when
@@ -72,7 +86,8 @@ from repro_torch.kernels.device_executor import (
     repack_state,
     stream_occupancy,
 )
-from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, MODEL_AXIS_TODO, ServingMesh
+from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, ServingMesh
+from repro_torch.launch.shardings import model_stacked_shards, split_columns
 
 __all__ = ["ShardedDeviceExecutor", "critical_blocks"]
 
@@ -109,17 +124,20 @@ def _stack(parts: list) -> torch.Tensor:
 
 
 class ShardedDeviceExecutor(_DeviceLoops):
-    """Runs a ``CascadePlan`` over ``mesh``'s ``"data"`` shards (see the
-    module docstring): ``DeviceExecutor``'s ``run``, ``run_stream`` and
-    ``run_grouped`` contracts with the batch split over the shards.
+    """Runs a ``CascadePlan`` over ``mesh``'s ``"data"`` shards, and with a
+    ``"model"`` axis over its column slices too (see the module docstring):
+    ``DeviceExecutor``'s ``run``, ``run_stream`` and ``run_grouped``
+    contracts with the batch split over the data shards.
 
     ``mesh`` is a ``launch.mesh.ServingMesh``; its device is the executor's.
     ``rebalance`` enables the skew-triggered survivor repack and
     ``rebalance_ratio`` is its skew trigger (the fullest shard over ratio x
     the balanced count).  ``megakernel``, ``capture`` and ``check_finite``
-    are ``DeviceExecutor``'s.  After every run the per-shard accounting
-    lands in ``last_run_info``.  Every wave goes through ``launch_wave``
-    under the executor name ``"sharded"``.
+    are ``DeviceExecutor``'s; ``megakernel=None`` turns the fused step off
+    on a model axis.  After every run the per-shard accounting lands in
+    ``last_run_info`` (on a model axis also the per-coordinate counters).
+    Every wave goes through ``launch_wave`` under the executor name
+    ``"sharded"``.
     """
 
     def __init__(
@@ -136,18 +154,57 @@ class ShardedDeviceExecutor(_DeviceLoops):
     ):
         if DATA_AXIS not in mesh.axis_names:
             raise ValueError(f"mesh must carry a {DATA_AXIS!r} axis; got {mesh.axis_names}")
-        if int(mesh.shape.get(MODEL_AXIS, 1)) > 1:
-            raise ValueError(MODEL_AXIS_TODO)
+        model_shards = int(mesh.shape.get(MODEL_AXIS, 1))
+        if megakernel is None and model_shards > 1:
+            # the fused stage step has no model-axis sum, so auto turns it off
+            megakernel = False
         super().__init__(
             plan, scorer, block_n=block_n, megakernel=megakernel, device=mesh.device,
             capture=capture, check_finite=check_finite,
         )
         self.mesh = mesh
         self.shards = int(mesh.shape[DATA_AXIS])
-        self.model_shards = 1
+        self.model_shards = model_shards
         self.rebalance = bool(rebalance)
         self.rebalance_ratio = float(rebalance_ratio)
         self.last_run_info: dict | None = None
+        if model_shards > 1:
+            self._check_model_axis()
+            self._w_local, self._w_global = split_columns(self.dplan.W, model_shards)
+            mparams, self._col_fn = scorer.model_partition(model_shards)
+            # one contiguous slab slice a model shard, made once
+            self._mparams = model_stacked_shards(mparams, mesh)
+
+    def _mesh_desc(self) -> str:
+        return f"{self.shards}x{self.model_shards} ({DATA_AXIS!r}, {MODEL_AXIS!r}) mesh"
+
+    def _check_model_axis(self) -> None:
+        """The reference's refusals on a model axis."""
+        desc = self._mesh_desc()
+        if self.megakernel:
+            raise ValueError(
+                f"megakernel=True is unavailable on a {desc}: the fused stage step "
+                "has no model-axis psum seam.  Use the multi-kernel path "
+                "(megakernel=None/False) or model_shards=1."
+            )
+        if self.scorer.stateful:
+            raise ValueError(
+                f"a {desc} cannot carry a stateful scorer (non-empty state_spec): "
+                "per-row state would need the model-axis collective the 2-D path "
+                "reserves for the score psum.  Use model_shards=1."
+            )
+        if self.scorer.model_partition is None:
+            raise ValueError(
+                f"a {desc} needs a scorer with a model_partition hook (factory-built "
+                "scorers carry one; custom scorers must split their stage slabs into "
+                "contiguous column slices, see BoundScorer.model_partition)"
+            )
+        if self.model_shards > self.dplan.W:
+            raise ValueError(
+                f"{desc} has more model shards than the plan's stage width "
+                f"W={self.dplan.W}: a stage slab splits into at most W contiguous "
+                f"column slices (compile with model_shards <= {self.dplan.W})"
+            )
 
     def _cap_local(self, n: int) -> int:
         """Per-shard buffer capacity: the balanced share, block-padded."""
@@ -181,7 +238,10 @@ class ShardedDeviceExecutor(_DeviceLoops):
                 rows=rows if in_place else None,
             )
             return g_new, dpos, ex_rel, pack, n_keep, state
-        scores, state = self.scorer.stage(state, t0, t0 + self.dplan.W, rows, x, n_live)
+        if self.model_shards > 1:
+            scores = self._model_sum(s, t0, x, rows, n_live)
+        else:
+            scores, state = self.scorer.stage(state, t0, t0 + self.dplan.W, rows, x, n_live)
         # B2's step form reads each lane's partial sum through its slot: the
         # lane's own, since the shard keeps g lane by lane
         g_new, _, dpos, ex_rel, pack, n_keep = cascade_chunk_step(
@@ -189,6 +249,25 @@ class ShardedDeviceExecutor(_DeviceLoops):
             n_valid=n_live, block_n=self.block_n,
         )
         return g_new, dpos, ex_rel, pack, n_keep, state
+
+    def _model_sum(self, s: int, t0: int, x, rows, n_live) -> torch.Tensor:
+        """Stage ``s``'s (cap_l, W) scores for one data shard, over the model
+        axis: each model shard j scores its ``w_local`` columns (from
+        column ``t0 + j * w_local``) into a zero-padded (cap_l, w_global)
+        f32 block, the M blocks are summed (the reference's one ``psum`` over
+        ``"model"``, the stage step that ``per_coord_psums`` counts) and cut
+        to the stage's W columns.  Columns past W are the next stage's
+        models (or zero params past T): scored, then dropped here."""
+        w_l, w_g = self._w_local, self._w_global
+        blocks = []
+        for j, mp in enumerate(self._mparams):
+            c0 = j * w_l
+            cols = self._col_fn(mp, x, rows, s, t0, c0, n_live).to(torch.float32)
+            blocks.append(torch.nn.functional.pad(cols, (c0, w_g - c0 - w_l)))
+        # every column is nonzero in at most one block, so the sum is exact;
+        # a -0.0 score comes out +0.0, which moves no bit of g: g starts at
+        # +0.0, and g + (+0.0) == g + (-0.0) for every g a stage can hold
+        return torch.stack(blocks).sum(dim=0)[:, : self.dplan.W].contiguous()
 
     def _rebalance(self, rows, g, counts, states):
         """The skew-triggered repack, selected on the device -> ``(rows, g,
@@ -319,13 +398,14 @@ class ShardedDeviceExecutor(_DeviceLoops):
             )
         if self.check_finite:
             check_batch_finite(batch, n)
-        D = self.shards
+        D, M = self.shards, self.model_shards
         if capacity is not None and capacity < n:
+            where = self._mesh_desc() if M > 1 else f"{D}-shard {DATA_AXIS!r} mesh"
             raise ValueError(
-                f"capacity {capacity} cannot hold n={n} rows on a {D}-shard "
-                f"{DATA_AXIS!r} mesh: the flush capacity pins the global buffer, "
-                f"split into {D} slices block-padded to {self.block_n}; pass "
-                "capacity >= n (or None to size from the batch)"
+                f"capacity {capacity} cannot hold n={n} rows on a {where}: the flush "
+                f"capacity pins the global buffer, split into {D} data-shard slices "
+                f"block-padded to {self.block_n}; pass capacity >= n (or None to size "
+                "from the batch)"
             )
         cap = self._cap_local(max(n, capacity or 0))
         cap_g = D * cap
@@ -349,6 +429,9 @@ class ShardedDeviceExecutor(_DeviceLoops):
             pos[k, : cnt[k]] = start[k] + np.arange(cnt[k])
         pick = torch.cat([order, torch.full((1,), cap_g, dtype=torch.int64, device=dev)])
         key = ("batch", cap, tuple(x.shape[1:]), x.dtype)
+        if M > 1:
+            # a program of its own a (D, M) shape: one graph each
+            key += (D, M)
 
         def wave():
             bufs = self._buffers(key, lambda: (
@@ -371,7 +454,10 @@ class ShardedDeviceExecutor(_DeviceLoops):
         reb_log = words[o + D + D * S :]
         s_f = int((n_in_log.sum(axis=0) > 0).sum())
         stages = plan.stages
-        bn, W = self._bn_bill(), self.dplan.W
+        bn = self._bn_bill()
+        # a model shard bills its w_local columns, so a stage bills w_global
+        # = M * ceil(W / M) columns over the model axis (W at M = 1)
+        w_bill = self._w_global if M > 1 else self.dplan.W
         chunk_stats = []
         per_shard_scores = np.zeros((D, s_f), dtype=np.int64)
         for s in range(s_f):
@@ -380,7 +466,7 @@ class ShardedDeviceExecutor(_DeviceLoops):
             n_next = int(n_in_log[:, s + 1].sum()) if s + 1 < s_f else int(n_f.sum())
             # each shard bills the live blocks of its slice; an empty shard
             # bills zero (its kernels' block guard skipped the stage)
-            per_shard_scores[:, s] = (-(-n_in_k // bn)) * bn * W
+            per_shard_scores[:, s] = (-(-n_in_k // bn)) * bn * w_bill
             chunk_stats.append(
                 ChunkStat(
                     t0=stages[s][0],
@@ -397,8 +483,19 @@ class ShardedDeviceExecutor(_DeviceLoops):
             "per_shard_final_live": n_f.copy(),
             "per_shard_scores": per_shard_scores,
             "rebalanced_stages": np.flatnonzero(reb_log[:s_f]).tolist(),
-            "model_shards": self.model_shards,
+            "model_shards": M,
         }
+        if M > 1:
+            # coordinate (k, j) scores ceil(n_in[k] / bn) * bn rows of its
+            # w_local columns a stage, and sums over the model axis once a
+            # stage step
+            coord = (-(-n_in_log[:, :s_f].astype(np.int64) // bn)) * bn * self._w_local
+            self.last_run_info.update(
+                mesh_shape=(D, M),
+                per_coord_scores=np.repeat(coord[:, None, :], M, axis=1),
+                per_coord_psums=np.full((D, M), s_f, dtype=np.int64),
+                per_coord_stages=np.full((D, M), s_f, dtype=np.int64),
+            )
         return ExecutorResult(
             decisions=dec.astype(bool),
             exit_step=ex,
@@ -558,6 +655,13 @@ class ShardedDeviceExecutor(_DeviceLoops):
         ``last_run_info``.
         """
         T = self.dplan.plan.T
+        if self.model_shards > 1:
+            raise ValueError(
+                f"run_stream is unavailable on a {self._mesh_desc()}: streaming "
+                "admission mixes per-lane stages, which would need a per-lane "
+                "model-axis psum (data-parallel only); compile with model_shards=1 "
+                "for streaming"
+            )
         if not self.scorer.has_lanes and not self.megakernel:
             raise ValueError(
                 "run_stream needs a scorer with per-lane stage scoring (lane_fn) "
@@ -752,6 +856,13 @@ class ShardedDeviceExecutor(_DeviceLoops):
         the shards as whole units; there is no grouped rebalance.
         """
         T, S = self.dplan.plan.T, self.dplan.S
+        if self.model_shards > 1:
+            raise ValueError(
+                f"run_grouped is unavailable on a {self._mesh_desc()}: the grouped "
+                "(ranking) decide is data-parallel only (BackendCapabilities."
+                "model_parallel covers batch run()); compile with model_shards=1 "
+                "for grouped serving"
+            )
         group_rows = np.asarray(group_rows, dtype=np.int64)
         group_valid = np.asarray(group_valid)
         if group_rows.ndim != 2 or group_rows.shape != group_valid.shape:

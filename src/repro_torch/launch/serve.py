@@ -17,10 +17,13 @@ device backend on one card, never the host loop), ``device``, ``sharded``
 or ``host``.  ``--backend sharded --backend-shards D`` splits every flush
 (``D x --batch-size`` rows) over D logical shards of the card, and
 ``--rebalance`` repacks the survivors across them when their occupancy
-skews:
+skews; ``--model-shards M`` adds a model axis, each stage's slab scored in
+M column slices (batch serving only):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --T 500 --scale 1.0 \
         --alpha 0.005 --backend sharded --backend-shards 4 --batch-size 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --T 500 --scale 1.0 \
+        --alpha 0.005 --backend sharded --backend-shards 2 --model-shards 2
 ``--device`` picks the torch device: ``cuda`` (the default, an error
 without a card) or ``cpu``, which runs every kernel's plain version.
 ``--streaming`` serves through ``StreamingServer`` (continuous batching)
@@ -74,7 +77,6 @@ from repro_torch.kernels import ops
 from repro_torch.ranking import group_offsets, ndcg_at_k
 from repro_torch.serving.engine import BACKENDS as POLICIES
 from repro_torch.serving.engine import QWYCServer, StreamingServer
-from repro_torch.launch.mesh import MODEL_AXIS_TODO
 from repro_torch.testing import FaultPlan
 
 # row-block size for the lazy chunked score kernels: survivors are padded
@@ -105,7 +107,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--model-shards", type=int, default=None,
-        help="model-parallel width: not ported (raises unless 1)",
+        help="model-parallel width for --backend sharded/auto: score every stage's "
+        "param slab in M column slices of a second 'model' mesh axis, summed once a "
+        "stage step (logical shards of the device; batch serving only)",
     )
     ap.add_argument(
         "--rebalance", action="store_true",
@@ -212,14 +216,16 @@ def _ragged_sizes(n: int, mean: int, rng) -> np.ndarray:
 
 def resolve_backend_args(args) -> tuple[str, dict]:
     """(exec_backend name, backend_opts) from parsed CLI args: an explicit
-    shard count under ``--backend auto`` is a request for the sharded
-    backend."""
+    shard count or model-axis width under ``--backend auto`` is a request for
+    the sharded backend."""
     backend = args.backend
     opts: dict = {}
-    if args.model_shards is not None and args.model_shards > 1:
-        raise ValueError(MODEL_AXIS_TODO)
     if args.backend_shards is not None:
         opts["shards"] = int(args.backend_shards)
+        if backend == "auto":
+            backend = "sharded"
+    if args.model_shards is not None:
+        opts["model_shards"] = int(args.model_shards)
         if backend == "auto":
             backend = "sharded"
     if args.rebalance:
@@ -302,6 +308,11 @@ def main(argv=None) -> None:
     on_device = backend.capabilities.on_device
     if backend_opts.get("rebalance") and not backend.capabilities.supports_rebalance:
         ap.error(f"--rebalance requires the sharded backend (resolved {backend.name!r})")
+    if backend_opts.get("model_shards", 1) > 1 and not backend.capabilities.model_parallel:
+        ap.error(
+            f"--model-shards requires a model-parallel backend "
+            f"(resolved {backend.name!r}; use --backend sharded)"
+        )
     if args.streaming and not backend.capabilities.streaming:
         ap.error(
             f"--streaming needs an on-device backend (resolved {backend.name!r}; "
@@ -406,8 +417,9 @@ def main(argv=None) -> None:
         server = QWYCServer(qwyc, backend=args.policy, **common_kw)
         arrivals = None
     if server.mesh is not None:
-        print(f"[serve] sharded serving mesh: {server.n_shards} logical shards on "
-              f"{server.mesh.device}")
+        m = int(server.mesh.shape.get("model", 1))
+        shape = f"{server.n_shards} x {m} (data x model)" if m > 1 else f"{server.n_shards}"
+        print(f"[serve] sharded serving mesh: {shape} logical shards on {server.mesh.device}")
     x_test = ds.x_test
     if chaos is not None:
         if args.chaos_poison > 0:
@@ -463,10 +475,13 @@ def main(argv=None) -> None:
             f"p99 {st.latency_p99:.0f}"
             + (f"  (max_wait={args.max_wait})" if args.max_wait is not None else "")
         )
+    shards = ""
+    if server.exec.capabilities.data_parallel:
+        m = int(server.mesh.shape.get("model", 1)) if server.mesh is not None else 1
+        shards = f", {server.n_shards}{f'x{m}' if m > 1 else ''} shards"
     print(
         f"[serve] {st.n_requests} requests in {st.n_batches} batches "
-        f"({server.exec.name} backend"
-        f"{f', {server.n_shards} shards' if server.exec.capabilities.data_parallel else ''}, "
+        f"({server.exec.name} backend{shards}, "
         f"{'streaming' if args.streaming else args.policy + ' policy'}, "
         f"{'eager' if args.eager else 'lazy'})\n"
         f"        mean models {st.mean_models:.2f}/{args.T}  "

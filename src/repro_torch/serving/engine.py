@@ -65,7 +65,7 @@ from repro_torch.core.qwyc import QWYCModel
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.device_executor import DevicePlan, matrix_stage_scorer
-from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS_TODO
+from repro_torch.launch.mesh import DATA_AXIS
 from repro_torch.serving.watchdog import DriftWatchdog, WatchdogConfig, widen_plan
 
 __all__ = ["ServeStats", "QWYCServer", "StreamingServer", "BACKENDS"]
@@ -192,11 +192,11 @@ class QWYCServer:
         ``score_block_n`` is ``chunk_score_fn``'s row-block granularity,
         which the host loop bills at.  ``backend_opts`` forwards options
         (``megakernel=``; for the sharded backend ``shards=``, ``mesh=``,
-        ``rebalance=``, ``rebalance_ratio=``) to the backend's
-        ``make_executor``; ``mesh=`` and ``rebalance=`` are spellings of the
-        same entries, and a mesh or a shard count under ``"auto"`` means
-        the sharded backend, whose flushes serve ``batch_size`` rows a
-        shard.  ``device``
+        ``rebalance=``, ``rebalance_ratio=``, and ``model_shards=`` for a
+        model axis, batch flushes only) to the backend's ``make_executor``;
+        ``mesh=`` and ``rebalance=`` are spellings of the same entries, and
+        a mesh or a shard count under ``"auto"`` means the sharded backend,
+        whose flushes serve ``batch_size`` rows a data shard.  ``device``
         defaults to the card and raises without one; ``"cpu"`` runs every
         kernel's plain version.
 
@@ -222,8 +222,7 @@ class QWYCServer:
             opts.setdefault("mesh", mesh)
         if rebalance:
             opts["rebalance"] = True
-        if int(opts.pop("model_shards", None) or 1) > 1:
-            raise ValueError(MODEL_AXIS_TODO)
+        model_shards = int(opts.pop("model_shards", None) or 1)
         if exec_backend == AUTO and ("mesh" in opts or "shards" in opts):
             # an explicit mesh or shard count is a request for the sharded
             # backend, not for whatever "auto" negotiates
@@ -238,6 +237,12 @@ class QWYCServer:
         if not caps.data_parallel and ("mesh" in opts or "shards" in opts):
             raise ValueError(
                 f"mesh/shards require a data-parallel backend (exec_backend is {self.exec.name!r})"
+            )
+        if model_shards > 1 and not caps.model_parallel:
+            raise ValueError(
+                "model_shards > 1 requires a model-parallel backend "
+                f"(exec_backend is {self.exec.name!r}; see "
+                "Backend.capabilities.model_parallel)"
             )
         on_device = caps.on_device
         if score_fn is None and chunk_score_fn is None and (not on_device or scorer is None):
@@ -264,11 +269,16 @@ class QWYCServer:
         self.mesh = None
         self.n_shards = 1
         if caps.data_parallel:
-            # the server needs the shard count up front, to size its flush
+            # the server needs the shard count up front, to size its flush;
+            # the model axis travels only when asked for, so an explicit
+            # mesh is checked against it rather than winning over it
+            mkw = {"model_shards": model_shards} if model_shards > 1 else {}
             self.mesh = self.exec.resolve_mesh(
-                opts.pop("mesh", None), opts.pop("shards", None), device=self.torch_device
+                opts.pop("mesh", None), opts.pop("shards", None), device=self.torch_device,
+                **mkw,
             )
             opts["mesh"] = self.mesh
+            # the flush is the data axis's: model shards split columns
             self.n_shards = int(self.mesh.shape[DATA_AXIS])
         self.rebalance = bool(opts.get("rebalance", False))
         self._exec_opts = opts

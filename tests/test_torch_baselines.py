@@ -302,8 +302,18 @@ def test_fit_qwyc_sharded_equal(mode, alpha):
 
 
 def test_fit_qwyc_sharded_mesh_raises_naming_a15():
+    """``mesh=`` takes a serving mesh (the sweep on its device, the
+    one-device model bit for bit); anything else raises."""
+    from repro_torch.launch.mesh import make_serving_mesh
+
     with pytest.raises(ValueError, match="ROADMAP A15"):
         fit_qwyc_sharded(np.zeros((4, 3)), mesh=object(), device="cpu")
+    F = make_scores(np.random.default_rng(68), n=240, t=14)
+    one = fit_qwyc_sharded(F, beta=0.0, alpha=0.02, device="cpu")
+    m = fit_qwyc_sharded(F, beta=0.0, alpha=0.02, mesh=make_serving_mesh(1, 2, device="cpu"))
+    np.testing.assert_array_equal(m.order, one.order)
+    np.testing.assert_array_equal(_bits(m.eps_pos), _bits(one.eps_pos))
+    np.testing.assert_array_equal(_bits(m.eps_neg), _bits(one.eps_neg))
 
 
 # ------------------------------------------------------------------- MoE

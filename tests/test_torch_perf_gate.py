@@ -43,20 +43,20 @@ def _reachable():
 
 
 def test_every_baseline_key_is_reachable_or_pending(counters):
-    """127 keys: 111 reachable (the port produces exactly these) and 16
-    pending, every one a 2-D mesh key (``*.sharded1x4*`` or
-    ``*.sharded2x2*``, A15's second part), with its queue item."""
+    """127 keys, all reachable (the port produces exactly these) and none
+    pending: the 16 2-D mesh keys (``*.sharded1x4*``, ``*.sharded2x2*``)
+    among them."""
     pending = {k: gate.pending_reason(k) for k in BASELINE if gate.pending_reason(k)}
     assert len(BASELINE) == 127
     assert set(counters) == set(_reachable())
     assert set(counters) | set(pending) == set(BASELINE)
     assert not set(counters) & set(pending)
-    assert (len(counters), len(pending)) == (111, 16)
-    assert all(
-        fnmatch.fnmatchcase(k, "*.sharded1x4*") or fnmatch.fnmatchcase(k, "*.sharded2x2*")
-        for k in pending
-    )
-    assert all("A15, second part" in r and "queue A item" in r for r in pending.values())
+    assert (len(counters), len(pending)) == (127, 0)
+    two_d = [
+        k for k in counters
+        if fnmatch.fnmatchcase(k, "*.sharded1x4*") or fnmatch.fnmatchcase(k, "*.sharded2x2*")
+    ]
+    assert len(two_d) == 16
 
 
 @pytest.mark.parametrize("key", _reachable())
@@ -84,6 +84,10 @@ def test_traces_keys_reachable(counters):
             f"{mode}.sharded{d}.multikernel.traces": 1
             for mode in ("both", "neg_only") for d in (2, 4)
         },
+        **{
+            f"{mode}.sharded{shape}.traces": 1
+            for mode in ("both", "neg_only") for shape in ("2x2", "1x4")
+        },
         "serve.sharded4.traces": 1, "stream.sharded4.traces": 1,
         "ranking.sharded4.traces": 3,
     }
@@ -103,16 +107,17 @@ def test_compare_fails_one_off_either_way(counters, delta):
         assert ("ABOVE" if delta > 0 else "BELOW") in failures[0]
 
 
-def test_compare_fails_on_key_drift(counters):
+def test_compare_fails_on_key_drift(counters, monkeypatch):
     missing = {k: v for k, v in counters.items() if k != "both.host.stages"}
     assert any("not produced: both.host.stages" in f for f in gate.compare(BASELINE, missing))
     extra = dict(counters, **{"both.device.fused.scores": 1})
     assert any("not in the baseline" in f for f in gate.compare(BASELINE, extra))
-    produced = dict(counters, **{"both.sharded2x2.scores": BASELINE["both.sharded2x2.scores"]})
-    assert any("pending key produced" in f for f in gate.compare(BASELINE, produced))
+    # a key still marked pending must not be produced
+    monkeypatch.setattr(gate, "PENDING", (("*.sharded2x2*", "a queue item"),))
+    assert any("pending key produced" in f for f in gate.compare(BASELINE, counters))
 
 
 def test_main_check_passes_on_cpu(capsys):
     assert gate.main(["--device", "cpu", "--check"]) == 0
     out = capsys.readouterr().out
-    assert "111 reachable, 16 pending" in out and "[perf-gate] OK" in out
+    assert "127 reachable, 0 pending" in out and "[perf-gate] OK" in out

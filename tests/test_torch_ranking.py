@@ -556,7 +556,8 @@ def test_api_unported_and_invalid_options_raise(bench):
     for kw in ({"mesh": object()}, {"shards": 2}, {"rebalance": True}):
         with pytest.raises(ValueError, match="require a data-parallel backend"):
             fitted.compile("device", device="cpu", **kw)
-    with pytest.raises(ValueError, match="ROADMAP A15, second part"):
+    # a model axis is batch-run only: the grouped decide stays data-parallel
+    with pytest.raises(ValueError, match="model_shards > 1 is batch-run only"):
         fitted.compile("sharded", device="cpu", shards=2, model_shards=2)
     # the degradation ladder is ported: backoff / sleep tune it
     from repro_torch.api.backends import BackoffPolicy

@@ -518,14 +518,19 @@ def test_serving_mesh_and_validation_errors():
     for bad in ((0, 1), (2, 0)):
         with pytest.raises(ValueError, match="must be >= 1"):
             make_serving_mesh(*bad, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP A15, second part"):
-        make_serving_mesh(2, model_shards=2, device=CPU)
+    # a model axis gives the 2-D mesh, and the executor runs on it
+    mesh2 = make_serving_mesh(2, model_shards=2, device=CPU)
+    assert (mesh2.axis_names, mesh2.shape, batch_axes(mesh2)) == (
+        ("data", "model"), {"data": 2, "model": 2}, ("data",))
     m = fit_qwyc(gate_matrix(), beta=0.0, alpha=0.01)
     dplan = DevicePlan.from_plan(CascadePlan.from_qwyc(m, chunk_t=8))
     scorer = matrix_stage_scorer(dplan, device=CPU)
     two_d = ServingMesh(("data", "model"), {"data": 2, "model": 2}, torch.device(CPU))
-    with pytest.raises(ValueError, match="ROADMAP A15, second part"):
-        ShardedDeviceExecutor(dplan, scorer, two_d)
+    sx2 = ShardedDeviceExecutor(dplan, scorer, two_d)
+    assert (sx2.shards, sx2.model_shards, sx2.megakernel) == (2, 2, False)
+    r2 = sx2.run(gate_matrix()[:, m.order].astype(np.float32), 512)
+    np.testing.assert_array_equal(r2.decisions, evaluate_cascade(m, gate_matrix())["decisions"])
+    assert sx2.last_run_info["mesh_shape"] == (2, 2)
     with pytest.raises(ValueError, match="'data' axis"):
         ShardedDeviceExecutor(dplan, scorer, ServingMesh(("x",), {"x": 2}, torch.device(CPU)))
     sx = _executor(dplan, 4, block_n=64)
@@ -621,8 +626,10 @@ def test_server_sharded_spellings_and_refusals(ensembles):
         QWYCServer(m, exec_backend="device", rebalance=True, **kw)
     with pytest.raises(ValueError, match="mesh/shards require a data-parallel backend"):
         QWYCServer(m, exec_backend="device", backend_opts={"shards": 2}, **kw)
-    with pytest.raises(ValueError, match="ROADMAP A15, second part"):
-        QWYCServer(m, backend_opts={"shards": 2, "model_shards": 2}, **kw)
+    # a model axis: the server's mesh is 2-D and its flush the data axis's
+    srv2 = QWYCServer(m, backend_opts={"shards": 2, "model_shards": 2}, **kw)
+    assert (srv2.exec.name, srv2.mesh.shape, srv2.n_shards, srv2.flush_size) == (
+        "sharded", {"data": 2, "model": 2}, 2, 32)
 
 
 def test_compile_sharded_evaluate_serve_and_rank():
